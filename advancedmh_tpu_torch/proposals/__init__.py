@@ -1,0 +1,18 @@
+from .core import (
+    Proposal,
+    RandomWalkProposal,
+    StaticProposal,
+    SymmetricRandomWalkProposal,
+    SymmetricStaticProposal,
+    is_proposal,
+    logratio_proposal_density,
+    propose,
+    propose_initial,
+    q,
+)
+
+__all__ = [
+    "Proposal", "RandomWalkProposal", "StaticProposal",
+    "SymmetricRandomWalkProposal", "SymmetricStaticProposal", "is_proposal",
+    "logratio_proposal_density", "propose", "propose_initial", "q",
+]
