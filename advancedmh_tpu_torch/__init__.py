@@ -1,16 +1,32 @@
 """advancedmh_tpu_torch — the Metropolis-Hastings framework on PyTorch and CUDA.
 
 The port of ``advancedmh_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100.
-This slice carries the RWMH main path end to end: distributions, models,
-proposal trees, the MH sampler, ``sample`` with a batched tensor engine
+It carries the reference sampler surface end to end: distributions,
+models, proposal trees, the MH sampler (RWMH), MALA, Robust Adaptive
+Metropolis and the emcee ensemble, ``sample`` with a batched tensor engine
 (``engine="torch"``) and the hand-written CUDA kernels of the fused engine
 (``engine="fused"``, ``csrc/``), ``Chains`` and the ESS / R̂ / MCSE
-diagnostics. Public names match ``advancedmh_tpu``'s. The package imports
-torch and numpy and never jax; the kernels are built with nvcc at their
-first launch.
+diagnostics. Public names match ``advancedmh_tpu``'s. Models live on the
+card unless the caller passes another ``device``. The package imports torch
+and numpy and never jax; the kernels are built with nvcc at their first
+launch.
 """
 
-from .distributions import Distribution, MvNormal, Normal
+from .distributions import (
+    Beta,
+    Cauchy,
+    Distribution,
+    Exponential,
+    Gamma,
+    InverseGamma,
+    Laplace,
+    LogNormal,
+    MvNormal,
+    Normal,
+    StudentT,
+    TDist,
+    Uniform,
+)
 from .models import (
     CapabilityOrder,
     DensityModel,
@@ -31,10 +47,17 @@ from .proposals import (
     q,
 )
 from .samplers import (
+    MALA,
     RWMH,
+    Ensemble,
+    GradientTransition,
     MetropolisHastings,
+    RobustAdaptiveMetropolis,
+    RobustAdaptiveMetropolisState,
     StaticMH,
+    StretchProposal,
     Transition,
+    WalkProposal,
     getparams,
     setparams,
 )
@@ -53,7 +76,9 @@ __version__ = "0.1.0"
 
 __all__ = [
     # distributions
-    "Distribution", "Normal", "MvNormal",
+    "Distribution", "Normal", "MvNormal", "LogNormal", "Uniform",
+    "Exponential", "Laplace", "Cauchy", "StudentT", "TDist", "Gamma",
+    "InverseGamma", "Beta",
     # models
     "DensityModel", "CapabilityOrder", "as_model", "logdensity",
     "logdensity_and_gradient", "guarded_logdensity",
@@ -63,7 +88,9 @@ __all__ = [
     "propose", "propose_initial", "q", "logratio_proposal_density",
     # samplers
     "MetropolisHastings", "StaticMH", "RWMH", "Transition",
-    "getparams", "setparams",
+    "GradientTransition", "MALA", "RobustAdaptiveMetropolis",
+    "RobustAdaptiveMetropolisState", "Ensemble", "StretchProposal",
+    "WalkProposal", "getparams", "setparams",
     # runtime
     "sample", "Schedule", "SamplingResult",
     "MCMCSerial", "MCMCThreads", "MCMCDistributed",

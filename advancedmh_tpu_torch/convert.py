@@ -1,9 +1,10 @@
 """Carry the JAX package's state across, as numpy arrays.
 
 Functions here take numpy arrays (never JAX objects) and return the port's
-objects on a given device, so one set of inputs can be handed to both
-packages: model data, proposal scales, and a ``Transition``'s
-``(params, lp, accepted)`` for ``initial_params`` / ``initial_state``.
+objects on a given device (the card unless the caller asks for another),
+so one set of inputs can be handed to both packages: model data, proposal
+scales, and the states of RWMH, MALA, RAM and the ensemble sampler for
+``initial_params`` / ``initial_state``.
 """
 from __future__ import annotations
 
@@ -13,17 +14,33 @@ import numpy as np
 import torch
 
 from .distributions import MvNormal
-from .models.targets import TileDensityModel, gaussian_mean_scale_model
-from .samplers.base import Transition
+from .models.targets import (TileDensityModel, correlated_gaussian_model,
+                             emcee_demo_model, gaussian_mean_scale_model)
+from .samplers.base import GradientTransition, Transition
+from .samplers.ram import RobustAdaptiveMetropolisState
 
 
 def _f32(a, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
 
-def gaussian_mean_scale_from_numpy(data: np.ndarray, device="cpu") -> TileDensityModel:
+def _bool(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, bool), device=device)
+
+
+def gaussian_mean_scale_from_numpy(data: np.ndarray, device="cuda") -> TileDensityModel:
     """The (μ, σ) flagship model on the observations ``data``."""
     return gaussian_mean_scale_model(data=np.asarray(data, np.float32), device=device)
+
+
+def correlated_gaussian_from_numpy(cov: np.ndarray, device="cuda") -> TileDensityModel:
+    """The zero-mean Gaussian target with covariance ``cov``."""
+    return correlated_gaussian_model(np.asarray(cov, np.float64), device=device)
+
+
+def emcee_demo_from_numpy(transformed: bool = False, device="cuda") -> TileDensityModel:
+    """The emcee test model (it has no data: both packages build it alike)."""
+    return emcee_demo_model(transformed=transformed, device=device)
 
 
 def mvnormal_from_numpy(
@@ -31,7 +48,7 @@ def mvnormal_from_numpy(
     scale: Optional[float] = None,
     scale_diag: Optional[np.ndarray] = None,
     scale_tril: Optional[np.ndarray] = None,
-    device="cpu",
+    device="cuda",
 ) -> MvNormal:
     """An MvNormal with one of the three scale forms."""
     kw = {}
@@ -45,11 +62,31 @@ def mvnormal_from_numpy(
 
 
 def transition_from_numpy(
-    params: np.ndarray, lp: np.ndarray, accepted: np.ndarray, device="cpu"
+    params: np.ndarray, lp: np.ndarray, accepted: np.ndarray, device="cuda"
 ) -> Transition:
-    """A Transition (single chain or chain-batched) from its three arrays."""
-    return Transition(
-        _f32(params, device),
-        _f32(lp, device),
-        torch.as_tensor(np.asarray(accepted, bool), device=device),
+    """A Transition from its three arrays: one chain, a chain batch, or an
+    ensemble's walkers ``(W, d)`` / ``(W,)``."""
+    return Transition(_f32(params, device), _f32(lp, device), _bool(accepted, device))
+
+
+def gradient_transition_from_numpy(
+    params: np.ndarray, lp: np.ndarray, gradient: np.ndarray,
+    accepted: np.ndarray, device="cuda",
+) -> GradientTransition:
+    """A MALA state (params, lp, gradient, accepted)."""
+    return GradientTransition(_f32(params, device), _f32(lp, device),
+                              _f32(gradient, device), _bool(accepted, device))
+
+
+def ram_state_from_numpy(
+    x: np.ndarray, logprob: np.ndarray, S: np.ndarray, logalpha: np.ndarray,
+    eta: np.ndarray, iteration: np.ndarray, isaccept: np.ndarray, device="cuda",
+) -> RobustAdaptiveMetropolisState:
+    """A RAM state; ``S`` is ``(C, d, d)`` (or ``(d, d)`` for one chain) at
+    the API, as the JAX state holds it (the kernel takes ``(d*d, C)``)."""
+    return RobustAdaptiveMetropolisState(
+        x=_f32(x, device), logprob=_f32(logprob, device), S=_f32(S, device),
+        logalpha=_f32(logalpha, device), eta=_f32(eta, device),
+        iteration=torch.as_tensor(np.asarray(iteration, np.int32), device=device),
+        isaccept=_bool(isaccept, device),
     )

@@ -1,0 +1,209 @@
+// What every kernel of csrc/ shares: the per-step noise, the target
+// densities as device functors, and the registry of compiled (density, d)
+// pairs.
+//
+// Densities. A CUDA kernel cannot trace a PyTorch density, so each target
+// the fused engine runs is a functor chosen at compile time:
+//   kName          the model's `cuda_density` tag (models/targets.py),
+//   kDim           the dimension it is instantiated for,
+//   logp           log density of one chain's x, reading `consts` (the
+//                  model's tile_consts, flattened, in shared memory),
+//   value_and_grad (where a gradient kernel needs it) the same log density
+//                  and its gradient in one pass.
+// Each does the same algebra as its plain twin in models/targets.py, in
+// float32, so that with --fmad=false the two differ only in the last ulp of
+// logf and in the order of a sum over observations.
+//
+// Registry. Each kernel file lists the densities it instantiates in one
+// X-macro; that list dispatches the C entry point (kNoKernel for a pair it
+// lacks) and is exported as text by amh_pairs_<kernel>() so that Python
+// reads, and never restates, which pairs exist.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <string>
+
+#include "philox.cuh"
+
+namespace amh {
+
+constexpr float kTwoPi = 6.283185307179586f;
+constexpr double kHalfLog2Pi = 0.91893853320467274178;
+constexpr int kNoKernel = -1;
+
+// Noise of absolute step j for chain c: D normals (Box-Muller pairs) and
+// log(u) of one uniform. Words 2p and 2p+1 feed pair p, word 2P the uniform;
+// sub-block s of the counter gives words 4s..4s+3 (ops/rwmh.py::step_noise).
+template <int D>
+__device__ __forceinline__ void step_noise(uint64_t j, uint32_t c, uint32_t k0,
+                                           uint32_t k1, float (&z)[D],
+                                           float& logu) {
+  constexpr int P = (D + 1) / 2;
+  constexpr int W = 2 * P + 1;
+  constexpr int S = (W + 3) / 4;
+  uint32_t w[4 * S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const Words4 r = philox4x32_10((uint32_t)j, c, (uint32_t)s,
+                                   (uint32_t)(j >> 32), k0, k1);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[4 * s + i] = r.v[i];
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const float u1 = uniform_from_bits(w[2 * p]);
+    const float u2 = uniform_from_bits(w[2 * p + 1]);
+    const float r = sqrtf(-2.0f * logf(u1));
+    float sn, cs;
+    sincosf(kTwoPi * u2, &sn, &cs);
+    z[2 * p] = r * cs;
+    if (2 * p + 1 < D) z[2 * p + 1] = r * sn;
+  }
+  logu = logf(uniform_from_bits(w[2 * P]));
+}
+
+// y = L z for a lower-triangular L (row-major D x D, zeros above the
+// diagonal), by column accumulation: the plain versions' order.
+template <int D>
+__device__ __forceinline__ void tril_matvec(const float* L, const float (&z)[D],
+                                            float (&y)[D]) {
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    float acc = L[i * D] * z[0];
+#pragma unroll
+    for (int k = 1; k < D; ++k) acc = acc + L[i * D + k] * z[k];
+    y[i] = acc;
+  }
+}
+
+__device__ __forceinline__ void load_consts(float* sh, const float* consts,
+                                            int n_consts) {
+  for (int i = threadIdx.x; i < n_consts; i += blockDim.x) sh[i] = consts[i];
+  __syncthreads();
+}
+
+// ---- densities ---------------------------------------------------------
+
+// models/targets.py::gaussian_mean_scale_tile: x = (mu, sigma), consts = the
+// n observations. One reciprocal per chain; -inf where sigma < 0.
+struct GaussianMeanScale {
+  static constexpr const char* kName = "gaussian_mean_scale";
+  static constexpr int kDim = 2;
+
+  __device__ static float logp(const float* x, const float* obs, int n) {
+    const float mu = x[0];
+    const float sigma = x[1];
+    const float inv = 1.0f / fmaxf(sigma, 0.1f);
+    float s = 0.0f;
+    for (int i = 0; i < n; ++i) {
+      const float z = (obs[i] - mu) * inv;
+      s = s + -0.5f * z * z;
+    }
+    const float lp = (s + (float)n * logf(inv)) - (float)((double)n * kHalfLog2Pi);
+    return sigma >= 0.0f ? lp : -INFINITY;
+  }
+
+  // The gradient JAX's reverse mode gives for the tile density
+  // (models/targets.py::gaussian_mean_scale_tile_value_and_grad): with
+  // m = max(sigma, 0.1), inv = 1/m, r_i = obs_i - mu, z_i = r_i inv,
+  //   d/dmu    = inv * sum z_i,
+  //   d/dinv   = n * (1/inv) - sum z_i r_i,
+  //   d/dsigma = (-d/dinv) / (m m) * w,  w = 1 (sigma > 0.1), 0.5 (= 0.1:
+  //              max splits the cotangent), 0 (< 0.1);
+  // both components 0 where sigma < 0 (the -inf branch carries no gradient).
+  __device__ static float value_and_grad(const float* x, const float* obs,
+                                         int n, float* g) {
+    const float mu = x[0];
+    const float sigma = x[1];
+    const float m = fmaxf(sigma, 0.1f);
+    const float inv = 1.0f / m;
+    float s = 0.0f, s1 = 0.0f, s2 = 0.0f;
+    for (int i = 0; i < n; ++i) {
+      const float r = obs[i] - mu;
+      const float z = r * inv;
+      s = s + -0.5f * z * z;
+      s1 = s1 + z;
+      s2 = s2 + z * r;
+    }
+    const float lp = (s + (float)n * logf(inv)) - (float)((double)n * kHalfLog2Pi);
+    if (!(sigma >= 0.0f)) {
+      g[0] = 0.0f;
+      g[1] = 0.0f;
+      return -INFINITY;
+    }
+    const float d_inv = (1.0f / inv) * (float)n - s2;
+    const float w = sigma > 0.1f ? 1.0f : (sigma == 0.1f ? 0.5f : 0.0f);
+    g[0] = inv * s1;
+    g[1] = (-d_inv) / (m * m) * w;
+    return lp;
+  }
+};
+
+// models/targets.py::correlated_gaussian_tile: zero-mean Gaussian with
+// precision P; consts = P (row-major D x D, symmetric) then the log
+// normalising constant c. lp = -0.5 x'Px + c, gradient -P x.
+template <int D>
+struct CorrelatedGaussian {
+  static constexpr const char* kName = "correlated_gaussian";
+  static constexpr int kDim = D;
+
+  __device__ static float value_and_grad(const float* x, const float* pc, int,
+                                         float* g) {
+    float q = 0.0f;
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      float px = pc[i * D] * x[0];
+#pragma unroll
+      for (int j = 1; j < D; ++j) px = px + pc[i * D + j] * x[j];
+      q = i == 0 ? x[0] * px : q + x[i] * px;
+      g[i] = -px;
+    }
+    return -0.5f * q + pc[D * D];
+  }
+
+  __device__ static float logp(const float* x, const float* pc, int n) {
+    float g[D];
+    return value_and_grad(x, pc, n, g);
+  }
+};
+
+// models/targets.py::emcee_demo_tile: x = (s, m); s ~ InverseGamma(2, 3),
+// m ~ N(0, sqrt s), observations 1.5 and 2.0 from N(m, sqrt s). Out of the
+// support (s <= 0) the value is -1e30, not -inf, as in the JAX model.
+struct EmceeDemo {
+  static constexpr const char* kName = "emcee_demo";
+  static constexpr int kDim = 2;
+
+  __device__ static float logp(const float* x, const float*, int) {
+    const float s = x[0];
+    const float m = x[1];
+    const float safe = fmaxf(s, 1e-6f);
+    const float log_s = logf(safe);
+    const float inv_s = 1.0f / safe;
+    const float a = 1.5f - m;
+    const float b = 2.0f - m;
+    const float quad = m * m + a * a + b * b;
+    const float lp = (float)(2.0 * 1.0986122886681098) - 3.0f * log_s -
+                     3.0f * inv_s - 1.5f * log_s -
+                     (float)(3.0 * kHalfLog2Pi) - 0.5f * quad * inv_s;
+    return s > 0.0f ? lp : -1e30f;
+  }
+};
+
+// ---- registry -----------------------------------------------------------
+
+template <class T>
+inline bool matches(const char* name, int d) {
+  return name != nullptr && d == T::kDim && std::strcmp(name, T::kName) == 0;
+}
+
+template <class T>
+inline std::string pair_text() {
+  return std::string(T::kName) + ":" + std::to_string(T::kDim) + " ";
+}
+
+}  // namespace amh

@@ -34,71 +34,13 @@
 // leaves lp a few bits off the plain version's and, rarely, flips an accept
 // test that lands on its threshold (ops/_build.py has the measured rates).
 
-#include <cuda_runtime.h>
-
-#include <cmath>
-#include <cstdint>
-
-#include "philox.cuh"
+#include "common.cuh"
 
 namespace amh {
 
-constexpr float kTwoPi = 6.283185307179586f;
-constexpr double kHalfLog2Pi = 0.91893853320467274178;
 constexpr int kBlock = 128;
 
-// ---- densities: one device function per target, chosen at compile time ---
-
-// models/targets.py::gaussian_mean_scale_tile: x = (mu, sigma), consts = the
-// observations. One reciprocal per chain; -inf where sigma < 0.
-struct GaussianMeanScale {
-  static constexpr int kDim = 2;
-  __device__ static float logp(const float* x, const float* obs, int n) {
-    const float mu = x[0];
-    const float sigma = x[1];
-    const float inv = 1.0f / fmaxf(sigma, 0.1f);
-    float s = 0.0f;
-    for (int i = 0; i < n; ++i) {
-      const float z = (obs[i] - mu) * inv;
-      s = s + -0.5f * z * z;
-    }
-    const float lp = (s + (float)n * logf(inv)) - (float)((double)n * kHalfLog2Pi);
-    return sigma >= 0.0f ? lp : -INFINITY;
-  }
-};
-
 // ---- one MH step --------------------------------------------------------
-
-// Noise of absolute step j for chain c: d normals (Box-Muller pairs) and
-// log(u) for the accept test. Word 2p and 2p+1 feed pair p, word 2P the
-// accept uniform; sub-block s of the counter gives words 4s..4s+3.
-template <int D>
-__device__ __forceinline__ void step_noise(uint64_t j, uint32_t c, uint32_t k0,
-                                           uint32_t k1, float (&z)[D],
-                                           float& logu) {
-  constexpr int P = (D + 1) / 2;
-  constexpr int W = 2 * P + 1;
-  constexpr int S = (W + 3) / 4;
-  uint32_t w[4 * S];
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const Words4 r = philox4x32_10((uint32_t)j, c, (uint32_t)s,
-                                   (uint32_t)(j >> 32), k0, k1);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) w[4 * s + i] = r.v[i];
-  }
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    const float u1 = uniform_from_bits(w[2 * p]);
-    const float u2 = uniform_from_bits(w[2 * p + 1]);
-    const float r = sqrtf(-2.0f * logf(u1));
-    float sn, cs;
-    sincosf(kTwoPi * u2, &sn, &cs);
-    z[2 * p] = r * cs;
-    if (2 * p + 1 < D) z[2 * p + 1] = r * sn;
-  }
-  logu = logf(uniform_from_bits(w[2 * P]));
-}
 
 // candidate = x + scale * z (per-dimension) or x + L z (lower-triangular L,
 // row-major, column accumulation as in the plain version); accept iff
@@ -114,16 +56,13 @@ __device__ __forceinline__ bool mh_step(float (&x)[Density::kDim], float& lp,
   float logu;
   step_noise<D>(j, c, k0, k1, z, logu);
   float cand[D];
+  if (kTril) {
+    tril_matvec<D>(scale, z, cand);
 #pragma unroll
-  for (int i = 0; i < D; ++i) {
-    if (kTril) {
-      float acc = scale[i * D] * z[0];
+    for (int i = 0; i < D; ++i) cand[i] = x[i] + cand[i];
+  } else {
 #pragma unroll
-      for (int k = 1; k < D; ++k) acc = acc + scale[i * D + k] * z[k];
-      cand[i] = x[i] + acc;
-    } else {
-      cand[i] = x[i] + scale[i] * z[i];
-    }
+    for (int i = 0; i < D; ++i) cand[i] = x[i] + scale[i] * z[i];
   }
   const float lp_cand = Density::logp(cand, consts, n_consts);
   const bool accept = logu < lp_cand - lp;
@@ -158,12 +97,6 @@ __device__ __forceinline__ void load_state(ChainState<Density, kTril>& st,
 #pragma unroll
   for (int i = 0; i < Density::kDim; ++i) st.x[i] = params_t[i * C + c];
   st.lp = lp_in[c];
-}
-
-__device__ __forceinline__ void load_consts(float* sh, const float* consts,
-                                            int n_consts) {
-  for (int i = threadIdx.x; i < n_consts; i += blockDim.x) sh[i] = consts[i];
-  __syncthreads();
 }
 
 // ---- kernel A: burn-in + thinned emission --------------------------------
@@ -236,8 +169,6 @@ __global__ void __launch_bounds__(kBlock)
 
 // ---- host-side launch ------------------------------------------------------
 
-constexpr int kNoKernel = -1;
-
 inline dim3 grid_for(int64_t C) { return dim3((unsigned)((C + kBlock - 1) / kBlock)); }
 
 template <class Density, bool kTril>
@@ -272,42 +203,62 @@ int launch_steps(const float* params_t, const float* lp, const float* scale,
 
 // ---- plain C interface (loaded with ctypes by ops/_build.py) --------------
 //
-// density 0 = GaussianMeanScale (d = 2). Each entry point returns the value of
-// cudaGetLastError() after the launch, or -1 when no kernel is instantiated
-// for the (density, d) pair. These switches are the one place that says which
-// pairs exist; the wrapper turns -1 into a ValueError.
+// The densities both kernels are instantiated for. This list is the one
+// place that says which (density, d) pairs exist: it dispatches the entry
+// points, which return amh::kNoKernel for any other pair (the wrapper turns
+// that into a ValueError), and amh_pairs_rwmh() exports it.
+#define AMH_RWMH_DENSITIES(X)                                           \
+  X(amh::GaussianMeanScale)                                             \
+  X(amh::CorrelatedGaussian<2>)                                         \
+  X(amh::CorrelatedGaussian<4>)                                         \
+  X(amh::CorrelatedGaussian<8>)                                         \
+  X(amh::EmceeDemo)
 
 extern "C" {
 
-int amh_rwmh_sample(int32_t density, int32_t d, int32_t tril,
+int amh_rwmh_sample(const char* density, int32_t d, int32_t tril,
                     const void* params_t, const void* lp, const void* scale,
                     const void* consts, int32_t n_consts, uint64_t seed,
                     int64_t burn, int64_t thin, int64_t n_samples,
                     uint64_t offset, int64_t C, void* samples, void* lps,
                     void* accs, void* stream) {
-  using amh::GaussianMeanScale;
-  if (density != 0 || d != GaussianMeanScale::kDim) return amh::kNoKernel;
-  auto* f = tril ? amh::launch_sample<GaussianMeanScale, true>
-                 : amh::launch_sample<GaussianMeanScale, false>;
-  return f((const float*)params_t, (const float*)lp, (const float*)scale,
-           (const float*)consts, n_consts, seed, burn, thin, n_samples, offset,
-           C, (float*)samples, (float*)lps, (float*)accs,
-           (cudaStream_t)stream);
+#define X(T)                                                                \
+  if (amh::matches<T>(density, d))                                          \
+    return (tril ? amh::launch_sample<T, true> : amh::launch_sample<T, false>)( \
+        (const float*)params_t, (const float*)lp, (const float*)scale,      \
+        (const float*)consts, n_consts, seed, burn, thin, n_samples, offset, \
+        C, (float*)samples, (float*)lps, (float*)accs, (cudaStream_t)stream);
+  AMH_RWMH_DENSITIES(X)
+#undef X
+  return amh::kNoKernel;
 }
 
-int amh_rwmh(int32_t density, int32_t d, int32_t tril, const void* params_t,
+int amh_rwmh(const char* density, int32_t d, int32_t tril, const void* params_t,
              const void* lp, const void* scale, const void* consts,
              int32_t n_consts, uint64_t seed, int64_t n_steps, uint64_t offset,
              int64_t C, void* out_params, void* out_lp, void* out_acc,
              void* stream) {
-  using amh::GaussianMeanScale;
-  if (density != 0 || d != GaussianMeanScale::kDim) return amh::kNoKernel;
-  auto* f = tril ? amh::launch_steps<GaussianMeanScale, true>
-                 : amh::launch_steps<GaussianMeanScale, false>;
-  return f((const float*)params_t, (const float*)lp, (const float*)scale,
-           (const float*)consts, n_consts, seed, n_steps, offset, C,
-           (float*)out_params, (float*)out_lp, (float*)out_acc,
-           (cudaStream_t)stream);
+#define X(T)                                                                \
+  if (amh::matches<T>(density, d))                                          \
+    return (tril ? amh::launch_steps<T, true> : amh::launch_steps<T, false>)( \
+        (const float*)params_t, (const float*)lp, (const float*)scale,      \
+        (const float*)consts, n_consts, seed, n_steps, offset, C,           \
+        (float*)out_params, (float*)out_lp, (float*)out_acc,                \
+        (cudaStream_t)stream);
+  AMH_RWMH_DENSITIES(X)
+#undef X
+  return amh::kNoKernel;
+}
+
+const char* amh_pairs_rwmh() {
+  static const std::string text = [] {
+    std::string s;
+#define X(T) s += amh::pair_text<T>();
+    AMH_RWMH_DENSITIES(X)
+#undef X
+    return s;
+  }();
+  return text.c_str();
 }
 
 const char* amh_error_string(int32_t code) {

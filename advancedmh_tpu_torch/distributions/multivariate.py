@@ -28,7 +28,7 @@ class MvNormal(Distribution):
         return MvNormal(loc=loc, scale_tril=torch.linalg.cholesky(cov))
 
     @staticmethod
-    def standard(d: int, device="cpu") -> "MvNormal":
+    def standard(d: int, device="cuda") -> "MvNormal":
         return MvNormal(loc=torch.zeros(d, dtype=torch.float32, device=device))
 
     @property

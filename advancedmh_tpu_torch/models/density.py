@@ -26,7 +26,8 @@ class DensityModel:
     ``logdensity_batched_fn`` is an optional natively batched form
     ``params(C, ...) -> lp(C,)``; by default the batched density is
     ``torch.func.vmap`` of ``logdensity_fn``. ``device`` is where the model's
-    data lives and where samplers draw their noise.
+    data lives and where samplers draw their noise: the card unless the
+    caller asks for another (``device="cpu"`` runs on the CPU).
     """
 
     logdensity_fn: Callable[[Any], torch.Tensor]
@@ -36,7 +37,7 @@ class DensityModel:
     dimension: Optional[int] = None
     capabilities: int = CapabilityOrder.ONE
     logdensity_batched_fn: Optional[Callable[[Any], torch.Tensor]] = None
-    device: torch.device = torch.device("cpu")
+    device: torch.device = torch.device("cuda")
 
     def __post_init__(self):
         object.__setattr__(self, "device", torch.device(self.device))
@@ -45,12 +46,13 @@ class DensityModel:
         return self.logdensity_fn(params)
 
 
-def as_model(model_or_fn) -> DensityModel:
-    """Coerce a callable or LogDensityProblems-style object to a DensityModel."""
+def as_model(model_or_fn, device="cuda") -> DensityModel:
+    """Coerce a callable or LogDensityProblems-style object to a DensityModel
+    (on ``device``, or the object's own ``device`` attribute)."""
     if isinstance(model_or_fn, DensityModel):
         return model_or_fn
     if callable(model_or_fn) and not hasattr(model_or_fn, "logdensity"):
-        return DensityModel(logdensity_fn=model_or_fn)
+        return DensityModel(logdensity_fn=model_or_fn, device=device)
     ld = getattr(model_or_fn, "logdensity")
     ldg = getattr(model_or_fn, "logdensity_and_gradient", None)
     dim = getattr(model_or_fn, "dimension", None)
@@ -66,7 +68,7 @@ def as_model(model_or_fn) -> DensityModel:
         logdensity_and_gradient_fn=ldg,
         dimension=dim,
         capabilities=cap,
-        device=getattr(model_or_fn, "device", "cpu"),
+        device=getattr(model_or_fn, "device", device),
     )
 
 

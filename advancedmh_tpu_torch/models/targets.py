@@ -1,11 +1,16 @@
-"""Prebuilt target models (≙ advancedmh_tpu/models/targets.py; only the
-reference README flagship in this slice).
+"""Prebuilt target models (≙ advancedmh_tpu/models/targets.py): the README
+flagship, the correlated Gaussian of the RAM and MALA tests, and the emcee
+test model.
 
 A model that the fused engine can run carries, besides its per-chain
 density, a *tile* density over the transposed chain block ``(d, C) ->
-(1, C)`` (the plain version of the kernel's density), the constants that
-tile density reads, and ``cuda_density``: the name of the device function
-in ``csrc/rwmh.cu`` that the kernels instantiate for it.
+(1, C)`` (the plain version of the kernels' density), for gradient kernels
+a tile value-and-gradient ``(d, C) -> ((1, C), (d, C))`` written by hand,
+the constants both read, and ``cuda_density``: the name of the device
+functor in ``csrc/common.cuh`` that the kernels instantiate for it.
+
+Every constructor builds its tensors on ``device``: the card unless the
+caller asks for another.
 """
 from __future__ import annotations
 
@@ -16,7 +21,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from ..distributions import Normal
+from ..distributions import InverseGamma, MvNormal, Normal
 from .density import DensityModel, guarded_logdensity
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -27,16 +32,20 @@ class TileDensityModel(DensityModel):
     """A DensityModel with a tile density for the fused engine."""
 
     tile_density: Optional[Callable] = None
+    tile_value_and_grad: Optional[Callable] = None
     tile_consts: Tuple[torch.Tensor, ...] = ()
     cuda_density: Optional[str] = None
+
+
+# ---- the (μ, σ) flagship -------------------------------------------------
 
 
 def gaussian_mean_scale_tile(p: torch.Tensor, obs: torch.Tensor) -> torch.Tensor:
     """Tile density of the (μ, σ) model: ``p`` (2, C), ``obs`` (n, 1).
 
     One reciprocal per chain instead of n divides; ``-inf`` where σ < 0.
-    The CUDA device function ``GaussianMeanScale`` in ``csrc/rwmh.cu`` does
-    the same algebra.
+    The CUDA functor ``GaussianMeanScale`` in ``csrc/common.cuh`` does the
+    same algebra.
     """
     n = obs.shape[0]
     mu, sigma = p[0:1], p[1:2]
@@ -50,8 +59,40 @@ def gaussian_mean_scale_tile(p: torch.Tensor, obs: torch.Tensor) -> torch.Tensor
     return torch.where(sigma >= 0, lp, torch.full_like(lp, -torch.inf))
 
 
+def gaussian_mean_scale_tile_value_and_grad(p: torch.Tensor, obs: torch.Tensor):
+    """Value and gradient of :func:`gaussian_mean_scale_tile`, by hand.
+
+    The gradient is the one reverse mode gives for the tile density: with
+    m = max(σ, 0.1), inv = 1/m, r = obs − μ and z = r·inv,
+    ``∂μ = inv·Σz``, ``∂inv = n·(1/inv) − Σ z·r`` and
+    ``∂σ = (−∂inv)/(m·m)·w``, where w is 1 above σ = 0.1, 0.5 at it (the
+    maximum splits its cotangent) and 0 below; both components are 0 where
+    σ < 0 (the −inf branch carries no gradient). ``GaussianMeanScale::
+    value_and_grad`` in ``csrc/common.cuh`` does the same algebra.
+    """
+    n = obs.shape[0]
+    mu, sigma = p[0:1], p[1:2]
+    m = torch.clamp(sigma, min=0.1)
+    inv = 1.0 / m
+    r = obs - mu
+    z = r * inv
+    lp = (
+        torch.sum(-0.5 * z * z, dim=0, keepdim=True)
+        + n * torch.log(inv)
+        - n * _HALF_LOG_2PI
+    )
+    d_inv = (1.0 / inv) * n - torch.sum(z * r, dim=0, keepdim=True)
+    one = torch.ones_like(sigma)
+    w = torch.where(sigma > 0.1, one, torch.where(sigma == 0.1, 0.5 * one, 0.0 * one))
+    grad = torch.cat([inv * torch.sum(z, dim=0, keepdim=True),
+                      (-d_inv) / (m * m) * w])
+    inside = sigma >= 0
+    return (torch.where(inside, lp, torch.full_like(lp, -torch.inf)),
+            torch.where(inside, grad, torch.zeros_like(grad)))
+
+
 def gaussian_mean_scale_model(
-    data=None, n_obs: int = 30, seed: int = 1234, device="cpu"
+    data=None, n_obs: int = 30, seed: int = 1234, device="cuda"
 ) -> TileDensityModel:
     """The reference README/test flagship: θ = (μ, σ) posterior of a Normal
     with a σ ≥ 0 support guard (reference README.md:23-40 and
@@ -76,6 +117,129 @@ def gaussian_mean_scale_model(
         logdensity_batched_fn=lambda theta: gaussian_mean_scale_tile(theta.T, obs)[0],
         device=device,
         tile_density=gaussian_mean_scale_tile,
+        tile_value_and_grad=gaussian_mean_scale_tile_value_and_grad,
         tile_consts=(obs,),
         cuda_density="gaussian_mean_scale",
     )
+
+
+# ---- the correlated Gaussian ---------------------------------------------
+
+
+def correlated_gaussian_tile_value_and_grad(x: torch.Tensor, prec: torch.Tensor,
+                                            const: torch.Tensor):
+    """Tile value ``-x'Px/2 + const`` and gradient ``-P x`` of the zero-mean
+    Gaussian with precision ``prec`` (d, d); ``x`` (d, C). Sums run in the
+    order of ``CorrelatedGaussian`` in ``csrc/common.cuh``."""
+    d = x.shape[0]
+    px = []
+    for i in range(d):
+        acc = prec[i, 0] * x[0:1]
+        for j in range(1, d):
+            acc = acc + prec[i, j] * x[j : j + 1]
+        px.append(acc)
+    q = x[0:1] * px[0]
+    for i in range(1, d):
+        q = q + x[i : i + 1] * px[i]
+    return -0.5 * q + const, -torch.cat(px)
+
+
+def correlated_gaussian_tile(x, prec, const):
+    """Tile density of the correlated Gaussian (see above)."""
+    return correlated_gaussian_tile_value_and_grad(x, prec, const)[0]
+
+
+def correlated_gaussian_model(cov, device="cuda") -> TileDensityModel:
+    """Zero-mean multivariate Gaussian target with covariance ``cov``
+    (≙ the RAM doctest Gaussian and the MALA quadratic density of the
+    reference tests, test/runtests.jl:317-364).
+
+    The precision is inverted in float64 and symmetrised, so the gradient
+    −P·x is the exact gradient of the float32 quadratic form."""
+    cov = np.asarray(cov.cpu() if isinstance(cov, torch.Tensor) else cov, np.float64)
+    d = cov.shape[0]
+    prec64 = np.linalg.inv(cov)
+    prec = torch.as_tensor(0.5 * (prec64 + prec64.T), dtype=torch.float32, device=device)
+    const = torch.full((1, 1), -0.5 * math.log(np.linalg.det(2.0 * np.pi * cov)),
+                       dtype=torch.float32, device=device)
+    mv = MvNormal.from_cov(torch.zeros(d, dtype=torch.float32, device=device),
+                           torch.as_tensor(cov, dtype=torch.float32, device=device))
+
+    def ldg(x):
+        return mv.log_prob(x), -(prec @ x)
+
+    return TileDensityModel(
+        logdensity_fn=mv.log_prob,
+        logdensity_and_gradient_fn=ldg,
+        dimension=d,
+        logdensity_batched_fn=lambda x: correlated_gaussian_tile(x.T, prec, const)[0],
+        device=device,
+        tile_density=correlated_gaussian_tile,
+        tile_value_and_grad=correlated_gaussian_tile_value_and_grad,
+        tile_consts=(prec, const),
+        cuda_density="correlated_gaussian",
+    )
+
+
+# ---- the emcee test model ------------------------------------------------
+
+_IG_CONST = 2.0 * math.log(3.0)  # InverseGamma(2, 3): α log θ − lgamma(2)
+
+
+def _emcee_joint(log_s, inv_s, m):
+    """Closed form of the joint density at s (given log s and 1/s) and m:
+    IG(2, 3) + N(0, √s)(m) + N(m, √s)(1.5) + N(m, √s)(2.0)."""
+    quad = m * m + (1.5 - m) * (1.5 - m) + (2.0 - m) * (2.0 - m)
+    return (
+        _IG_CONST
+        - 3.0 * log_s
+        - 3.0 * inv_s
+        - 1.5 * log_s
+        - 3.0 * _HALF_LOG_2PI
+        - 0.5 * quad * inv_s
+    )
+
+
+def emcee_demo_tile(x: torch.Tensor) -> torch.Tensor:
+    """Tile density of the emcee test model, x = (s, m) rows (2, C). Out of
+    the support (s <= 0) it is −1e30, not −inf, as in the JAX model, so a
+    stretch move's logα never becomes NaN. ``EmceeDemo`` in
+    ``csrc/common.cuh`` does the same algebra."""
+    s, m = x[0:1], x[1:2]
+    safe_s = torch.clamp(s, min=1e-6)
+    lp = _emcee_joint(torch.log(safe_s), 1.0 / safe_s, m)
+    return torch.where(s > 0, lp, torch.full_like(lp, -1e30))
+
+
+def emcee_demo_tile_transformed(x: torch.Tensor) -> torch.Tensor:
+    """Tile density in (log s, m) with the log transform's Jacobian."""
+    logs, m = x[0:1], x[1:2]
+    return _emcee_joint(logs, torch.exp(-logs), m) + logs
+
+
+def emcee_demo_model(transformed: bool = False, device="cuda") -> TileDensityModel:
+    """The reference emcee test model (test/emcee.jl): s ~ InverseGamma(2,3),
+    m ~ N(0, √s), observations 1.5 and 2.0 from N(m, √s). Analytic posterior
+    means s̄ = 49/24, m̄ = 7/6. ``transformed=True`` uses (log s, m) with the
+    Jacobian correction; only the untransformed model has a CUDA functor."""
+    ig = InverseGamma(2.0, 3.0)
+
+    def joint(s, m):
+        sqrts = torch.sqrt(s)
+        return (ig.log_prob(s) + Normal(0.0, sqrts).log_prob(m)
+                + Normal(m, sqrts).log_prob(1.5) + Normal(m, sqrts).log_prob(2.0))
+
+    if transformed:
+        def logprob(theta):
+            return joint(torch.exp(theta[0]), theta[1]) + theta[0]
+
+        return TileDensityModel(logdensity_fn=logprob, dimension=2, device=device,
+                                tile_density=emcee_demo_tile_transformed)
+
+    def logprob(theta):
+        s, m = theta[0], theta[1]
+        lp = joint(torch.clamp(s, min=1e-6), m)
+        return torch.where(s > 0, lp, torch.full_like(lp, -torch.inf))
+
+    return TileDensityModel(logdensity_fn=logprob, dimension=2, device=device,
+                            tile_density=emcee_demo_tile, cuda_density="emcee_demo")

@@ -1,5 +1,8 @@
+from .cholesky import chol_rank1_update, chol_rank1_update_batched
+from .emcee import emcee_sample_reference, fused_emcee_sample
+from .mala import fused_mala_sample, mala_sample_reference
+from .ram import RamParams, fused_ram_sample, ram_sample_reference
 from .rwmh import (
-    CUDA_DENSITIES,
     fused_rwmh,
     fused_rwmh_sample,
     philox4x32_reference,
@@ -10,8 +13,20 @@ from .rwmh import (
     uniform_from_bits,
 )
 
+# Every kernel wrapper, by its name in chip_smoke.py's report.
+KERNEL_WRAPPERS = {
+    "rwmh_sample": fused_rwmh_sample,
+    "rwmh": fused_rwmh,
+    "mala": fused_mala_sample,
+    "ram": fused_ram_sample,
+    "emcee": fused_emcee_sample,
+}
+
 __all__ = [
-    "CUDA_DENSITIES", "fused_rwmh", "fused_rwmh_sample", "philox4x32_reference",
+    "KERNEL_WRAPPERS", "RamParams", "chol_rank1_update",
+    "chol_rank1_update_batched", "emcee_sample_reference", "fused_emcee_sample",
+    "fused_mala_sample", "fused_ram_sample", "fused_rwmh", "fused_rwmh_sample",
+    "mala_sample_reference", "philox4x32_reference", "ram_sample_reference",
     "rwmh_reference", "rwmh_sample_reference", "scale_block", "step_noise",
     "uniform_from_bits",
 ]

@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of ``csrc/`` (nvcc + ctypes).
 
-At first use ``nvcc`` compiles ``csrc/rwmh.cu`` for ``sm_90a`` into a shared
+At first use ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one
+process per source, all started together) and links them into one shared
 library with a plain C interface, in ``advancedmh_tpu_torch/_build/``. The
-file name carries a hash of the sources and flags, so a changed source is
+file name carries a hash of all sources and flags, so a changed source is
 rebuilt and an unchanged one is loaded as it is. Nothing here runs when the
 package is imported.
 
@@ -16,6 +17,11 @@ with it, 3.93 ms without) and the throughput kernel 5% at 16384 x 10000
 version's from 8.9e-7 to 2.6e-7 per chain-step. ``-Xptxas -v`` makes the
 compiler report registers, shared memory and spills for each kernel;
 :func:`build` returns that report.
+
+Which (density, d) pairs each kernel is instantiated for is said once, in
+its source's registry list; the library exports it (:func:`kernel_pairs`)
+and an entry point returns ``NO_KERNEL`` for any other pair, which
+:func:`check` turns into the one ``ValueError``.
 """
 from __future__ import annotations
 
@@ -27,30 +33,46 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Tuple
+from typing import FrozenSet, Optional, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("rwmh.cu", "philox.cuh")
+KERNELS = ("rwmh", "mala", "ram", "emcee")  # each csrc/<name>.cu exports amh_pairs_<name>
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
 )
 
 NO_KERNEL = -1  # amh::kNoKernel: no kernel instantiated for (density, d)
 
 _P = ctypes.c_void_p
+_S = ctypes.c_char_p
+_F = ctypes.c_float
 _I32, _I64, _U64 = ctypes.c_int32, ctypes.c_int64, ctypes.c_uint64
 _SIGNATURES = {
     # density, d, tril, params_t, lp, scale, consts, n_consts, seed, burn,
     # thin, n_samples, offset, C, samples, lps, accs, stream
-    "amh_rwmh_sample": [_I32, _I32, _I32, _P, _P, _P, _P, _I32, _U64, _I64,
+    "amh_rwmh_sample": [_S, _I32, _I32, _P, _P, _P, _P, _I32, _U64, _I64,
                         _I64, _I64, _U64, _I64, _P, _P, _P, _P],
     # density, d, tril, params_t, lp, scale, consts, n_consts, seed, n_steps,
     # offset, C, out_params, out_lp, out_acc, stream
-    "amh_rwmh": [_I32, _I32, _I32, _P, _P, _P, _P, _I32, _U64, _I64, _U64,
+    "amh_rwmh": [_S, _I32, _I32, _P, _P, _P, _P, _I32, _U64, _I64, _U64,
                  _I64, _P, _P, _P, _P],
+    # density, d, params_t, lp, grad, consts, n_consts, sigma, half_s2,
+    # inv_2s2, seed, burn, thin, n_samples, offset, C, samples, lps, accs,
+    # out_grad, stream
+    "amh_mala_sample": [_S, _I32, _P, _P, _P, _P, _I32, _F, _F, _F, _U64,
+                        _I64, _I64, _I64, _U64, _I64, _P, _P, _P, _P, _P],
+    # density, d, clamp, params_t, lp, S, consts, n_consts, alpha, gamma,
+    # eig_lo, eig_hi, seed, warmup, thin, n_samples, offset, C, samples, lps,
+    # accs, S_out, stream
+    "amh_ram_sample": [_S, _I32, _I32, _P, _P, _P, _P, _I32, _F, _F, _F, _F,
+                       _U64, _I64, _I64, _I64, _U64, _I64, _P, _P, _P, _P, _P],
+    # density, d, x_state, lp_state, consts, n_consts, a, W, T, seed, burn,
+    # thin, n_samples, offset, samples, lps, accs, stream
+    "amh_emcee_sample": [_S, _I32, _P, _P, _P, _I32, _F, _I64, _I64, _U64,
+                         _I64, _I64, _I64, _U64, _P, _P, _P, _P],
 }
 
 
@@ -66,11 +88,16 @@ def _nvcc() -> str:
     return found
 
 
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update((CSRC_DIR / name).read_bytes())
-    return BUILD_DIR / f"libamh_rwmh_{h.hexdigest()[:16]}.so"
+    for path in _sources():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"libamh_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Tuple[Path, float, str]:
@@ -81,18 +108,38 @@ def build() -> Tuple[Path, float, str]:
     if out.is_file():
         return out, 0.0, ""
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / "rwmh.cu")]
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return out, seconds, proc.stdout + proc.stderr
+    procs = []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((src.name, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    report, failed = [], []
+    for name, _, proc in procs:
+        text, _ = proc.communicate()
+        report.append(text)
+        if proc.returncode != 0:
+            failed.append(f"{name} ({proc.returncode}):\n{text}")
+    objs = [obj for _, obj, _ in procs]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = out.with_name(f"{tag}.so.tmp")
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return out, time.perf_counter() - t0, "".join(report)
 
 
 @functools.lru_cache(maxsize=1)
@@ -104,19 +151,39 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int32
+    for name in KERNELS:
+        getattr(lib, f"amh_pairs_{name}").restype = ctypes.c_char_p
     lib.amh_error_string.argtypes = [ctypes.c_int32]
     lib.amh_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def check(lib: ctypes.CDLL, code: int, what: str, density: str, d: int) -> None:
+def kernel_pairs(lib: ctypes.CDLL, kernel: str) -> FrozenSet[Tuple[str, int]]:
+    """The (density tag, d) pairs the library instantiated ``kernel`` for
+    (``kernel`` is a source name of :data:`KERNELS`)."""
+    text = getattr(lib, f"amh_pairs_{kernel}")().decode()
+    return frozenset((tag, int(d)) for tag, d in
+                     (item.rsplit(":", 1) for item in text.split()))
+
+
+def density_arg(cuda_density: Optional[str]) -> Optional[bytes]:
+    """A model's ``cuda_density`` tag as the C entry points take it."""
+    return None if cuda_density is None else cuda_density.encode()
+
+
+def check(lib: ctypes.CDLL, code: int, kernel: str, density: Optional[str],
+          d: int) -> None:
     """Raise if a launch returned a nonzero error code: ValueError when the
-    library has no kernel for the (density, d) pair, else RuntimeError."""
+    library has no ``kernel`` instantiated for the (density, d) pair (an
+    unknown or missing tag included), else RuntimeError."""
     if code == NO_KERNEL:
+        have = ", ".join(f"{t}:{k}" for t, k in sorted(kernel_pairs(lib, kernel)))
+        what = ("this model has no CUDA density tag (model.cuda_density)"
+                if density is None else
+                f"CUDA density {density!r} at d={d} has no {kernel} kernel")
         raise ValueError(
-            f"CUDA density {density!r} has no {what} kernel instantiated for "
-            f"d={d} in csrc/rwmh.cu"
+            f"{what}; csrc/{kernel}.cu instantiates only {have}"
         )
     if code != 0:
         msg = lib.amh_error_string(code).decode()
-        raise RuntimeError(f"{what} launch failed (code {code}): {msg}")
+        raise RuntimeError(f"{kernel} launch failed (code {code}): {msg}")

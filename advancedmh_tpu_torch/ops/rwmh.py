@@ -36,9 +36,6 @@ _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
-# CUDA densities compiled into csrc/rwmh.cu: name -> the id its C entry points
-# take. Which dimensions each is instantiated for is known only there.
-CUDA_DENSITIES = {"gaussian_mean_scale": 0}
 _MAX_SHARED_CONSTS = 12288  # 48 KB of float32: the default dynamic shared memory
 
 
@@ -138,6 +135,14 @@ def _perturb(scale: torch.Tensor, tril: bool, z: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def row_sum(t: torch.Tensor) -> torch.Tensor:
+    """Sum over the rows of (d, C) in row order, as the kernels add them."""
+    acc = t[0:1]
+    for i in range(1, t.shape[0]):
+        acc = acc + t[i : i + 1]
+    return acc
+
+
 def rwmh_step(x, lp, z, logu, scale, tril, tile_fn, consts):
     """One RWMH step on the chain block: accept iff log(u) < lp_cand − lp."""
     cand = x + _perturb(scale, tril, z)
@@ -223,29 +228,33 @@ def _check(params_t, lp, consts, d_counts: Sequence[int]):
         raise ValueError("step counts must be non-negative")
 
 
-def _cuda_args(cuda_density, params_t, lp, scale, consts, seed, iteration_offset):
-    """Validate a CUDA launch and return (lib, density id, tril, tensors)."""
+def flat_consts(consts: Sequence[torch.Tensor], device) -> Tuple[torch.Tensor, int]:
+    """The density constants as the kernels read them: one contiguous
+    float32 vector (one placeholder float when there are none) and its
+    length. They go to shared memory, so at most 48 KB."""
+    n = sum(c.numel() for c in consts)
+    if n > _MAX_SHARED_CONSTS:
+        raise ValueError(f"density constants exceed {_MAX_SHARED_CONSTS} floats")
+    if not consts:
+        return torch.zeros(1, dtype=torch.float32, device=device), 0
+    return torch.cat([c.reshape(-1).to(torch.float32) for c in consts]).contiguous(), n
+
+
+def check_cuda_launch(params_t: torch.Tensor, seed: int, iteration_offset: int) -> None:
+    """What every kernel launch needs: a CUDA tensor and 64-bit counters."""
     if params_t.device.type != "cuda":
         raise ValueError(f"no kernel for device {params_t.device}")
-    if cuda_density is None:
-        raise ValueError(
-            "this model has no CUDA density tag (model.cuda_density); the "
-            "fused kernels run only the densities compiled into csrc/rwmh.cu"
-        )
-    if cuda_density not in CUDA_DENSITIES:
-        raise ValueError(f"no CUDA density named {cuda_density!r}")
-    density_id = CUDA_DENSITIES[cuda_density]
-    d = params_t.shape[0]
     if not 0 <= seed < 1 << 64 or not 0 <= iteration_offset < 1 << 63:
         raise ValueError("seed and iteration_offset must fit 64 bits")
-    scale_arr, tril = scale_block(scale, d, params_t.device)
-    flat = torch.cat([c.reshape(-1).to(torch.float32) for c in consts]) if consts else (
-        torch.zeros(1, dtype=torch.float32, device=params_t.device))
-    if flat.numel() > _MAX_SHARED_CONSTS:
-        raise ValueError(f"density constants exceed {_MAX_SHARED_CONSTS} floats")
-    n_consts = sum(c.numel() for c in consts)
-    return (_build.library(), density_id, tril, params_t.contiguous(),
-            lp.contiguous(), scale_arr, flat.contiguous(), n_consts)
+
+
+def _cuda_args(params_t, lp, scale, consts, seed, iteration_offset):
+    """Validate a CUDA launch and return (lib, tril, tensors)."""
+    check_cuda_launch(params_t, seed, iteration_offset)
+    scale_arr, tril = scale_block(scale, params_t.shape[0], params_t.device)
+    flat, n_consts = flat_consts(consts, params_t.device)
+    return (_build.library(), tril, params_t.contiguous(), lp.contiguous(),
+            scale_arr, flat, n_consts)
 
 
 def fused_rwmh_sample(
@@ -264,8 +273,8 @@ def fused_rwmh_sample(
             tile_fn, cuda_density, params_t, lp, scale, consts, seed, burn=burn,
             thin=thin, n_samples=n_samples, iteration_offset=iteration_offset,
         )
-    lib, density_id, tril, p, l, s, flat, n_consts = _cuda_args(
-        cuda_density, params_t, lp, scale, consts, seed, iteration_offset)
+    lib, tril, p, l, s, flat, n_consts = _cuda_args(
+        params_t, lp, scale, consts, seed, iteration_offset)
     d, n_chains = p.shape
     f32 = dict(dtype=torch.float32, device=p.device)
     samples = torch.empty((n_samples, d, n_chains), **f32)
@@ -273,12 +282,12 @@ def fused_rwmh_sample(
     accs = torch.empty((n_samples, 1, n_chains), **f32)
     with torch.cuda.device(p.device):
         code = lib.amh_rwmh_sample(
-            density_id, d, int(tril), p.data_ptr(), l.data_ptr(), s.data_ptr(),
+            _build.density_arg(cuda_density), d, int(tril), p.data_ptr(), l.data_ptr(), s.data_ptr(),
             flat.data_ptr(), n_consts, seed, burn, thin, n_samples,
             iteration_offset, n_chains, samples.data_ptr(), lps.data_ptr(),
             accs.data_ptr(), torch.cuda.current_stream(p.device).cuda_stream,
         )
-    _build.check(lib, code, "rwmh_sample", cuda_density, d)
+    _build.check(lib, code, "rwmh", cuda_density, d)
     fused_rwmh_sample.launches += 1
     return samples, lps, accs
 
@@ -297,15 +306,15 @@ def fused_rwmh(
             tile_fn, cuda_density, params_t, lp, scale, consts, seed,
             n_steps=n_steps, iteration_offset=iteration_offset,
         )
-    lib, density_id, tril, p, l, s, flat, n_consts = _cuda_args(
-        cuda_density, params_t, lp, scale, consts, seed, iteration_offset)
+    lib, tril, p, l, s, flat, n_consts = _cuda_args(
+        params_t, lp, scale, consts, seed, iteration_offset)
     d, n_chains = p.shape
     out_p = torch.empty_like(p)
     out_l = torch.empty_like(l)
     out_a = torch.empty_like(l)
     with torch.cuda.device(p.device):
         code = lib.amh_rwmh(
-            density_id, d, int(tril), p.data_ptr(), l.data_ptr(), s.data_ptr(),
+            _build.density_arg(cuda_density), d, int(tril), p.data_ptr(), l.data_ptr(), s.data_ptr(),
             flat.data_ptr(), n_consts, seed, n_steps, iteration_offset, n_chains,
             out_p.data_ptr(), out_l.data_ptr(), out_a.data_ptr(),
             torch.cuda.current_stream(p.device).cuda_stream,

@@ -4,6 +4,7 @@ from .core import (
     StaticProposal,
     SymmetricRandomWalkProposal,
     SymmetricStaticProposal,
+    as_static_proposal_tree,
     is_proposal,
     logratio_proposal_density,
     propose,
@@ -13,6 +14,7 @@ from .core import (
 
 __all__ = [
     "Proposal", "RandomWalkProposal", "StaticProposal",
-    "SymmetricRandomWalkProposal", "SymmetricStaticProposal", "is_proposal",
+    "SymmetricRandomWalkProposal", "SymmetricStaticProposal",
+    "as_static_proposal_tree", "is_proposal",
     "logratio_proposal_density", "propose", "propose_initial", "q",
 ]

@@ -134,6 +134,17 @@ def _leaf_is_functional(p: Proposal) -> bool:
     return callable(p.payload) and not isinstance(p.payload, Distribution)
 
 
+def as_static_proposal_tree(payload):
+    """Wrap each distribution (or distribution sequence, or callable) leaf
+    of a payload tree in a StaticProposal; the ensemble sampler draws its
+    initial walkers from it."""
+
+    def is_leaf(x):
+        return isinstance(x, Distribution) or _is_dist_seq(x) or callable(x)
+
+    return tree_map(StaticProposal, payload, is_leaf=is_leaf)
+
+
 def propose_initial(gen, proposals, batch_shape: tuple = ()):
     """Initial draw: sample each leaf's payload directly
     (src/mh-core.jl:76-86 via src/proposal.jl:41-47)."""

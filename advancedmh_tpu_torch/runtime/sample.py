@@ -5,8 +5,9 @@ Two engines:
 - ``engine="torch"`` (default; ≙ the JAX package's ``"xla"``): a Python loop
   over steps with the chains as a batch dimension of every tensor, on the
   model's device.
-- ``engine="fused"``: RWMH on the hand-written CUDA kernel (runtime/fused.py;
-  on CPU tensors its plain PyTorch version).
+- ``engine="fused"``: RWMH, Langevin MALA, RAM and the emcee stretch move
+  on the hand-written CUDA kernels (runtime/fused.py; on CPU tensors their
+  plain PyTorch versions).
 
 RNG: step ``j`` of a run draws from ``step_generator(master, j)`` (init is
 ``j = 0``; a resumed run adds ``iteration_offset``), so the draws depend on
@@ -258,23 +259,44 @@ def sample(
         initial_params = _on_device(initial_params, model.device)
 
     if engine == "fused":
-        from .fused import sample_fused
+        from ..samplers.emcee import Ensemble
+        from ..samplers.mala import MALA
+        from ..samplers.ram import RobustAdaptiveMetropolis
+        from .fused import (sample_fused, sample_fused_emcee, sample_fused_mala,
+                            sample_fused_ram)
 
         if collect_states:
             raise ValueError(
                 "engine='fused' does not collect per-step states; use "
                 "engine='torch' for collect_states=True."
             )
+        resume_S = None
+        if initial_state is not None:
+            if isinstance(sampler, RobustAdaptiveMetropolis):
+                initial_params, resume_S = initial_state.x, initial_state.S
+            else:
+                initial_params = initial_state.params
+        common = dict(key=master, initial_params=initial_params,
+                      discard_initial=schedule.discard_initial,
+                      thinning=schedule.thinning,
+                      iteration_offset=iteration_offset)
+        if isinstance(sampler, Ensemble):  # the walkers are the batch axis
+            transitions, final_state = sample_fused_emcee(
+                model, sampler, schedule.n_samples, **common)
+            return _finish(transitions, final_state, schedule, None, False,
+                           sampler, chain_type, param_names)
         if num_chains is None:
             raise ValueError("engine='fused' requires num_chains")
-        if initial_state is not None:
-            initial_params = initial_state.params
-        transitions, final_state = sample_fused(
-            model, sampler, schedule.n_samples, key=master,
-            num_chains=num_chains, initial_params=initial_params,
-            discard_initial=schedule.discard_initial,
-            thinning=schedule.thinning, iteration_offset=iteration_offset,
-        )
+        if isinstance(sampler, RobustAdaptiveMetropolis):
+            transitions, final_state = sample_fused_ram(
+                model, sampler, schedule.n_samples, num_chains=num_chains,
+                num_warmup=schedule.num_warmup, initial_S=resume_S, **common)
+        elif isinstance(sampler, MALA):
+            transitions, final_state = sample_fused_mala(
+                model, sampler, schedule.n_samples, num_chains=num_chains, **common)
+        else:
+            transitions, final_state = sample_fused(
+                model, sampler, schedule.n_samples, num_chains=num_chains, **common)
         return _finish(transitions, final_state, schedule, num_chains, False,
                        sampler, chain_type, param_names)
 
@@ -288,7 +310,9 @@ def sample(
                                   from_state=from_state,
                                   iteration_offset=iteration_offset)
         out, final_state = chain_fn(master, initial_params)
-    elif method == "sequential":
+    elif method == "sequential" or sampler.is_population:
+        # a population sampler's state is a whole ensemble: chains of
+        # ensembles run one after another
         chain_fn = build_chain_fn(sampler, model, schedule, collect_states,
                                   from_state=from_state,
                                   iteration_offset=iteration_offset)

@@ -1,4 +1,5 @@
 from .base import (
+    GradientTransition,
     Sampler,
     Transition,
     accept_reject,
@@ -6,9 +7,15 @@ from .base import (
     select_tree,
     setparams,
 )
+from .emcee import Ensemble, StretchProposal, WalkProposal
+from .mala import MALA
 from .mh import RWMH, MetropolisHastings, StaticMH
+from .ram import RobustAdaptiveMetropolis, RobustAdaptiveMetropolisState
 
 __all__ = [
-    "Sampler", "Transition", "accept_reject", "getparams", "select_tree",
-    "setparams", "RWMH", "MetropolisHastings", "StaticMH",
+    "Sampler", "Transition", "GradientTransition", "accept_reject",
+    "getparams", "select_tree", "setparams", "RWMH", "MetropolisHastings",
+    "StaticMH", "MALA", "RobustAdaptiveMetropolis",
+    "RobustAdaptiveMetropolisState", "Ensemble", "StretchProposal",
+    "WalkProposal",
 ]

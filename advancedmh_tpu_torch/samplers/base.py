@@ -28,6 +28,18 @@ class Transition:
     accepted: torch.Tensor
 
 
+@dataclasses.dataclass(frozen=True)
+class GradientTransition:
+    """≙ reference ``GradientTransition`` (src/MALA.jl:14-19): caches the
+    log density and its gradient, so a MALA step costs one value-and-gradient
+    evaluation."""
+
+    params: Any
+    lp: torch.Tensor
+    gradient: Any
+    accepted: torch.Tensor
+
+
 def accept_reject(gen: torch.Generator, logalpha) -> torch.Tensor:
     """MH accept test: ``-randexp() < logα`` (≙ src/mh-core.jl:108)."""
     logalpha = torch.as_tensor(logalpha)
@@ -48,6 +60,10 @@ def select_tree(pred: torch.Tensor, on_true, on_false):
 
 class Sampler:
     """Base class for MH-style samplers (≙ ``MHSampler``, src/AdvancedMH.jl:33)."""
+
+    # True for population samplers (emcee's Ensemble), whose state carries a
+    # leading walker axis: it bundles into the 3-D walker array.
+    is_population = False
 
     def init(self, gen, model, initial_params: Optional[Any] = None) -> Tuple[Any, Any]:
         raise NotImplementedError
@@ -80,13 +96,23 @@ def getparams(transition) -> Any:
     """≙ ``AbstractMCMC.getparams``."""
     if hasattr(transition, "params"):
         return transition.params
+    if hasattr(transition, "x"):  # RAM state
+        return transition.x
     raise TypeError(f"Cannot extract params from {type(transition).__name__}")
 
 
 def setparams(model, transition, params):
     """≙ ``AbstractMCMC.setparams!!``: a new transition at ``params`` with the
-    log density recomputed."""
+    log density (and a cached gradient) recomputed."""
+    from ..models.density import logdensity_and_gradient
+
     model = as_model(model)
+    if isinstance(transition, GradientTransition):
+        lp, grad = logdensity_and_gradient(model, params)
+        return GradientTransition(params, lp, grad, transition.accepted)
     if isinstance(transition, Transition):
         return Transition(params, model.logdensity_fn(params), transition.accepted)
+    if hasattr(transition, "x"):  # RAM state: lp is not recomputed, as in
+        # the reference's setparams!! (src/RobustAdaptiveMetropolis.jl:116-121)
+        return dataclasses.replace(transition, x=params)
     raise TypeError(f"Cannot set params on {type(transition).__name__}")

@@ -108,11 +108,11 @@ class MetropolisHastings(Sampler):
         return t, t
 
 
-def StaticMH(d) -> MetropolisHastings:
+def StaticMH(d, device="cuda") -> MetropolisHastings:
     """≙ ``StaticMH`` (src/mh-core.jl:48-49): independence sampler;
-    ``StaticMH(k)`` uses a standard k-dim MvNormal."""
+    ``StaticMH(k)`` uses a standard k-dim MvNormal on ``device``."""
     if isinstance(d, int):
-        d = MvNormal.standard(d)
+        d = MvNormal.standard(d, device)
     return MetropolisHastings(StaticProposal(d))
 
 
@@ -127,12 +127,12 @@ def _provably_symmetric_increment(payload) -> bool:
     return False
 
 
-def RWMH(d) -> MetropolisHastings:
+def RWMH(d, device="cuda") -> MetropolisHastings:
     """≙ ``RWMH`` (src/mh-core.jl:50-51): random-walk Metropolis;
-    ``RWMH(k)`` uses a standard k-dim MvNormal increment. Zero-mean Gaussian
-    increments are flagged symmetric."""
+    ``RWMH(k)`` uses a standard k-dim MvNormal increment on ``device``.
+    Zero-mean Gaussian increments are flagged symmetric."""
     if isinstance(d, int):
-        d = MvNormal.standard(d)
+        d = MvNormal.standard(d, device)
     return MetropolisHastings(
         RandomWalkProposal(d, symmetric=_provably_symmetric_increment(d))
     )

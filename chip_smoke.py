@@ -4,15 +4,22 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``advancedmh_tpu_torch/csrc/`` (nvcc, at first
-use), checks each kernel against its plain PyTorch version on the card,
-drives the RWMH main path at full size through the public entry points
-(``sample(engine="fused")`` + ``Chains.summary()``, and the ``fused_rwmh``
-throughput kernel), checks the posterior against a float64 grid quadrature
-and the ``engine="torch"`` run, and times kernels, plain versions and the
-whole call. The timed kernel outputs at the main path's shapes are held
-against the plain versions' too. Every phase that fails exits non-zero. The last line of stdout
-is one JSON object: ``{"ok": true, "device": {...}}``; the line before it
-lists the kernels with their launch counts, errors and times.
+use), checks each kernel against its plain PyTorch version on the card at
+short cases, then drives each main path at full size through the public
+entry points (``sample(engine="fused")`` + ``Chains.summary()``): RWMH (and
+the ``fused_rwmh`` throughput kernel), Langevin MALA, Robust Adaptive
+Metropolis (per chain and pooled) and the emcee ensemble. Each path runs
+with every launch counter set to 0 just before it and read just after. The
+posteriors are checked against a float64 grid quadrature (the flagship),
+the analytic means (emcee), the ``engine="torch"`` run and the
+correlated-Gaussian checks of the JAX package's tests. Then it times each
+kernel at its main path's shape against its plain version, and the whole
+call with ESS/s. The timed kernel outputs are held against the plain
+versions' (RWMH, MALA, RAM; emcee walkers read each other, so its long run
+is held in distribution). Every phase that fails exits non-zero. The last
+line of stdout is one JSON object: ``{"ok": true, "device": {...}}``; the
+line before it lists the kernels with their launch counts, errors, times
+and bounds.
 
 There is no CPU path: without a CUDA device the script exits with code 1.
 It imports nothing of JAX.
@@ -28,13 +35,19 @@ import time
 import numpy as np
 import torch
 
+DEVICE = "cuda"
 N_CHAINS = 16384  # bench.py's ESS harness (16384 chains, 500 + 4000)
 N_WARM = 500
 N_DRAWS = 4000
 N_STEPS_THROUGHPUT = 10_000  # bench.py's headline kernel run
 SCALE = 0.35  # bench.py's hand-swept RWMH scale
+MALA_S2 = 0.02  # bench.py's ess_per_s_mu_mala step size
+N_CHECK = 2048  # chains of the correlated-Gaussian checks (tests/test_pallas.py)
 KEY = 2024
 
+# Published peaks of one H100 SXM (NVIDIA's data sheet) for the bounds.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
 
 def fail(msg: str) -> None:
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr)
@@ -46,15 +59,20 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+def sync() -> None:
+    torch.cuda.synchronize()
+
+
 def best_of(fn, repeats: int = 3):
     """Best wall time in seconds of ``fn()``, fenced by synchronize, and the
     result of the last call."""
     best, out = float("inf"), None
     for _ in range(repeats):
-        torch.cuda.synchronize()
+        out = None
+        sync()
         t0 = time.perf_counter()
         out = fn()
-        torch.cuda.synchronize()
+        sync()
         best = min(best, time.perf_counter() - t0)
     return best, out
 
@@ -72,7 +90,33 @@ def grid_posterior_means(data: np.ndarray):
     return float((w * mu).sum() / z), float((w * sig).sum() / z)
 
 
-# ---- phase 3: kernel against plain version ---------------------------------
+# ---- launch counts -------------------------------------------------------------
+
+
+def wrappers():
+    from advancedmh_tpu_torch.ops import KERNEL_WRAPPERS
+
+    return KERNEL_WRAPPERS
+
+
+def reset_launches() -> None:
+    for w in wrappers().values():
+        w.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: w.launches for name, w in wrappers().items()}
+
+
+def check_launches(path: str, got: dict, want: dict) -> None:
+    """The main path ``path`` launched exactly the kernels ``want`` (name ->
+    count) and no other."""
+    expect = {name: want.get(name, 0) for name in got}
+    print(f"{path} launches: {got}")
+    check(got == expect, f"{path} launches {got}, expected {expect}")
+
+
+# ---- kernel against plain version ------------------------------------------------
 
 
 def _start(C: int, seed: int):
@@ -80,7 +124,12 @@ def _start(C: int, seed: int):
     outside the support (lp = -inf)."""
     rng = np.random.default_rng(seed)
     p = np.stack([rng.normal(size=C), rng.uniform(-0.5, 2.0, size=C)])
-    return torch.tensor(p, dtype=torch.float32, device="cuda")
+    return torch.tensor(p, dtype=torch.float32, device=DEVICE)
+
+
+def _gauss_start(d: int, C: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return torch.tensor(rng.normal(size=(d, C)), dtype=torch.float32, device=DEVICE)
 
 
 def _close(a, b):
@@ -97,18 +146,22 @@ def _max_err(got, ref, ok):
 def agreement(got, ref):
     """A kernel's outputs against its plain version's, chains on the last axis.
 
-    ``got`` and ``ref`` are (states, lp, accepted) of kernel A, with
-    accepted (N, 1, C) holding each emitted step's decision, or of kernel B,
-    with accepted (1, C) holding accept counts. A chain is ok when all its
-    decisions (or its count) agree and its states and lp are within
-    ``_close``; ``max_abs_err`` is over the states and lp of the ok chains."""
-    (s, l, a), (s_r, l_r, a_r) = got, ref
+    ``got`` and ``ref`` are (states, lp, accepted, *final) of a sampling
+    kernel, with accepted (N, 1, C) holding each emitted step's decision and
+    ``final`` the per-chain tensors it returns besides (MALA's gradient,
+    RAM's factor S), or (states, lp, counts) of the throughput kernel, with
+    counts (1, C). A chain is ok when all its decisions (or its count) agree
+    and its states, lp and finals are within ``_close``; ``max_abs_err`` is
+    over the states and lp of the ok chains."""
+    (s, l, a, *fin), (s_r, l_r, a_r, *fin_r) = got, ref
     check(s.shape == s_r.shape and l.shape == l_r.shape and a.shape == a_r.shape,
           "kernel and plain output shapes differ")
     dec_equal = (a == a_r).reshape(-1, a.shape[-1])  # (decisions, C)
     same_decisions = dec_equal.all(dim=0)
     lead = tuple(range(s.ndim - 1))
     close = _close(s, s_r).all(dim=lead) & _close(l, l_r).all(dim=lead)
+    for f, f_r in zip(fin, fin_r):
+        close = close & _close(f, f_r).all(dim=0)
     ok = same_decisions & close
     return dict(
         per_step=a.ndim == 3,
@@ -133,10 +186,10 @@ LONG_RUN_CHAINS_MIN = 0.99
 
 
 def check_agreement(name, r, chains_min, visible_steps):
-    """The stated tolerance: >= 99.9% of (chain, step) decisions agree (kernel
-    A) and at least ``chains_min`` of the chains agree in every output; with
-    every step visible, no chain whose decisions all agree may differ in
-    state or lp beyond ``_close``."""
+    """The stated tolerance: >= 99.9% of (chain, step) decisions agree (a
+    sampling kernel) and at least ``chains_min`` of the chains agree in every
+    output; with every step visible, no chain whose decisions all agree may
+    differ in state or lp beyond ``_close``."""
     if r["per_step"]:
         check(r["decisions"] >= 0.999, f"{name} decisions agree {r['decisions']:.5f} < 0.999")
     check(r["chains_ok"] >= chains_min,
@@ -172,10 +225,9 @@ def compare_step_kernel(model, C, scale, n_steps, offset, seed):
     return agreement(got, rwmh_reference(*args, n_steps=n_steps, iteration_offset=offset))
 
 
-def phase_kernels(model):
-    diag = torch.tensor([SCALE, SCALE], device="cuda")
-    tril = torch.tensor([[0.35, 0.0], [0.1, 0.3]], device="cuda")
-    errs = {"rwmh_sample": 0.0, "rwmh": 0.0}
+def phase_kernels_rwmh(model, errs):
+    diag = torch.tensor([SCALE, SCALE], device=DEVICE)
+    tril = torch.tensor([[0.35, 0.0], [0.1, 0.3]], device=DEVICE)
     cases_a = [  # (C, scale, burn, thin, n_samples, iteration_offset)
         (4096, diag, 0, 1, 64, 0),
         (4000, tril, 0, 1, 64, 0),
@@ -195,49 +247,142 @@ def phase_kernels(model):
               f"n_steps={n_steps} offset={off}: {r}")
         check_agreement("rwmh", r, SHORT_RUN_CHAINS_MIN, visible_steps=False)
         errs["rwmh"] = max(errs["rwmh"], r["max_abs_err"])
-    torch.cuda.synchronize()
-    return errs
 
 
-# ---- phase 4: the main path ---------------------------------------------------
+def mala_args(model, p, seed):
+    lp, g = model.tile_value_and_grad(p, *model.tile_consts)
+    return (model.tile_value_and_grad, model.cuda_density, p, lp, g, model.tile_consts, seed)
 
 
-def phase_main_path(model, label):
+def ram_args(model, p, seed, s0=1.0):
+    d, C = p.shape
+    S = (s0 * torch.eye(d, device=DEVICE)).reshape(d * d, 1).expand(d * d, C).contiguous()
+    lp = model.tile_density(p, *model.tile_consts)
+    return (model.tile_density, model.cuda_density, p, lp, S, model.tile_consts, seed)
+
+
+def emcee_start(W: int, seed: int):
+    """Walkers s ~ U(-0.2, 4) (some outside the support), m ~ N(1, 1)."""
+    rng = np.random.default_rng(seed)
+    x = np.stack([rng.uniform(-0.2, 4.0, W), rng.normal(1.0, 1.0, W)])
+    return torch.tensor(x, dtype=torch.float32, device=DEVICE)
+
+
+def phase_kernels_new(models, errs):
+    """MALA, RAM and emcee against their plain versions at short cases:
+    ragged C or W, burn/thin > 1, an offset crossing the counter's 32-bit
+    word, starts outside the support, RAM with and without eigenvalue
+    bounds, emcee with tile_walkers < W, the correlated Gaussian at d = 2
+    and 4."""
+    from advancedmh_tpu_torch.ops import (RamParams, emcee_sample_reference,
+                                          fused_emcee_sample, fused_mala_sample,
+                                          fused_ram_sample, mala_sample_reference,
+                                          ram_sample_reference)
+
+    flag, corr2, corr4, demo = (models[k] for k in ("flagship", "corr", "corr4", "emcee"))
+    mala_cases = [  # (model, s2, C, burn, thin, n, offset, start)
+        (flag, MALA_S2, 4096, 0, 1, 64, 0, "support"),
+        (flag, MALA_S2, 4000, 10, 3, 17, 1000, "support"),
+        (corr2, 0.5, 4000, 0, 1, 64, (1 << 32) - 30, "gauss"),
+        (corr4, 0.3, 3001, 7, 2, 20, 5, "gauss"),
+    ]
+    for i, (m, s2, C, burn, thin, n, off, start) in enumerate(mala_cases):
+        p = _start(C, 20 + i) if start == "support" else _gauss_start(m.dimension, C, 20 + i)
+        args = mala_args(m, p, 0xA1A0 + i)
+        kw = dict(step_size_sq=s2, burn=burn, thin=thin, n_samples=n, iteration_offset=off)
+        got = fused_mala_sample(*args, **kw)
+        ref = mala_sample_reference(*args, **kw)
+        # the final gradient is held where the states agree (see below)
+        r = agreement(got[:3], ref[:3])
+        same = (got[2] == ref[2]).all(0)[0] & _close(got[0], ref[0]).all(dim=(0, 1))
+        g_ok = float(torch.isclose(got[3], ref[3], rtol=1e-4, atol=1e-4).all(0)[same]
+                     .float().mean())
+        print(f"kernel mala {m.cuda_density} d={m.dimension} C={C} burn={burn} thin={thin} "
+              f"n={n} offset={off}: {r} final-gradient agree {g_ok:.5f}")
+        check_agreement("mala", r, SHORT_RUN_CHAINS_MIN, visible_steps=burn == 0 and thin == 1)
+        # the flagship's σ gradient is n·m − Σ z·r over m·m: the two terms
+        # nearly cancel, so the sum's order moves it by up to ~1e-4 relative
+        check(g_ok == 1.0, "mala final gradient differs from the plain version's")
+        errs["mala"] = max(errs["mala"], r["max_abs_err"])
+
+    ram_cases = [  # (model, C, warmup, thin, n, offset, bounds, S0)
+        (flag, 4096, 64, 1, 32, 0, (0.0, float("inf")), 1.0),
+        (flag, 4000, 40, 3, 11, (1 << 32) - 60, (0.05, 0.5), 0.3),
+        (corr2, 4000, 64, 1, 32, 7, (0.0, float("inf")), 1.0),
+        (corr4, 3001, 30, 2, 10, 0, (0.3, 1.5), 0.8),
+    ]
+    for i, (m, C, warmup, thin, n, off, bounds, s0) in enumerate(ram_cases):
+        p = _start(C, 30 + i) if m is flag else _gauss_start(m.dimension, C, 30 + i)
+        args = ram_args(m, p, 0xBA50 + i, s0)
+        kw = dict(warmup=warmup, thin=thin, n_samples=n, iteration_offset=off,
+                  params=RamParams(eig_lo=bounds[0], eig_hi=bounds[1]))
+        r = agreement(fused_ram_sample(*args, **kw), ram_sample_reference(*args, **kw))
+        print(f"kernel ram {m.cuda_density} d={m.dimension} C={C} warmup={warmup} "
+              f"thin={thin} n={n} offset={off} bounds={bounds}: {r}")
+        check_agreement("ram", r, SHORT_RUN_CHAINS_MIN, visible_steps=False)
+        errs["ram"] = max(errs["ram"], r["max_abs_err"])
+
+    emcee_cases = [  # (W, tile_walkers, burn, thin, n, offset)
+        (4096, 4096, 0, 1, 64, 0),
+        (4000, 1000, 5, 2, 20, 11),
+        (3000, 600, 0, 1, 48, (1 << 32) - 20),
+    ]
+    for i, (W, T, burn, thin, n, off) in enumerate(emcee_cases):
+        x = emcee_start(W, 40 + i)
+        args = (demo.tile_density, demo.cuda_density, x, demo.tile_density(x),
+                demo.tile_consts, 0xE3C0 + i)
+        kw = dict(stretch_length=2.0, tile_walkers=T, burn=burn, thin=thin, n_samples=n,
+                  iteration_offset=off)
+        r = agreement(fused_emcee_sample(*args, **kw), emcee_sample_reference(*args, **kw))
+        print(f"kernel emcee W={W} tile_walkers={T} burn={burn} thin={thin} n={n} "
+              f"offset={off}: {r}")
+        check_agreement("emcee", r, SHORT_RUN_CHAINS_MIN, visible_steps=burn == 0 and thin == 1)
+        errs["emcee"] = max(errs["emcee"], r["max_abs_err"])
+    sync()
+
+
+# ---- the main paths -------------------------------------------------------------
+
+
+def posterior_check(path, summary, mu_q, sig_q, names=("μ", "σ")):
+    check(abs(summary[names[0]]["mean"] - mu_q) < 0.01, f"{path}: μ mean vs quadrature")
+    check(abs(summary[names[1]]["mean"] - sig_q) < 0.01, f"{path}: σ mean vs quadrature")
+    check(all(summary[n]["rhat"] < 1.01 for n in names), f"{path}: R-hat >= 1.01")
+
+
+def phase_main_rwmh(model, label, launches):
     from advancedmh_tpu_torch import MvNormal, RWMH, ess_bulk, sample
-    from advancedmh_tpu_torch.ops import fused_rwmh, fused_rwmh_sample
+    from advancedmh_tpu_torch.ops import fused_rwmh
 
-    spl = RWMH(MvNormal(torch.zeros(2, device="cuda"), scale=SCALE))
-    p0 = torch.tensor([[0.0], [1.0]], device="cuda").expand(2, N_CHAINS).contiguous()
+    spl = RWMH(MvNormal(torch.zeros(2, device=DEVICE), scale=SCALE))
+    p0 = torch.tensor([[0.0], [1.0]], device=DEVICE).expand(2, N_CHAINS).contiguous()
     lp0 = model.tile_density(p0, *model.tile_consts)
 
-    fused_rwmh_sample.launches = 0
-    fused_rwmh.launches = 0
-    torch.cuda.synchronize()
+    reset_launches()
+    sync()
     t0 = time.perf_counter()
     result = sample(model, spl, N_DRAWS, num_chains=N_CHAINS, engine="fused",
                     discard_initial=N_WARM, initial_params=[0.0, 1.0], key=KEY)
     chains = result.to_chains(param_names=["μ", "σ"])
     summary = chains.summary()
-    torch.cuda.synchronize()
+    sync()
     t_path = time.perf_counter() - t0
     _, _, acc_b = fused_rwmh(model.tile_density, model.cuda_density, p0, lp0, SCALE,
                              model.tile_consts, KEY, n_steps=N_STEPS_THROUGHPUT)
-    torch.cuda.synchronize()
-    launches = {"rwmh_sample": fused_rwmh_sample.launches, "rwmh": fused_rwmh.launches}
-    print(f"main path launches: {launches}")
-    check(launches == {"rwmh_sample": 1, "rwmh": 1}, f"main path launches {launches}")
+    sync()
+    got = read_launches()
+    check_launches("rwmh main path", got, {"rwmh_sample": 1, "rwmh": 1})
+    launches.update(rwmh_sample=got["rwmh_sample"], rwmh=got["rwmh"])
 
     check(chains.values.shape == (N_DRAWS, 2, N_CHAINS), "Chains shape")
     check(bool(torch.isfinite(chains.values).all()), "non-finite draws")
     mu_q, sig_q = grid_posterior_means(model.tile_consts[0].cpu().numpy().ravel())
     acc = float(result.transitions.accepted.float().mean())
     acc_b_rate = float(acc_b.mean()) / N_STEPS_THROUGHPUT
-    print(f"summary: {json.dumps(summary)}")
+    print(f"rwmh summary: {json.dumps(summary)}")
     print(f"grid quadrature means: mu={mu_q:.6f} sigma={sig_q:.6f}; "
           f"acceptance {acc:.4f} (fused_rwmh {acc_b_rate:.4f})")
-    check(abs(summary["μ"]["mean"] - mu_q) < 0.01, "μ mean vs quadrature")
-    check(abs(summary["σ"]["mean"] - sig_q) < 0.01, "σ mean vs quadrature")
-    check(summary["μ"]["rhat"] < 1.01 and summary["σ"]["rhat"] < 1.01, "R-hat >= 1.01")
+    posterior_check("rwmh", summary, mu_q, sig_q)
     check(0.05 < acc < 0.95 and 0.05 < acc_b_rate < 0.95, "degenerate acceptance")
 
     # engine="torch" on the card: the tolerances of tests/test_pallas.py
@@ -262,33 +407,173 @@ def phase_main_path(model, label):
     ess_mu = float(ess_bulk(chains["μ"]))
     print(f"[{label}] first sample(engine='fused')+summary: {t_path:.4f} s, "
           f"ess_bulk(mu)={ess_mu:.1f}")
-    return spl, p0, lp0, launches
+    return spl, p0, lp0
 
 
-# ---- phase 5: timing -----------------------------------------------------------
+def phase_main_mala(model, label, launches):
+    """MALA.langevin(0.02) on the flagship at 16384 × (500 + 4000)."""
+    from advancedmh_tpu_torch import MALA, sample
+
+    spl = MALA.langevin(MALA_S2)
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    result = sample(model, spl, N_DRAWS, num_chains=N_CHAINS, engine="fused",
+                    discard_initial=N_WARM, initial_params=[0.0, 1.0], key=KEY + 10)
+    chains = result.to_chains(param_names=["μ", "σ"])
+    summary = chains.summary()
+    sync()
+    t_path = time.perf_counter() - t0
+    got = read_launches()
+    check_launches("mala main path", got, {"mala": 1})
+    launches["mala"] = got["mala"]
+    check(chains.values.shape == (N_DRAWS, 2, N_CHAINS), "mala Chains shape")
+    check(bool(torch.isfinite(chains.values).all()), "mala: non-finite draws")
+    mu_q, sig_q = grid_posterior_means(model.tile_consts[0].cpu().numpy().ravel())
+    acc = float(result.transitions.accepted.float().mean())
+    print(f"mala summary: {json.dumps(summary)}; acceptance {acc:.4f}; "
+          f"first sample+summary {t_path:.4f} s")
+    posterior_check("mala", summary, mu_q, sig_q)
+    check(0.1 < acc < 0.98, f"mala acceptance {acc}")
+
+    ref = sample(model, spl, 2000, num_chains=N_CHECK, engine="torch", discard_initial=N_WARM,
+                 initial_params=[0.0, 1.0], key=KEY + 11, chain_type="chains",
+                 param_names=["μ", "σ"])
+    ref_mu, ref_sig = float(ref.mean("μ")), float(ref.mean("σ"))
+    print(f"mala engine=torch {N_CHECK}x2000: mu={ref_mu:.5f} sigma={ref_sig:.5f}")
+    check(abs(ref_mu - summary["μ"]["mean"]) < 0.05, "mala torch vs fused μ")
+    check(abs(ref_sig - summary["σ"]["mean"]) < 0.05, "mala torch vs fused σ")
+    return spl
 
 
-def phase_timing(model, spl, p0, lp0, label):
+def phase_main_ram(model, label, launches):
+    """RobustAdaptiveMetropolis() per chain and pooled on the flagship at
+    16384 × (500 warmup + 4000)."""
+    from advancedmh_tpu_torch import RobustAdaptiveMetropolis, sample
+
+    mu_q, sig_q = grid_posterior_means(model.tile_consts[0].cpu().numpy().ravel())
+    for pooled in (False, True):
+        path = "ram pooled" if pooled else "ram"
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        result = sample(model, RobustAdaptiveMetropolis(pooled=pooled), N_DRAWS,
+                        num_chains=N_CHAINS, engine="fused", num_warmup=N_WARM,
+                        discard_initial=N_WARM, initial_params=[0.0, 1.0], key=KEY + 20)
+        chains = result.to_chains(param_names=["μ", "σ"])
+        summary = chains.summary()
+        sync()
+        t_path = time.perf_counter() - t0
+        got = read_launches()
+        check_launches(f"{path} main path", got, {"ram": 1})
+        launches["ram"] = launches.get("ram", 0) + got["ram"]
+        acc = float(result.transitions.accepted.float().mean())
+        S = result.final_state.S
+        print(f"{path} summary: {json.dumps(summary)}; acceptance {acc:.4f}; "
+              f"mean final S {S.mean(0).tolist()}; first sample+summary {t_path:.4f} s")
+        check(chains.values.shape == (N_DRAWS, 2, N_CHAINS), f"{path} Chains shape")
+        check(bool(torch.isfinite(chains.values).all()), f"{path}: non-finite draws")
+        posterior_check(path, summary, mu_q, sig_q)
+        check(0.05 < acc < 0.95, f"{path} acceptance {acc}")
+        if pooled:
+            check(bool((S == S[:1]).all()), "pooled RAM: S is not shared by all chains")
+
+
+def emcee_sampler():
+    """The main path's ensemble: N_CHAINS walkers, prior draws to start."""
+    from advancedmh_tpu_torch import Ensemble, InverseGamma, Normal, StretchProposal
+
+    return Ensemble(N_CHAINS, StretchProposal([InverseGamma(2.0, 3.0), Normal(0.0, 1.0)]))
+
+
+def phase_main_emcee(model, label, launches):
+    """Ensemble(16384, StretchProposal([InverseGamma(2, 3), Normal(0, 1)])) on
+    the emcee model: 4000 draws after 500 discarded, one ensemble."""
+    from advancedmh_tpu_torch import sample
+
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    result = sample(model, emcee_sampler(), N_DRAWS, engine="fused",
+                    discard_initial=N_WARM, key=KEY + 30)
+    chains = result.to_chains(param_names=["s", "m"])
+    summary = chains.summary()
+    sync()
+    t_path = time.perf_counter() - t0
+    got = read_launches()
+    check_launches("emcee main path", got, {"emcee": 1})
+    launches["emcee"] = got["emcee"]
+    params = result.transitions.params
+    acc = float(result.transitions.accepted.float().mean())
+    s_mean, m_mean = summary["s"]["mean"], summary["m"]["mean"]
+    print(f"emcee summary: {json.dumps(summary)}; acceptance {acc:.4f}; "
+          f"first sample+summary {t_path:.4f} s")
+    print(f"emcee means: s={s_mean:.5f} (49/24 = {49 / 24:.5f}), "
+          f"m={m_mean:.5f} (7/6 = {7 / 6:.5f})")
+    check(tuple(params.shape) == (N_DRAWS, N_CHAINS, 2), f"emcee shape {tuple(params.shape)}")
+    check(bool(torch.isfinite(params).all()), "emcee: non-finite draws")
+    check(abs(s_mean - 49 / 24) < 0.1 and abs(m_mean - 7 / 6) < 0.1, "emcee means")
+    check(0.1 < acc < 0.9, f"emcee acceptance {acc}")
+
+
+def phase_correlated(models):
+    """tests/test_pallas.py's correlated-Gaussian checks at 2048 chains."""
+    from advancedmh_tpu_torch import MALA, RobustAdaptiveMetropolis, sample
+
+    sig = np.array([[1.5, 0.35], [0.35, 1.0]])
+    res = sample(models["corr"], MALA.langevin(0.5), 4000, key=6, num_chains=N_CHECK,
+                 engine="fused", discard_initial=1000, initial_params=[1.0, 1.0])
+    draws = res.transitions.params.reshape(-1, 2).double().cpu().numpy()
+    mean, cov = draws.mean(0), np.cov(draws.T)
+    x = res.final_state.params.double().cpu().numpy()
+    grad_err = np.abs(res.final_state.gradient.double().cpu().numpy()
+                      + (np.linalg.inv(sig) @ x.T).T).max()
+    print(f"correlated mala {N_CHECK}x4000: mean {mean.tolist()} cov {cov.tolist()} "
+          f"final-gradient |err| {grad_err:.3g}")
+    check(np.all(np.abs(mean) < 0.05), "correlated mala mean")
+    check(np.allclose(cov, sig, rtol=0, atol=0.1), "correlated mala covariance")
+    check(grad_err < 1e-3 * (1 + np.abs(x).max()), "correlated mala final gradient")
+
+    sig = np.array([[1.0, 0.5], [0.5, 1.0]])
+    res = sample(models["corr_ram"], RobustAdaptiveMetropolis(), 4000, key=5,
+                 num_chains=N_CHECK, engine="fused", num_warmup=4000,
+                 initial_params=[0.0, 0.0])
+    draws = res.transitions.params.reshape(-1, 2).double().cpu().numpy()
+    cov = np.cov(draws.T)
+    acc = float(res.transitions.accepted.float().mean())
+    S = res.final_state.S.double().cpu().numpy()
+    SS = np.einsum("cij,ckj->cik", S, S).mean(0)
+    corr = SS[0, 1] / np.sqrt(SS[0, 0] * SS[1, 1])
+    print(f"correlated ram {N_CHECK}x(4000+4000): cov {cov.tolist()} acceptance {acc:.4f} "
+          f"corr(SS') {corr:.4f}")
+    check(np.allclose(cov, sig, rtol=0.1, atol=0.05), "correlated ram covariance")
+    check(abs(acc - 0.234) < 0.05, "correlated ram acceptance")
+    check(abs(corr - 0.5) < 0.1, "correlated ram corr(SS')")
+
+
+# ---- timing ------------------------------------------------------------------------
+
+
+def hold(errs, name, tag, got, ref):
+    """Timed outputs at the main path's shapes against the plain version's,
+    with the long-run tolerance."""
+    r = agreement(got, ref)
+    print(f"kernel {name} {tag}: {r}")
+    check_agreement(f"{name} {tag}", r, LONG_RUN_CHAINS_MIN, visible_steps=False)
+    errs[name] = max(errs.get(name, 0.0), r["max_abs_err"])
+
+
+def phase_timing_rwmh(model, spl, p0, lp0, label, errs, times):
     from advancedmh_tpu_torch import ess_bulk, sample
     from advancedmh_tpu_torch.ops import (fused_rwmh, fused_rwmh_sample,
                                           rwmh_reference, rwmh_sample_reference)
 
     args = (model.tile_density, model.cuda_density, p0, lp0, SCALE, model.tile_consts, KEY)
-    errs = {}
-
-    def hold(name, tag, got, ref):
-        """The timed outputs at the main path's shapes against the plain
-        version's, with the long-run tolerance."""
-        r = agreement(got, ref)
-        print(f"kernel {name} {tag}: {r}")
-        check_agreement(f"{name} {tag}", r, LONG_RUN_CHAINS_MIN, visible_steps=False)
-        errs[name] = max(errs.get(name, 0.0), r["max_abs_err"])
-
     t_b, out_b = best_of(lambda: fused_rwmh(*args, n_steps=N_STEPS_THROUGHPUT))
     rate_b = N_CHAINS * N_STEPS_THROUGHPUT / t_b
     print(f"[{label}] rwmh kernel: {rate_b:.6e} chain-steps/s "
           f"({N_CHAINS} x {N_STEPS_THROUGHPUT}, {t_b * 1e3:.4f} ms, best of 3)")
-    hold("rwmh", f"{N_CHAINS} x {N_STEPS_THROUGHPUT}", out_b,
+    hold(errs, "rwmh", f"{N_CHAINS} x {N_STEPS_THROUGHPUT}", out_b,
          rwmh_reference(*args, n_steps=N_STEPS_THROUGHPUT))
     n_plain = 500
     t_b500, out_b500 = best_of(lambda: fused_rwmh(*args, n_steps=n_plain))
@@ -296,7 +581,7 @@ def phase_timing(model, spl, p0, lp0, label):
     print(f"[{label}] rwmh at {N_CHAINS} x {n_plain}: kernel {t_b500 * 1e3:.4f} ms "
           f"({N_CHAINS * n_plain / t_b500:.6e} chain-steps/s), plain "
           f"{t_b500_plain * 1e3:.4f} ms ({N_CHAINS * n_plain / t_b500_plain:.6e} chain-steps/s)")
-    hold("rwmh", f"{N_CHAINS} x {n_plain}", out_b500, ref_b500)
+    hold(errs, "rwmh", f"{N_CHAINS} x {n_plain}", out_b500, ref_b500)
 
     kw = dict(burn=N_WARM - 1, thin=1, n_samples=N_DRAWS)
     t_a, out_a = best_of(lambda: fused_rwmh_sample(*args, **kw))
@@ -305,7 +590,7 @@ def phase_timing(model, spl, p0, lp0, label):
     print(f"[{label}] rwmh_sample at {N_CHAINS} x ({N_WARM - 1} + {N_DRAWS}): kernel "
           f"{t_a * 1e3:.4f} ms ({N_CHAINS * steps / t_a:.6e} chain-steps/s), plain "
           f"{t_a_plain * 1e3:.4f} ms ({N_CHAINS * steps / t_a_plain:.6e} chain-steps/s)")
-    hold("rwmh_sample", f"{N_CHAINS} x ({N_WARM - 1} + {N_DRAWS})", out_a, ref_a)
+    hold(errs, "rwmh_sample", f"{N_CHAINS} x ({N_WARM - 1} + {N_DRAWS})", out_a, ref_a)
     del out_a, ref_a
 
     def run_sample():
@@ -321,8 +606,148 @@ def phase_timing(model, spl, p0, lp0, label):
     t_summary, _ = best_of(lambda: run_sample().summary())
     print(f"[{label}] sample(engine='fused') + Chains.summary(): {t_summary:.4f} s "
           f"(best of 3), ESS/s(mu) incl. summary={ess_mu / t_summary:.6e}")
-    times = {"rwmh_sample": (t_a, t_a_plain), "rwmh": (t_b500, t_b500_plain)}
-    return times, errs
+    times["rwmh_sample"] = (t_a, t_a_plain, bound("rwmh_sample", C=N_CHAINS, steps=steps,
+                                                    emitted=N_DRAWS))
+    times["rwmh"] = (t_b500, t_b500_plain, bound("rwmh", C=N_CHAINS, steps=n_plain, emitted=0))
+
+
+def time_path(label, name, run, param):
+    """sample(...) + Chains.summary(), best of 3, and ESS/s on ``param``."""
+    from advancedmh_tpu_torch import ess_bulk
+
+    t_sample, chains = best_of(run)
+    ess_p = float(ess_bulk(chains[param]))
+    t_summary, _ = best_of(lambda: run().summary())
+    print(f"[{label}] {name}: sample {t_sample:.4f} s, sample + Chains.summary() "
+          f"{t_summary:.4f} s (best of 3), ess_bulk({param})={ess_p:.1f}, "
+          f"ESS/s({param})={ess_p / t_sample:.6e}, incl. summary {ess_p / t_summary:.6e}")
+
+
+def phase_timing_new(models, label, errs, times):
+    from advancedmh_tpu_torch import MALA, RobustAdaptiveMetropolis, sample
+    from advancedmh_tpu_torch.ops import (RamParams, emcee_sample_reference,
+                                          fused_emcee_sample, fused_mala_sample,
+                                          fused_ram_sample, mala_sample_reference,
+                                          ram_sample_reference)
+
+    flag, demo = models["flagship"], models["emcee"]
+    p0 = torch.tensor([[0.0], [1.0]], device=DEVICE).expand(2, N_CHAINS).contiguous()
+    steps = N_WARM - 1 + N_DRAWS
+
+    args = mala_args(flag, p0, KEY)
+    kw = dict(step_size_sq=MALA_S2, burn=N_WARM - 1, thin=1, n_samples=N_DRAWS)
+    t_k, out = best_of(lambda: fused_mala_sample(*args, **kw))
+    t_p, ref = best_of(lambda: mala_sample_reference(*args, **kw))
+    print(f"[{label}] mala at {N_CHAINS} x ({N_WARM - 1} + {N_DRAWS}): kernel "
+          f"{t_k * 1e3:.4f} ms ({N_CHAINS * steps / t_k:.6e} chain-steps/s), plain "
+          f"{t_p * 1e3:.4f} ms ({N_CHAINS * steps / t_p:.6e} chain-steps/s)")
+    hold(errs, "mala", f"{N_CHAINS} x ({N_WARM - 1} + {N_DRAWS})", out[:3], ref[:3])
+    times["mala"] = (t_k, t_p, bound("mala", C=N_CHAINS, steps=steps, emitted=N_DRAWS))
+    del out, ref
+
+    args = ram_args(flag, p0, KEY)
+    kw = dict(warmup=N_WARM, thin=1, n_samples=N_DRAWS, params=RamParams())
+    t_k, out = best_of(lambda: fused_ram_sample(*args, **kw))
+    t_p, ref = best_of(lambda: ram_sample_reference(*args, **kw))
+    print(f"[{label}] ram at {N_CHAINS} x ({N_WARM} warmup + {N_DRAWS}): kernel "
+          f"{t_k * 1e3:.4f} ms ({N_CHAINS * (N_WARM + N_DRAWS) / t_k:.6e} chain-steps/s), "
+          f"plain {t_p * 1e3:.4f} ms ({N_CHAINS * (N_WARM + N_DRAWS) / t_p:.6e} chain-steps/s)")
+    hold(errs, "ram", f"{N_CHAINS} x ({N_WARM} + {N_DRAWS})", out, ref)
+    times["ram"] = (t_k, t_p, bound("ram", C=N_CHAINS, steps=N_DRAWS, emitted=N_DRAWS,
+                                    warmup=N_WARM))
+    del out, ref
+
+    init, _ = emcee_sampler().init(torch.Generator(device=DEVICE).manual_seed(KEY), demo)
+    x0 = init.params.T.contiguous()
+    args = (demo.tile_density, demo.cuda_density, x0, demo.tile_density(x0), (), KEY)
+    kw = dict(stretch_length=2.0, tile_walkers=N_CHAINS, burn=N_WARM - 1, thin=1,
+              n_samples=N_DRAWS)
+    t_k, out = best_of(lambda: fused_emcee_sample(*args, **kw))
+    t_p, ref = best_of(lambda: emcee_sample_reference(*args, **kw))
+    print(f"[{label}] emcee at {N_CHAINS} walkers x ({N_WARM - 1} + {N_DRAWS}): kernel "
+          f"{t_k * 1e3:.4f} ms ({N_CHAINS * steps / t_k:.6e} walker-steps/s), plain "
+          f"{t_p * 1e3:.4f} ms ({N_CHAINS * steps / t_p:.6e} walker-steps/s)")
+    # walkers read each other, so one flipped decision spreads: the long run
+    # is held in distribution (means and acceptance), element-wise only in
+    # the short cases
+    means = [tuple(float(o[0][:, i].mean()) for i in range(2)) for o in (out, ref)]
+    accs = [float(o[2].mean()) for o in (out, ref)]
+    same = float((out[2] == ref[2]).float().mean())
+    print(f"emcee {N_CHAINS} x {steps} kernel vs plain: means {means[0]} / {means[1]}, "
+          f"acceptance {accs[0]:.5f} / {accs[1]:.5f}, equal decisions {same:.6f}")
+    check(all(abs(a - b) < 0.05 for a, b in zip(*means)), "emcee long run: means differ")
+    check(abs(accs[0] - accs[1]) < 0.01, "emcee long run: acceptance differs")
+    times["emcee"] = (t_k, t_p, bound("emcee", C=N_CHAINS, steps=steps, emitted=N_DRAWS))
+    del out, ref
+
+    time_path(label, f"mala sample(engine='fused') {N_CHAINS} x ({N_WARM} + {N_DRAWS})",
+              lambda: sample(flag, MALA.langevin(MALA_S2), N_DRAWS, num_chains=N_CHAINS,
+                             engine="fused", discard_initial=N_WARM, initial_params=[0.0, 1.0],
+                             key=KEY + 10, chain_type="chains", param_names=["μ", "σ"]), "μ")
+    for pooled in (False, True):
+        time_path(label, f"ram{' pooled' if pooled else ''} sample(engine='fused') "
+                  f"{N_CHAINS} x ({N_WARM} + {N_DRAWS})",
+                  lambda: sample(flag, RobustAdaptiveMetropolis(pooled=pooled), N_DRAWS,
+                                 num_chains=N_CHAINS, engine="fused", num_warmup=N_WARM,
+                                 initial_params=[0.0, 1.0], key=KEY + 20,
+                                 chain_type="chains", param_names=["μ", "σ"]), "μ")
+    time_path(label, f"emcee sample(engine='fused') {N_CHAINS} walkers x ({N_WARM} + {N_DRAWS})",
+              lambda: sample(demo, emcee_sampler(), N_DRAWS, engine="fused",
+                             discard_initial=N_WARM, key=KEY + 30, chain_type="chains",
+                             param_names=["s", "m"]), "m")
+
+
+# ---- bounds ---------------------------------------------------------------------------
+
+# float32 operations per chain-step, counted from the sources (csrc/*.cu)
+# at d = 2: each add, multiply, divide, compare-select, sqrt, log, exp and
+# sincos counts one; Philox's integer arithmetic is not counted. The noise
+# of a step (one Box-Muller pair and the accept uniform) is 15; the
+# flagship's density 5 n + 7 and its value and gradient 8 n + 15 over its
+# n = 30 observations; the emcee model's density 18.
+_N_OBS = 30
+_FLOPS = {
+    "rwmh": 15 + 4 + (5 * _N_OBS + 7) + 2,
+    "mala": 15 + 4 * 2 + (8 * _N_OBS + 15) + 4 * 2 + 4 * 2 + 4 + 2,
+    "ram": 15 + 6 + 2 + (5 * _N_OBS + 7) + 5,
+    "ram_warmup": 15 + 6 + 2 + (5 * _N_OBS + 7) + 5 + (3 * 4 + 16 * 2 + 15),
+    "emcee": 6 + 3 + 4 + 3 * 2 + 18 + 4 + 2,
+}
+
+
+def bound(name: str, C: int, steps: int, emitted: int, warmup: int = 0, d: int = 2):
+    """(bound in seconds, "bytes" or "operations") of one launch: each input
+    read once and each output written once over 3.35 TB/s, and the float32
+    operations over 67 TFLOP/s; the larger sets the bound."""
+    state_in = (d + 1) * C * 4  # params + lp
+    emit = emitted * (d + 2) * C * 4  # samples, lps, accepted
+    consts = _N_OBS * 4
+    if name == "rwmh_sample":
+        nbytes, flops = state_in + consts + emit, _FLOPS["rwmh"] * C * steps
+    elif name == "rwmh":
+        nbytes, flops = state_in + consts + (d + 2) * C * 4, _FLOPS["rwmh"] * C * steps
+    elif name == "mala":  # + the gradient in and out
+        nbytes = state_in + consts + emit + 2 * d * C * 4
+        flops = _FLOPS["mala"] * C * steps
+    elif name == "ram":  # + S in and out
+        nbytes = state_in + consts + emit + 2 * d * d * C * 4
+        flops = (_FLOPS["ram_warmup"] * warmup + _FLOPS["ram"] * steps) * C
+    else:  # emcee: one half-move per walker and step
+        nbytes = state_in + emit
+        flops = _FLOPS["emcee"] * C * steps
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---- main -------------------------------------------------------------------------------
+
+REPLACES = {
+    "rwmh_sample": ("advancedmh_tpu/ops/pallas_mh.py:238", "rwmh.cu"),
+    "rwmh": ("advancedmh_tpu/ops/pallas_mh.py:104", "rwmh.cu"),
+    "mala": ("advancedmh_tpu/ops/pallas_mala.py:30", "mala.cu"),
+    "ram": ("advancedmh_tpu/ops/pallas_ram.py:36", "ram.cu"),
+    "emcee": ("advancedmh_tpu/ops/pallas_emcee.py:33", "emcee.cu"),
+}
 
 
 def main() -> None:
@@ -330,11 +755,14 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this script runs only on a CUDA GPU")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from advancedmh_tpu_torch.models import gaussian_mean_scale_model
+        from advancedmh_tpu_torch.models import (correlated_gaussian_model,
+                                                 emcee_demo_model,
+                                                 gaussian_mean_scale_model)
         from advancedmh_tpu_torch.ops import _build
     except ImportError as e:
         fail(f"advancedmh_tpu_torch is not importable next to this script: {e}")
 
+    t_start = time.perf_counter()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -347,26 +775,51 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     path, build_s, report = _build.build()
-    print(f"build: {path.name} in {build_s:.2f} s")
+    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                          text=True).stdout.strip().splitlines()
+    print(f"build: {path.name} in {build_s:.2f} s ({nvcc[-1] if nvcc else 'nvcc'})")
     for line in report.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
+    lib = _build.library()
+    for kernel in _build.KERNELS:
+        print(f"registry {kernel}: {sorted(_build.kernel_pairs(lib, kernel))}")
 
-    model = gaussian_mean_scale_model(device="cuda")
-    errs = phase_kernels(model)
-    spl, p0, lp0, launches = phase_main_path(model, label)
-    times, errs_main = phase_timing(model, spl, p0, lp0, label)
-    errs = {name: max(errs[name], errs_main[name]) for name in errs}
+    models = {
+        "flagship": gaussian_mean_scale_model(device=DEVICE),
+        "corr": correlated_gaussian_model([[1.5, 0.35], [0.35, 1.0]], device=DEVICE),
+        "corr_ram": correlated_gaussian_model([[1.0, 0.5], [0.5, 1.0]], device=DEVICE),
+        "corr4": correlated_gaussian_model(0.5 * np.ones((4, 4)) + 0.5 * np.eye(4),
+                                           device=DEVICE),
+        "emcee": emcee_demo_model(device=DEVICE),
+    }
+    errs = {name: 0.0 for name in REPLACES}
+    phase_kernels_rwmh(models["flagship"], errs)
+    phase_kernels_new(models, errs)
+    print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
 
-    replaces = {"rwmh_sample": "advancedmh_tpu/ops/pallas_mh.py:238",
-                "rwmh": "advancedmh_tpu/ops/pallas_mh.py:104"}
-    kernels = [
-        {"name": name, "route": "cuda", "source": "advancedmh_tpu_torch/csrc/rwmh.cu",
-         "replaces": replaces[name], "launches": launches[name],
-         "max_abs_err": errs[name], "ms": times[name][0] * 1e3,
-         "plain_ms": times[name][1] * 1e3}
-        for name in ("rwmh_sample", "rwmh")
-    ]
+    launches = {}
+    spl, p0, lp0 = phase_main_rwmh(models["flagship"], label, launches)
+    phase_main_mala(models["flagship"], label, launches)
+    phase_main_ram(models["flagship"], label, launches)
+    phase_main_emcee(models["emcee"], label, launches)
+    phase_correlated(models)
+    print(f"main paths done at {time.perf_counter() - t_start:.1f} s")
+
+    times = {}
+    phase_timing_rwmh(models["flagship"], spl, p0, lp0, label, errs, times)
+    phase_timing_new(models, label, errs, times)
+    print(f"[{label}] chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
+
+    kernels = []
+    for name, (replaces, source) in REPLACES.items():
+        ms, plain_s, (bound_s, bound_by) = times[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"advancedmh_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches[name], "max_abs_err": errs[name],
+            "ms": ms * 1e3, "plain_ms": plain_s * 1e3, "bound_ms": bound_s * 1e3,
+            "bound_by": bound_by, "library_ms": None,
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

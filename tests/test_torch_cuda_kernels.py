@@ -1,20 +1,33 @@
-"""The CUDA RWMH kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 These tests need a CUDA GPU (marker ``cuda``) and skip without one. Run them
-on a GPU machine with ``python -m pytest tests/test_torch_cuda_kernels.py``.
-Tolerances as in chip_smoke.py: at least 99.9% of accept decisions equal,
-and on chains whose decisions agree, states and lp within 1e-5 relative
-(floor 1e-5): CUDA's logf / sincosf may differ from PyTorch's in the last
-ulp, and the observation sum runs in another order.
+on a GPU machine with ``python -m pytest --noconftest
+tests/test_torch_cuda_kernels.py``. Tolerances as in chip_smoke.py: at least
+99.9% of accept decisions equal, and on chains whose decisions agree, states
+and lp within 1e-5 relative (floor 1e-5): CUDA's logf / sincosf may differ
+from PyTorch's in the last ulp, and the observation sum runs in another
+order.
 """
 import numpy as np
 import pytest
 import torch
 
-from advancedmh_tpu_torch.models import gaussian_mean_scale_model
+from advancedmh_tpu_torch.models import (
+    correlated_gaussian_model,
+    emcee_demo_model,
+    gaussian_mean_scale_model,
+)
 from advancedmh_tpu_torch.ops import (
+    RamParams,
+    _build,
+    emcee_sample_reference,
+    fused_emcee_sample,
+    fused_mala_sample,
+    fused_ram_sample,
     fused_rwmh,
     fused_rwmh_sample,
+    mala_sample_reference,
+    ram_sample_reference,
     rwmh_reference,
     rwmh_sample_reference,
 )
@@ -24,10 +37,14 @@ pytestmark = pytest.mark.cuda
 SCALES = {"diag": [0.35, 0.35], "tril": [[0.35, 0.0], [0.1, 0.3]]}
 
 
-@pytest.fixture
-def model():
+@pytest.fixture(autouse=True)
+def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the hand-written kernels have no CPU mode")
+
+
+@pytest.fixture
+def model():
     return gaussian_mean_scale_model(device="cuda")
 
 
@@ -77,14 +94,130 @@ def test_step_kernel_matches_plain(model, form, n_steps):
     assert float(ok.float().mean()) >= 0.999
 
 
+def _agree(got, ref):
+    """Fraction of equal decisions and of chains equal in every output."""
+    (s, l, a), (s_r, l_r, a_r) = got[:3], ref[:3]
+    dec = (a == a_r)[:, 0, :]
+    ok = dec.all(0) & _close(s, s_r).all(dim=(0, 1)) & _close(l, l_r).all(dim=(0, 1))
+    return float(dec.float().mean()), float(ok.float().mean())
+
+
+CORR = [[1.5, 0.35], [0.35, 1.0]]
+CORR4 = (0.5 * np.ones((4, 4)) + 0.5 * np.eye(4)).tolist()
+
+
+def _gauss_start(d, C, seed):
+    rng = np.random.default_rng(seed)
+    return torch.tensor(rng.normal(size=(d, C)), dtype=torch.float32, device="cuda")
+
+
+@pytest.mark.parametrize("target", ["flagship", "corr2", "corr4"])
+@pytest.mark.parametrize("C,burn,thin,n,offset", [
+    (300, 0, 1, 64, 0), (257, 5, 3, 11, 9), (512, 3, 1, 33, (1 << 32) - 10),
+])
+def test_mala_kernel_matches_plain(model, target, C, burn, thin, n, offset):
+    if target == "flagship":
+        m, s2 = model, 0.02
+        p, _ = _start(m, C, seed=C)
+    else:
+        m, s2 = correlated_gaussian_model(CORR if target == "corr2" else CORR4,
+                                          device="cuda"), 0.5
+        p = _gauss_start(m.dimension, C, seed=C)
+    lp, g = m.tile_value_and_grad(p, *m.tile_consts)
+    args = (m.tile_value_and_grad, m.cuda_density, p, lp, g, m.tile_consts, 77)
+    kw = dict(step_size_sq=s2, burn=burn, thin=thin, n_samples=n, iteration_offset=offset)
+    before = fused_mala_sample.launches
+    got = fused_mala_sample(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_mala_sample.launches == before + 1
+    ref = mala_sample_reference(*args, **kw)
+    dec, chains = _agree(got, ref)
+    assert dec >= 0.999 and chains >= 0.999
+    # The final gradient on chains whose states agree. The flagship's sigma
+    # component is n*m - sum(z*r) over (m*m): the two terms nearly cancel, so
+    # the sum's order moves it by up to ~1e-4 relative.
+    same = (got[2] == ref[2]).all(0)[0] & _close(got[0], ref[0]).all(dim=(0, 1))
+    g_ok = torch.isclose(got[3], ref[3], rtol=1e-4, atol=1e-4).all(0)
+    assert bool(g_ok[same].all())
+
+
+@pytest.mark.parametrize("target", ["flagship", "corr2", "corr4"])
+@pytest.mark.parametrize("bounds", [(0.0, float("inf")), (0.1, 2.0)])
+@pytest.mark.parametrize("C,warmup,thin,n,offset", [
+    (300, 40, 1, 24, 0), (257, 10, 3, 11, (1 << 32) - 20),
+])
+def test_ram_kernel_matches_plain(model, target, bounds, C, warmup, thin, n, offset):
+    if target == "flagship":
+        m = model
+        p, lp = _start(m, C, seed=C)
+    else:
+        m = correlated_gaussian_model(CORR if target == "corr2" else CORR4, device="cuda")
+        p = _gauss_start(m.dimension, C, seed=C)
+        lp = m.tile_density(p, *m.tile_consts)
+    d = m.dimension
+    S = (0.5 * torch.eye(d, device="cuda")).reshape(d * d, 1).expand(d * d, C).contiguous()
+    args = (m.tile_density, m.cuda_density, p, lp, S, m.tile_consts, 91)
+    kw = dict(warmup=warmup, thin=thin, n_samples=n, iteration_offset=offset,
+              params=RamParams(eig_lo=bounds[0], eig_hi=bounds[1]))
+    got = fused_ram_sample(*args, **kw)
+    ref = ram_sample_reference(*args, **kw)
+    dec, chains = _agree(got, ref)
+    assert dec >= 0.999 and chains >= 0.999
+    assert float(_close(got[3], ref[3]).all(0).float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("W,T,burn,thin,n,offset", [
+    (512, 512, 0, 1, 64, 0), (1000, 250, 7, 2, 20, 5), (768, 128, 3, 1, 30, (1 << 32) - 12),
+])
+def test_emcee_kernel_matches_plain(W, T, burn, thin, n, offset):
+    m = emcee_demo_model(device="cuda")
+    rng = np.random.default_rng(W)
+    x = torch.tensor(np.stack([rng.uniform(-0.2, 4.0, W), rng.normal(1.0, 1.0, W)]),
+                     dtype=torch.float32, device="cuda")
+    lp = m.tile_density(x)
+    args = (m.tile_density, m.cuda_density, x, lp, m.tile_consts, 5)
+    kw = dict(stretch_length=2.0, tile_walkers=T, burn=burn, thin=thin,
+              n_samples=n, iteration_offset=offset)
+    before = fused_emcee_sample.launches
+    got = fused_emcee_sample(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_emcee_sample.launches == before + 1
+    dec, chains = _agree(got, emcee_sample_reference(*args, **kw))
+    assert dec >= 0.999 and chains >= 0.999
+
+
 def test_wrapper_raises_for_what_has_no_kernel(model):
+    """An unknown tag, a missing tag, or a (tag, d) the library lacks raises
+    the one ValueError of _build.check, for each of the five kernels."""
     p, lp = _start(model, 64, seed=1)
-    scale = torch.tensor([0.3, 0.3], device="cuda")
-    with pytest.raises(ValueError, match="CUDA density"):
-        fused_rwmh(model.tile_density, None, p, lp, scale, model.tile_consts, 1, n_steps=2)
-    with pytest.raises(ValueError, match="no CUDA density named"):
-        fused_rwmh(model.tile_density, "banana", p, lp, scale, model.tile_consts, 1, n_steps=2)
-    p3 = torch.zeros(3, 64, device="cuda")
-    with pytest.raises(ValueError, match="instantiated"):
-        fused_rwmh(model.tile_density, model.cuda_density, p3, lp, torch.ones(3, device="cuda"),
-                   model.tile_consts, 1, n_steps=2)
+    consts = model.tile_consts
+    g = torch.zeros_like(p)
+    S = torch.eye(2, device="cuda").reshape(4, 1).expand(4, 64).contiguous()
+    p3, S3 = torch.zeros(3, 64, device="cuda"), torch.zeros(9, 64, device="cuda")
+    g3 = torch.zeros_like(p3)
+    calls = {
+        "rwmh_sample": lambda tag, x: fused_rwmh_sample(
+            model.tile_density, tag, x, lp, torch.ones(x.shape[0], device="cuda"),
+            consts, 1, burn=0, thin=1, n_samples=2),
+        "rwmh": lambda tag, x: fused_rwmh(
+            model.tile_density, tag, x, lp, torch.ones(x.shape[0], device="cuda"),
+            consts, 1, n_steps=2),
+        "mala": lambda tag, x: fused_mala_sample(
+            model.tile_value_and_grad, tag, x, lp, g if x.shape[0] == 2 else g3,
+            consts, 1, step_size_sq=0.1, burn=0, thin=1, n_samples=2),
+        "ram": lambda tag, x: fused_ram_sample(
+            model.tile_density, tag, x, lp, S if x.shape[0] == 2 else S3,
+            consts, 1, warmup=1, thin=1, n_samples=2),
+        "emcee": lambda tag, x: fused_emcee_sample(
+            model.tile_density, tag, x, lp, consts, 1, stretch_length=2.0,
+            tile_walkers=64, burn=0, thin=1, n_samples=2),
+    }
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match="CUDA density tag"):
+            call(None, p)
+        with pytest.raises(ValueError, match="'banana'"):
+            call("banana", p)
+        with pytest.raises(ValueError, match="instantiates only"):
+            call(model.cuda_density, p3)
+        assert ("gaussian_mean_scale", 2) in _build.kernel_pairs(
+            _build.library(), "rwmh" if name.startswith("rwmh") else name)

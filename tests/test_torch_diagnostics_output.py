@@ -72,7 +72,7 @@ def test_chains_bundle_matches_jax(num_chains):
     lp = rng.normal(size=lead + (40,)).astype(np.float32)
     acc = rng.uniform(size=lead + (40,)) < 0.5
     sched = port.Schedule(n_samples=40, discard_initial=10, thinning=2)
-    res = SamplingResult(transition_from_numpy(params, lp, acc), None, sched, num_chains)
+    res = SamplingResult(transition_from_numpy(params, lp, acc, device="cpu"), None, sched, num_chains)
     rref = RefResult(RefTransition(jnp.asarray(params), jnp.asarray(lp), jnp.asarray(acc)),
                      None, ref.Schedule(n_samples=40, discard_initial=10, thinning=2),
                      num_chains)

@@ -25,7 +25,7 @@ DATA = np.random.default_rng(1234).normal(size=30)
 
 @pytest.fixture(scope="module")
 def models():
-    return gaussian_mean_scale_from_numpy(DATA), ref_model(data=DATA)
+    return gaussian_mean_scale_from_numpy(DATA, device="cpu"), ref_model(data=DATA)
 
 
 @pytest.fixture
@@ -37,7 +37,7 @@ def thetas():
 
 
 def test_default_data_matches_reference():
-    p = gaussian_mean_scale_model()
+    p = gaussian_mean_scale_model(device="cpu")
     np.testing.assert_array_equal(
         p.tile_consts[0].numpy().ravel(), DATA.astype(np.float32)
     )
@@ -62,7 +62,7 @@ def test_logdensity_batched(models, thetas):
 def test_default_batched_density_is_vmap(models, thetas):
     """A model without its own batched form gets torch.func.vmap."""
     p, r = models
-    plain = DensityModel(p.logdensity_fn)
+    plain = DensityModel(p.logdensity_fn, device="cpu")
     got = logdensity_batched(plain, torch.as_tensor(thetas)).numpy()
     want = np.asarray(jax.vmap(r.logdensity_fn)(jnp.asarray(thetas)))
     np.testing.assert_allclose(got, want, rtol=RTOL)
@@ -95,7 +95,7 @@ def test_guard_needs_the_double_where():
             support_fn=lambda t: t[1] >= 0,
             logdensity_fn=lambda t: Normal(t[0], t[1]).log_prob(torch.tensor(0.5)),
             safe_params_fn=safe,
-        ))
+        ), device="cpu")
 
     at = torch.tensor([0.0, -1.0e-30])  # σ < 0 where log σ is NaN
     _, g = logdensity_and_gradient(
@@ -121,3 +121,21 @@ def test_model_device_is_explicit():
     m = gaussian_mean_scale_model(device="cpu")
     assert m.device == torch.device("cpu")
     assert m.tile_consts[0].device == torch.device("cpu")
+
+
+def test_entry_points_default_to_the_card():
+    """A model built with no device lives on the card; building one needs no
+    CUDA memory (the constructors' defaults are read, nothing is built)."""
+    import inspect
+
+    from advancedmh_tpu_torch import RWMH, StaticMH, as_model, convert
+    from advancedmh_tpu_torch.distributions import MvNormal
+    from advancedmh_tpu_torch.models import correlated_gaussian_model, emcee_demo_model
+
+    assert DensityModel(lambda x: -x @ x).device.type == "cuda"
+    assert as_model(lambda x: -x @ x).device.type == "cuda"
+    fns = [gaussian_mean_scale_model, correlated_gaussian_model, emcee_demo_model,
+           MvNormal.standard, RWMH, StaticMH]
+    fns += [getattr(convert, n) for n in dir(convert) if n.endswith("_from_numpy")]
+    for fn in fns:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn

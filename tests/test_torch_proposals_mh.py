@@ -41,7 +41,7 @@ def test_symmetric_flag_gives_build_time_zero():
 def test_nonzero_mean_increment_is_not_flagged_symmetric():
     spl = port.RWMH(port.MvNormal(torch.tensor([0.1, 0.0])))
     assert spl.proposal.symmetric is False
-    assert port.RWMH(2).proposal.symmetric is True
+    assert port.RWMH(2, device="cpu").proposal.symmetric is True
 
 
 @pytest.mark.parametrize("kind", ["static", "random_walk"])
@@ -50,7 +50,7 @@ def test_logratio_asymmetric_against_jax(kind):
     loc = rng.normal(size=2)
     diag = rng.uniform(0.3, 1.5, size=2)
     state, cand = rng.normal(size=(16, 2)), rng.normal(size=(16, 2))
-    p_dist = mvnormal_from_numpy(loc, scale_diag=diag)
+    p_dist = mvnormal_from_numpy(loc, scale_diag=diag, device="cpu")
     r_dist = ref.MvNormal(jnp.asarray(loc, jnp.float32), scale_diag=jnp.asarray(diag, jnp.float32))
     P = port.StaticProposal if kind == "static" else port.RandomWalkProposal
     R = ref.StaticProposal if kind == "static" else ref.RandomWalkProposal
@@ -96,7 +96,7 @@ def test_noise_fed_step_matches_jax_decisions(tril):
     z = rng.normal(size=(n_steps, 2, C)).astype(np.float32)
     u = rng.uniform(size=(n_steps, C)).astype(np.float32)
 
-    pm = gaussian_mean_scale_from_numpy(DATA)
+    pm = gaussian_mean_scale_from_numpy(DATA, device="cpu")
     rm = ref_model(data=DATA)
     obs = jnp.asarray(rm.tile_consts[0])
     s_arr, is_tril = scale_block(scale, 2, "cpu")
@@ -118,7 +118,7 @@ def test_noise_fed_step_matches_jax_decisions(tril):
 
 
 def test_torch_engine_posterior_matches_jax_xla():
-    pm = gaussian_mean_scale_from_numpy(DATA)
+    pm = gaussian_mean_scale_from_numpy(DATA, device="cpu")
     rm = ref_model(data=DATA)
     kw = dict(num_chains=512, discard_initial=1000, initial_params=[0.0, 1.0])
     res_p = port.sample(pm, port.RWMH(port.MvNormal(torch.zeros(2), scale=0.3)),
@@ -134,7 +134,7 @@ def test_torch_engine_posterior_matches_jax_xla():
 
 
 def test_step_single_chain_and_setparams():
-    pm = gaussian_mean_scale_from_numpy(DATA)
+    pm = gaussian_mean_scale_from_numpy(DATA, device="cpu")
     spl = port.RWMH(port.MvNormal(torch.zeros(2), scale=0.3))
     gen = torch.Generator().manual_seed(1)
     t0, s = spl.init(gen, pm, torch.tensor([0.0, 1.0]))

@@ -27,7 +27,7 @@ from advancedmh_tpu_torch import (
 )
 from advancedmh_tpu_torch.models import gaussian_mean_scale_model
 
-MODEL = gaussian_mean_scale_model()
+MODEL = gaussian_mean_scale_model(device="cpu")
 SPL = RWMH(MvNormal(torch.zeros(2), scale=0.3))
 
 
@@ -55,33 +55,35 @@ class TestOutputKeys:
     """≙ tests/test_runtime.py::TestOutputKeys: keys follow the proposal."""
 
     def test_scalar_proposal(self):
-        m = DensityModel(lambda x: Normal(x, 1.0).log_prob(torch.tensor(1.0)))
+        m = DensityModel(lambda x: Normal(x, 1.0).log_prob(torch.tensor(1.0)), device="cpu")
         c = sample(m, MetropolisHastings(StaticProposal(Normal(0.0, 1.0))),
                    100, key=0, chain_type="namedtuples")
         assert set(c[0].keys()) == {"param_1", "lp"} and len(c) == 100
 
     def test_array_proposal(self):
-        m = DensityModel(lambda x: Normal(x[0], torch.abs(x[1]) + 0.5).log_prob(torch.tensor(1.0)))
+        m = DensityModel(lambda x: Normal(x[0], torch.abs(x[1]) + 0.5).log_prob(torch.tensor(1.0)),
+                         device="cpu")
         c = sample(m, MetropolisHastings(StaticProposal([Normal(0.0, 1.0), Normal(1.0, 2.0)])),
                    100, key=0, chain_type="namedtuples")
         assert set(c[0].keys()) == {"param_1", "param_2", "lp"}
 
     def test_dict_proposal(self):
-        m = DensityModel(lambda x: Normal(x["a"], torch.abs(x["b"]) + 0.5).log_prob(torch.tensor(1.0)))
+        m = DensityModel(lambda x: Normal(x["a"], torch.abs(x["b"]) + 0.5).log_prob(torch.tensor(1.0)),
+                         device="cpu")
         c = sample(m, MetropolisHastings({"a": StaticProposal(Normal(0.0, 1.0)),
                                           "b": StaticProposal(Normal(1.0, 2.0))}),
                    100, key=0, chain_type="namedtuples")
         assert set(c[0].keys()) == {"a", "b", "lp"}
 
     def test_functional_proposal(self):
-        m = DensityModel(lambda x: Normal(x, 1.0).log_prob(torch.tensor(1.0)))
+        m = DensityModel(lambda x: Normal(x, 1.0).log_prob(torch.tensor(1.0)), device="cpu")
         c = sample(m, MetropolisHastings(StaticProposal(lambda x=1.0: Normal(x, 1.0))),
                    100, key=0, chain_type="namedtuples")
         assert set(c[0].keys()) == {"param_1", "lp"}
 
     def test_dict_proposal_batched_chains(self):
         m = DensityModel(lambda x: Normal(x["a"], 1.0).log_prob(torch.tensor(1.0))
-                         + Normal(x["b"], 1.0).log_prob(torch.tensor(0.0)))
+                         + Normal(x["b"], 1.0).log_prob(torch.tensor(0.0)), device="cpu")
         c = sample(m, MetropolisHastings({"a": StaticProposal(Normal(0.0, 1.0)),
                                           "b": StaticProposal(Normal(1.0, 2.0))}),
                    20, key=0, num_chains=3, chain_type="chains")
@@ -174,7 +176,7 @@ def test_mcmc_distributed_raises():
 
 
 @pytest.mark.parametrize("spl", [
-    StaticMH(2),
+    StaticMH(2, device="cpu"),
     MetropolisHastings(port.RandomWalkProposal(MvNormal(torch.tensor([0.1, 0.0])))),
     MetropolisHastings({"a": port.RandomWalkProposal(Normal(0.0, 1.0))}),
 ])

@@ -25,7 +25,7 @@ from advancedmh_tpu_torch.ops import (
 )
 
 DATA = np.random.default_rng(1234).normal(size=30)
-MODEL = gaussian_mean_scale_from_numpy(DATA)
+MODEL = gaussian_mean_scale_from_numpy(DATA, device="cpu")
 SCALES = {"diag": 0.35, "tril": [[0.35, 0.0], [0.1, 0.3]]}
 
 
