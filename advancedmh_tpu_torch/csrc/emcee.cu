@@ -158,10 +158,7 @@ int launch_emcee(float* x_state, float* lp_state, const float* consts,
 //
 // The densities the kernel is instantiated for: the one list of the pairs
 // (see csrc/common.cuh).
-#define AMH_EMCEE_DENSITIES(X) \
-  X(amh::EmceeDemo)            \
-  X(amh::GaussianMeanScale)    \
-  X(amh::CorrelatedGaussian<2>)
+#define AMH_EMCEE_DENSITIES(X) X(amh::EmceeDemo)
 
 extern "C" {
 

@@ -62,25 +62,40 @@ def emcee_uniforms(seed: int, j0: int, n: int, n_walkers: int,
     return walker, uniform_from_bits(philox4x32_reference(counter, key)[..., :3])
 
 
-def half_move(x, lp, walker, other_base, u, a: float, tile_fn, consts, H: int):
-    """Move the walkers ``walker`` (W/2,) of one half against the other half,
-    in place on x (d, W) and lp (1, W); ``other_base`` (W/2,) is the first
-    walker of each one's other half, ``u`` (W/2, 3) its uniforms. Returns
-    the accept flags (W/2,)."""
+def stretch_draws(u, H: int, a: float):
+    """The kernel's map of a moving walker's uniforms ``u`` (..., 3) to the
+    partner's offset k in [0, H) within the other half, the stretch
+    ``z = ((a−1)u + 1)² / a`` and the accept test's ``log u'``."""
+    k = torch.clamp(torch.floor(u[..., 0] * float(H)).to(torch.int64), max=H - 1)
+    a_f = torch.tensor(a, dtype=torch.float32, device=u.device)
+    zz = (a_f - 1.0) * u[..., 1] + 1.0
+    return k, zz * zz / a_f, torch.log(u[..., 2])
+
+
+def half_move(x, lp, walker, partner, z, log_u, tile_fn, consts):
+    """Move the walkers ``walker`` (n,) of one half against their partners
+    ``partner`` (n,) in the other half, in place on x (d, W) and lp (1, W):
+    propose ``y = p + z (x − p)`` and accept iff
+    ``log_u <= (d−1) log z + lp(y) − lp(x)``. Returns the accept flags (n,)."""
     d = x.shape[0]
-    k = torch.clamp(torch.floor(u[:, 0] * float(H)).to(torch.int64), max=H - 1)
-    a_f = torch.tensor(a, dtype=torch.float32, device=x.device)
-    zz = (a_f - 1.0) * u[:, 1] + 1.0
-    z = zz * zz / a_f
     xa = x[:, walker]
-    xp = x[:, other_base + k]
+    xp = x[:, partner]
     y = xp + z * (xa - xp)
     lp_y = tile_fn(y, *consts)[0]
     logalpha = (d - 1) * torch.log(z) + lp_y - lp[0, walker]
-    accept = torch.log(u[:, 2]) <= logalpha
+    accept = log_u <= logalpha
     x[:, walker] = torch.where(accept, y, xa)
     lp[0, walker] = torch.where(accept, lp_y, lp[0, walker])
     return accept
+
+
+def red_black_step(x, lp, walker, partner, z, log_u, tile_fn, consts):
+    """One step, in place on x and lp: the walkers ``walker[0]`` (W/2,) move
+    against their partners ``partner[0]`` in the frozen second halves, then
+    ``walker[1]`` against ``partner[1]`` in the updated first halves (z and
+    log_u ``(2, W/2)`` likewise). Returns the accept flags (2, W/2)."""
+    return torch.stack([half_move(x, lp, walker[h], partner[h], z[h], log_u[h],
+                                  tile_fn, consts) for h in range(2)])
 
 
 def emcee_sample_reference(
@@ -109,9 +124,8 @@ def emcee_sample_reference(
         other = (walker // T) * T + (1 - torch.arange(2, device=walker.device)
                                      ).view(2, 1) * H
         for t in range(n):
-            for h in range(2):
-                acc[walker[h]] = half_move(x, l, walker[h], other[h], u[t, h],
-                                           stretch_length, tile_fn, consts, H)
+            k, z, log_u = stretch_draws(u[t], H, stretch_length)
+            acc[walker] = red_black_step(x, l, walker, other + k, z, log_u, tile_fn, consts)
             s = t0 + t + 1
             if s > burn and (s - burn) % thin == 0:
                 e = (s - burn) // thin - 1

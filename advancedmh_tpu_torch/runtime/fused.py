@@ -293,12 +293,10 @@ def sample_fused_emcee(
     discard_initial: int,
     thinning: int,
     iteration_offset: int = 0,
-    tile_walkers=None,
 ):
-    """Run the fused emcee kernel (≙ JAX ``sample_fused_emcee``). By default
-    the W walkers are one ensemble (``tile_walkers = W``); any even W that
-    splits into ensembles of an even ``tile_walkers`` works. Without
-    ``initial_params`` the walkers are drawn from the proposal's payload, as
+    """Run the fused emcee kernel (≙ JAX ``sample_fused_emcee``) on one
+    ensemble of all W walkers (any even W). Without ``initial_params`` the
+    walkers are drawn from the proposal's payload, as
     ``sample(engine="torch")`` draws them. Returns walker-layout
     transitions: params (N, W, d), lp and accepted (N, W)."""
     if not isinstance(sampler.proposal, StretchProposal):
@@ -308,8 +306,7 @@ def sample_fused_emcee(
             "engine='torch')"
         )
     W = sampler.n_walkers
-    tile_walkers = W if tile_walkers is None else tile_walkers
-    check_walkers(W, tile_walkers)
+    check_walkers(W, W)
     tile_fn, consts = _tile(model)
     if initial_params is None:
         init_tr, _ = sampler.init(step_generator(key, 0, model.device), model)
@@ -324,7 +321,7 @@ def sample_fused_emcee(
     lp0 = tile_fn(params_t, *consts)
     samples, lps, accs = fused_emcee_sample(
         tile_fn, model.cuda_density, params_t, lp0, consts, fused_seed(key),
-        stretch_length=sampler.proposal.stretch_length, tile_walkers=tile_walkers,
+        stretch_length=sampler.proposal.stretch_length, tile_walkers=W,
         burn=max(discard_initial - thinning, 0), thin=thinning,
         n_samples=n_samples, iteration_offset=iteration_offset,
     )

@@ -15,8 +15,8 @@ the analytic means (emcee), the ``engine="torch"`` run and the
 correlated-Gaussian checks of the JAX package's tests. Then it times each
 kernel at its main path's shape against its plain version, and the whole
 call with ESS/s. The timed kernel outputs are held against the plain
-versions' (RWMH, MALA, RAM; emcee walkers read each other, so its long run
-is held in distribution). Every phase that fails exits non-zero. The last
+versions' (emcee: its decisions over the whole run, its first 64 draws
+element-wise, and its means). Every phase that fails exits non-zero. The last
 line of stdout is one JSON object: ``{"ok": true, "device": {...}}``; the
 line before it lists the kernels with their launch counts, errors, times
 and bounds.
@@ -323,6 +323,7 @@ def phase_kernels_new(models, errs):
         errs["ram"] = max(errs["ram"], r["max_abs_err"])
 
     emcee_cases = [  # (W, tile_walkers, burn, thin, n, offset)
+        (N_CHAINS, N_CHAINS, 0, 1, 64, 0),  # the main path's one ensemble
         (4096, 4096, 0, 1, 64, 0),
         (4000, 1000, 5, 2, 20, 11),
         (3000, 600, 0, 1, 48, (1 << 32) - 20),
@@ -667,14 +668,22 @@ def phase_timing_new(models, label, errs, times):
     print(f"[{label}] emcee at {N_CHAINS} walkers x ({N_WARM - 1} + {N_DRAWS}): kernel "
           f"{t_k * 1e3:.4f} ms ({N_CHAINS * steps / t_k:.6e} walker-steps/s), plain "
           f"{t_p * 1e3:.4f} ms ({N_CHAINS * steps / t_p:.6e} walker-steps/s)")
-    # walkers read each other, so one flipped decision spreads: the long run
-    # is held in distribution (means and acceptance), element-wise only in
-    # the short cases
+    # Walkers read each other, so one flipped decision would spread through
+    # the ensemble. The emcee model has no observation sum and kernel and
+    # plain version evaluate it in one order, so the whole run is held to
+    # 99.9% of equal decisions, its first 64 draws element-wise, and the
+    # means and acceptance besides.
     means = [tuple(float(o[0][:, i].mean()) for i in range(2)) for o in (out, ref)]
     accs = [float(o[2].mean()) for o in (out, ref)]
     same = float((out[2] == ref[2]).float().mean())
+    r = agreement(tuple(o[:64] for o in out), tuple(o[:64] for o in ref))
     print(f"emcee {N_CHAINS} x {steps} kernel vs plain: means {means[0]} / {means[1]}, "
-          f"acceptance {accs[0]:.5f} / {accs[1]:.5f}, equal decisions {same:.6f}")
+          f"acceptance {accs[0]:.5f} / {accs[1]:.5f}, equal decisions {same:.6f}; "
+          f"first 64 draws: {r}")
+    check(same >= 0.999, f"emcee long run: decisions agree {same:.6f} < 0.999")
+    check_agreement("emcee long run, first 64 draws", r, SHORT_RUN_CHAINS_MIN,
+                    visible_steps=False)
+    errs["emcee"] = max(errs["emcee"], r["max_abs_err"])
     check(all(abs(a - b) < 0.05 for a, b in zip(*means)), "emcee long run: means differ")
     check(abs(accs[0] - accs[1]) < 0.01, "emcee long run: acceptance differs")
     times["emcee"] = (t_k, t_p, bound("emcee", C=N_CHAINS, steps=steps, emitted=N_DRAWS))

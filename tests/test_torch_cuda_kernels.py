@@ -6,7 +6,9 @@ tests/test_torch_cuda_kernels.py``. Tolerances as in chip_smoke.py: at least
 99.9% of accept decisions equal, and on chains whose decisions agree, states
 and lp within 1e-5 relative (floor 1e-5): CUDA's logf / sincosf may differ
 from PyTorch's in the last ulp, and the observation sum runs in another
-order.
+order. So a decision can land within lp's last bits and part a chain from
+the plain version (2.6e-7 times per chain-step on the flagship on an H100):
+the cases run about 4000 chains, where one such chain stays inside 99.9%.
 """
 import numpy as np
 import pytest
@@ -66,7 +68,7 @@ def _close(a, b):
 
 @pytest.mark.parametrize("form", ["diag", "tril"])
 @pytest.mark.parametrize("C,burn,thin,n,offset", [
-    (300, 0, 1, 64, 0), (257, 5, 3, 11, 9), (512, 3, 1, 33, (1 << 32) - 10),
+    (4096, 0, 1, 64, 0), (4001, 5, 3, 11, 9), (4099, 3, 1, 33, (1 << 32) - 10),
 ])
 def test_sample_kernel_matches_plain(model, form, C, burn, thin, n, offset):
     p, lp = _start(model, C, seed=C)
@@ -86,7 +88,7 @@ def test_sample_kernel_matches_plain(model, form, C, burn, thin, n, offset):
 @pytest.mark.parametrize("form", ["diag", "tril"])
 @pytest.mark.parametrize("n_steps", [1, 63])
 def test_step_kernel_matches_plain(model, form, n_steps):
-    p, lp = _start(model, 1000, seed=n_steps)
+    p, lp = _start(model, 4000, seed=n_steps)
     args = _args(model, p, lp, form)
     x, l, acc = fused_rwmh(*args, n_steps=n_steps, iteration_offset=5)
     x_r, l_r, acc_r = rwmh_reference(*args, n_steps=n_steps, iteration_offset=5)
@@ -113,7 +115,7 @@ def _gauss_start(d, C, seed):
 
 @pytest.mark.parametrize("target", ["flagship", "corr2", "corr4"])
 @pytest.mark.parametrize("C,burn,thin,n,offset", [
-    (300, 0, 1, 64, 0), (257, 5, 3, 11, 9), (512, 3, 1, 33, (1 << 32) - 10),
+    (4096, 0, 1, 64, 0), (4001, 5, 3, 11, 9), (4099, 3, 1, 33, (1 << 32) - 10),
 ])
 def test_mala_kernel_matches_plain(model, target, C, burn, thin, n, offset):
     if target == "flagship":
@@ -144,7 +146,7 @@ def test_mala_kernel_matches_plain(model, target, C, burn, thin, n, offset):
 @pytest.mark.parametrize("target", ["flagship", "corr2", "corr4"])
 @pytest.mark.parametrize("bounds", [(0.0, float("inf")), (0.1, 2.0)])
 @pytest.mark.parametrize("C,warmup,thin,n,offset", [
-    (300, 40, 1, 24, 0), (257, 10, 3, 11, (1 << 32) - 20),
+    (4096, 40, 1, 24, 0), (4001, 10, 3, 11, (1 << 32) - 20),
 ])
 def test_ram_kernel_matches_plain(model, target, bounds, C, warmup, thin, n, offset):
     if target == "flagship":
@@ -219,5 +221,6 @@ def test_wrapper_raises_for_what_has_no_kernel(model):
             call("banana", p)
         with pytest.raises(ValueError, match="instantiates only"):
             call(model.cuda_density, p3)
-        assert ("gaussian_mean_scale", 2) in _build.kernel_pairs(
+        has = ("emcee_demo", 2) if name == "emcee" else ("gaussian_mean_scale", 2)
+        assert has in _build.kernel_pairs(
             _build.library(), "rwmh" if name.startswith("rwmh") else name)

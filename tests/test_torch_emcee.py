@@ -22,7 +22,8 @@ from advancedmh_tpu_torch import (
 )
 from advancedmh_tpu_torch.convert import emcee_demo_from_numpy, transition_from_numpy
 from advancedmh_tpu_torch.ops import emcee_sample_reference, fused_emcee_sample
-from advancedmh_tpu_torch.ops.emcee import emcee_uniforms, half_move
+from advancedmh_tpu_torch.ops.emcee import (emcee_uniforms, half_move, red_black_step,
+                                            stretch_draws)
 
 S_TRUE = 49.0 / 24.0
 M_TRUE = 7.0 / 6.0
@@ -47,6 +48,7 @@ def _logprob_transformed(theta):
 
 
 MODEL = DensityModel(_logprob_untransformed, device="cpu")
+DEMO = emcee_demo_from_numpy(device="cpu")
 
 
 # ---- tests/test_emcee.py on the torch engine -----------------------------------
@@ -125,7 +127,7 @@ def test_acceptance_happens():
     assert 0.05 < float(res.transitions.accepted[1:].float().mean()) < 0.95
 
 
-# ---- one plain half-move against numpy ------------------------------------------
+# ---- the plain half-move against numpy and against the JAX package -------------
 
 
 def test_half_move_matches_numpy():
@@ -142,7 +144,8 @@ def test_half_move_matches_numpy():
     walker = torch.tensor([e * T + i for e in range(W // T) for i in range(H)])  # h = 0
     other = (walker // T) * T + H
     x0, lp0 = xt.clone(), lp.clone()
-    acc = half_move(xt, lp, walker, other, u, 2.0, model.tile_density, (), H)
+    k, z, log_u = stretch_draws(u, H, 2.0)
+    acc = half_move(xt, lp, walker, other + k, z, log_u, model.tile_density, ())
     un = u.numpy().astype(np.float64)
     k = np.minimum(np.floor(un[:, 0] * H), H - 1).astype(int)
     z = ((2.0 - 1.0) * un[:, 1] + 1.0) ** 2 / 2.0
@@ -153,6 +156,101 @@ def test_half_move_matches_numpy():
     np.testing.assert_array_equal(acc.numpy(), want_acc)
     np.testing.assert_allclose(xt[:, walker].numpy(), np.where(want_acc, y, xa), rtol=1e-6)
     assert torch.equal(xt[:, other], x0[:, other])  # the other half is frozen
+
+
+def _jax_ensemble(W):
+    """JAX's Ensemble on its emcee model's tile density (the fused kernels'
+    form; tests/test_torch_targets_grad.py holds it against the per-point
+    logprob), with W walkers (W/4 of them outside the support) and their lp."""
+    import jax.numpy as jnp
+
+    from advancedmh_tpu.models.density import DensityModel as RefModel
+    from advancedmh_tpu.models.targets import emcee_demo_model as ref_demo
+    from advancedmh_tpu.samplers.emcee import Ensemble as RefEnsemble
+    from advancedmh_tpu.samplers.emcee import StretchProposal as RefStretch
+
+    tile = ref_demo().tile_density
+    model = RefModel(lambda th: tile(th.reshape(2, 1))[0, 0], dimension=2)
+    rng = np.random.default_rng(W)
+    x = np.stack([rng.uniform(-1.0, 4.0, W), rng.normal(1.0, 1.0, W)], axis=1)
+    x = x.astype(np.float32)
+    lp = np.asarray(tile(jnp.asarray(x.T)))[0]
+    return RefEnsemble(W, RefStretch(None)), model, x, lp
+
+
+def _jax_draws(key, n):
+    """The numbers JAX's _half_move draws from ``key`` for n moving walkers:
+    the partner's index in the other half, z's uniform, and the exponential
+    of the accept test (−e takes the place of log u)."""
+    import jax
+
+    key_j, key_z, key_acc = jax.random.split(key, 3)
+    return (np.array(jax.random.randint(key_j, (n,), 0, n)),
+            np.array(jax.random.uniform(key_z, (n,))),
+            np.array(jax.random.exponential(key_acc, (n,))))
+
+
+def _port_draws(draws, H):
+    """JAX's draws of one half-move as the port's (partner offset k, z,
+    log u): the partner's index j maps to the uniform (j + 1/2)/H, which
+    stretch_draws turns back into j."""
+    j, u, e = draws
+    uu = torch.as_tensor(np.stack([(j + 0.5) / H, u, np.full(H, 0.5)], axis=1)
+                         .astype(np.float32))
+    k, z, _ = stretch_draws(uu, H, 2.0)
+    assert torch.equal(k, torch.as_tensor(j, dtype=torch.int64))
+    return k, z, -torch.as_tensor(e, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("W", [16, 64])
+def test_half_move_matches_jax(W):
+    """One half-move with JAX's own random numbers against JAX's
+    Ensemble._half_move on the same walkers: states and lp at 1e-5, the
+    accept flags equal."""
+    import jax
+    import jax.numpy as jnp
+
+    ens, model, x, lp = _jax_ensemble(W)
+    H = W // 2
+    key = jax.random.PRNGKey(W)
+    want_x, want_lp, want_acc = ens._half_move(
+        key, jnp.asarray(x[:H]), jnp.asarray(lp[:H]), jnp.asarray(x[H:]),
+        jnp.asarray(lp[H:]), model)
+    xt, lpt = torch.as_tensor(x.T.copy()), torch.as_tensor(lp[None].copy())
+    k, z, log_u = _port_draws(_jax_draws(key, H), H)
+    acc = half_move(xt, lpt, torch.arange(H), H + k, z, log_u, DEMO.tile_density, ())
+    np.testing.assert_array_equal(acc.numpy(), np.asarray(want_acc))
+    assert 0 < int(acc.sum()) < H
+    np.testing.assert_allclose(xt[:, :H].numpy().T, np.asarray(want_x), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(lpt[0, :H].numpy(), np.asarray(want_lp), rtol=1e-5, atol=1e-5)
+    assert np.array_equal(xt[:, H:].numpy().T, x[H:])  # the other half is frozen
+
+
+@pytest.mark.parametrize("W", [16, 64])
+def test_red_black_step_matches_jax(W):
+    """Three red_black_steps (the second half moves against the updated
+    first) with JAX's numbers against JAX's Ensemble.step: states and lp at
+    1e-5, the accept flags equal."""
+    import jax
+    import jax.numpy as jnp
+
+    from advancedmh_tpu.samplers.base import Transition as RefTransition
+
+    ens, model, x, lp = _jax_ensemble(W)
+    H = W // 2
+    state = RefTransition(jnp.asarray(x), jnp.asarray(lp), jnp.zeros((W,), bool))
+    xt, lpt = torch.as_tensor(x.T.copy()), torch.as_tensor(lp[None].copy())
+    for key in jax.random.split(jax.random.PRNGKey(100 + W), 3):
+        state, _ = ens.step(key, state, model)
+        k, z, log_u = (torch.stack(v) for v in zip(
+            *(_port_draws(_jax_draws(kh, H), H) for kh in jax.random.split(key))))
+        acc = red_black_step(xt, lpt, torch.arange(W).view(2, H),
+                             torch.tensor([[H], [0]]) + k, z, log_u, DEMO.tile_density, ())
+        np.testing.assert_array_equal(acc.reshape(-1).numpy(), np.asarray(state.accepted))
+        np.testing.assert_allclose(xt.numpy().T, np.asarray(state.params), rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(lpt[0].numpy(), np.asarray(state.lp), rtol=1e-5,
+                                   atol=1e-5)
 
 
 def test_uniforms_depend_only_on_step_and_walker():
@@ -188,16 +286,28 @@ def test_fused_split_run_and_tile_walkers():
     second = sample(model, spl, 10, initial_state=first.final_state, iteration_offset=10, **kw)
     joined = torch.cat([first.transitions.params, second.transitions.params])
     assert torch.equal(joined, whole.transitions.params)
-    # several independent ensembles (tile_walkers < W): the plain version's
-    # draws equal a run of each ensemble alone
-    x = torch.as_tensor(np.random.default_rng(0).uniform(0.5, 3.0, (2, 48)).astype(np.float32))
-    kw = dict(stretch_length=2.0, burn=0, thin=1, n_samples=4)
+    # several independent ensembles (tile_walkers T = 12 < W = 48): each
+    # 12-walker slice's draws equal a run of that slice alone, made with the
+    # uniforms of its global walker indices
+    W, T, n = 48, 12, 4
+    H = T // 2
+    x = torch.as_tensor(np.random.default_rng(0).uniform(0.5, 3.0, (2, W)).astype(np.float32))
     out = fused_emcee_sample(model.tile_density, model.cuda_density, x,
-                             model.tile_density(x), (), 3, tile_walkers=12, **kw)
-    assert tuple(out[0].shape) == (4, 2, 48) and torch.isfinite(out[0]).all()
-    ones = fused_emcee_sample(model.tile_density, model.cuda_density, x,
-                              model.tile_density(x), (), 3, tile_walkers=48, **kw)
-    assert not torch.equal(out[0], ones[0])
+                             model.tile_density(x), (), 3, stretch_length=2.0,
+                             tile_walkers=T, burn=0, thin=1, n_samples=n)
+    assert tuple(out[0].shape) == (n, 2, W)
+    walker, u = emcee_uniforms(3, 1, n, W, T, "cpu")
+    for e in range(W // T):
+        cols, moving = slice(e * T, (e + 1) * T), slice(e * H, (e + 1) * H)
+        xe = x[:, cols].clone()
+        lpe = model.tile_density(xe)
+        for t in range(n):
+            k, z, log_u = stretch_draws(u[t, :, moving], H, 2.0)
+            acc = red_black_step(xe, lpe, walker[:, moving] - e * T,
+                                 torch.tensor([[H], [0]]) + k, z, log_u, model.tile_density, ())
+            assert torch.equal(out[0][t, :, cols], xe) and torch.equal(out[1][t, :, cols], lpe)
+            assert torch.equal(out[2][t, 0, cols], acc.reshape(-1).float())
+    assert not torch.equal(out[0][-1], x.expand(2, W))  # the walkers moved
 
 
 def test_fused_walker_counts():
