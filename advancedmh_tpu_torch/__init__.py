@@ -3,7 +3,8 @@
 The port of ``advancedmh_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100.
 It carries the reference sampler surface end to end: distributions,
 models, proposal trees, the MH sampler (RWMH), MALA, Robust Adaptive
-Metropolis and the emcee ensemble, ``sample`` with a batched tensor engine
+Metropolis, the emcee ensemble, HMC, AdaptiveHMC and dual-averaging
+step-size adaptation, ``sample`` with a batched tensor engine
 (``engine="torch"``) and the hand-written CUDA kernels of the fused engine
 (``engine="fused"``, ``csrc/``), ``Chains`` and the ESS / R̂ / MCSE
 diagnostics. Public names match ``advancedmh_tpu``'s. Models live on the
@@ -49,12 +50,17 @@ from .proposals import (
 from .samplers import (
     MALA,
     RWMH,
+    AdaptiveHMC,
+    AdaptiveHMCState,
     Ensemble,
     GradientTransition,
+    HamiltonianMC,
     MetropolisHastings,
     RobustAdaptiveMetropolis,
     RobustAdaptiveMetropolisState,
     StaticMH,
+    StepSizeAdaptation,
+    StepSizeAdaptationState,
     StretchProposal,
     Transition,
     WalkProposal,
@@ -90,7 +96,8 @@ __all__ = [
     "MetropolisHastings", "StaticMH", "RWMH", "Transition",
     "GradientTransition", "MALA", "RobustAdaptiveMetropolis",
     "RobustAdaptiveMetropolisState", "Ensemble", "StretchProposal",
-    "WalkProposal", "getparams", "setparams",
+    "WalkProposal", "HamiltonianMC", "AdaptiveHMC", "AdaptiveHMCState",
+    "StepSizeAdaptation", "StepSizeAdaptationState", "getparams", "setparams",
     # runtime
     "sample", "Schedule", "SamplingResult",
     "MCMCSerial", "MCMCThreads", "MCMCDistributed",

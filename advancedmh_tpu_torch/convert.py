@@ -3,8 +3,9 @@
 Functions here take numpy arrays (never JAX objects) and return the port's
 objects on a given device (the card unless the caller asks for another),
 so one set of inputs can be handed to both packages: model data, proposal
-scales, and the states of RWMH, MALA, RAM and the ensemble sampler for
-``initial_params`` / ``initial_state``.
+scales, and the states of RWMH, MALA, RAM, the ensemble sampler,
+StepSizeAdaptation and AdaptiveHMC for ``initial_params`` /
+``initial_state``.
 """
 from __future__ import annotations
 
@@ -15,8 +16,11 @@ import torch
 
 from .distributions import MvNormal
 from .models.targets import (TileDensityModel, correlated_gaussian_model,
-                             emcee_demo_model, gaussian_mean_scale_model)
+                             emcee_demo_model, gaussian_mean_scale_model,
+                             logistic_regression_model)
+from .samplers.adapt import StepSizeAdaptationState
 from .samplers.base import GradientTransition, Transition
+from .samplers.hmc_adapt import AdaptiveHMCState
 from .samplers.ram import RobustAdaptiveMetropolisState
 
 
@@ -41,6 +45,15 @@ def correlated_gaussian_from_numpy(cov: np.ndarray, device="cuda") -> TileDensit
 def emcee_demo_from_numpy(transformed: bool = False, device="cuda") -> TileDensityModel:
     """The emcee test model (it has no data: both packages build it alike)."""
     return emcee_demo_model(transformed=transformed, device=device)
+
+
+def logistic_regression_from_numpy(X: np.ndarray, y: np.ndarray,
+                                   prior_scale: float = 10.0,
+                                   device="cuda") -> TileDensityModel:
+    """The logistic regression on the data ``X`` (n, d) and ``y`` (n,)."""
+    return logistic_regression_model(X=np.asarray(X, np.float32),
+                                     y=np.asarray(y, np.float32),
+                                     prior_scale=prior_scale, device=device)
 
 
 def mvnormal_from_numpy(
@@ -89,4 +102,34 @@ def ram_state_from_numpy(
         logalpha=_f32(logalpha, device), eta=_f32(eta, device),
         iteration=torch.as_tensor(np.asarray(iteration, np.int32), device=device),
         isaccept=_bool(isaccept, device),
+    )
+
+
+def _i32(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, np.int32), device=device)
+
+
+def step_size_adaptation_state_from_numpy(
+    inner, log_eps: np.ndarray, log_eps_bar: np.ndarray, h_bar: np.ndarray,
+    t: np.ndarray, device="cuda",
+) -> StepSizeAdaptationState:
+    """A StepSizeAdaptation state around ``inner``, the wrapped sampler's
+    state already carried across (e.g. :func:`transition_from_numpy`)."""
+    return StepSizeAdaptationState(inner=inner, log_eps=_f32(log_eps, device),
+                                   log_eps_bar=_f32(log_eps_bar, device),
+                                   h_bar=_f32(h_bar, device), t=_i32(t, device))
+
+
+def adaptive_hmc_state_from_numpy(
+    inner: GradientTransition, log_eps: np.ndarray, log_eps_bar: np.ndarray,
+    h_bar: np.ndarray, t: np.ndarray, mean: np.ndarray, m2: np.ndarray,
+    n: np.ndarray, inverse_mass: np.ndarray, device="cuda",
+) -> AdaptiveHMCState:
+    """An AdaptiveHMC state (vector params): ``inner`` from
+    :func:`gradient_transition_from_numpy`, the rest as the JAX state holds
+    them (per chain on a leading axis)."""
+    return AdaptiveHMCState(
+        inner=inner, log_eps=_f32(log_eps, device), log_eps_bar=_f32(log_eps_bar, device),
+        h_bar=_f32(h_bar, device), t=_i32(t, device), mean=_f32(mean, device),
+        m2=_f32(m2, device), n=_f32(n, device), inverse_mass=_f32(inverse_mass, device),
     )

@@ -86,6 +86,34 @@ __device__ __forceinline__ void load_consts(float* sh, const float* consts,
   __syncthreads();
 }
 
+// The constants go to dynamic shared memory. Above the 48 KB a launch gets
+// by default, the kernel must be allowed more first (up to the 227 KB of an
+// H100 block; ops/_build.py refuses larger sets before any launch). Call
+// before every launch of `kernel` with `bytes` of dynamic shared memory.
+template <class Kernel>
+inline cudaError_t allow_shared(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+// HG14 dual averaging of log step sizes on the accept indicator
+// (advancedmh_tpu/ops/pallas_adapt.py; ops/hmc_adapt.py::dual_average_step
+// is the plain version): t^-kappa is expf(-kappa * logf(t)).
+struct DualAveraging {
+  float target, t0, kappa, gamma, mu, log_eps0;
+};
+
+__device__ __forceinline__ void dual_average(const DualAveraging& k, float t,
+                                             float a, float& log_eps,
+                                             float& log_eps_bar, float& h_bar) {
+  const float w = 1.0f / (t + k.t0);
+  h_bar = (1.0f - w) * h_bar + w * (k.target - a);
+  log_eps = k.mu - sqrtf(t) / k.gamma * h_bar;
+  const float eta = expf(-k.kappa * logf(t));
+  log_eps_bar = eta * log_eps + (1.0f - eta) * log_eps_bar;
+}
+
 // ---- densities ---------------------------------------------------------
 
 // models/targets.py::gaussian_mean_scale_tile: x = (mu, sigma), consts = the
@@ -168,6 +196,83 @@ struct CorrelatedGaussian {
   __device__ static float logp(const float* x, const float* pc, int n) {
     float g[D];
     return value_and_grad(x, pc, n, g);
+  }
+};
+
+// models/targets.py::logistic_regression_tile: Bayesian logistic regression
+// with D coefficients b; consts = X (n x D, row-major), y (n), then
+// inv_var = 1/prior_scale^2, so n = (n_consts - 1) / (D + 1). Per
+// observation z = X_i . b (coordinates in order), the term
+// y z - softplus(z) with softplus(z) = max(z, 0) + log1p(exp(-|z|)), and for
+// the gradient r = y - softplus'(z) with softplus' as JAX's reverse mode
+// gives it: h - s e/(1 + e), e = exp(-|z|), h = 1, 1/2, 0 for z >, =, < 0,
+// s = +1 for z >= 0 and -1 below (0 at z = 0). The log-likelihood terms go
+// into 8 interleaved partial sums (observation i into partial i mod 8, then
+// the partials in order), which the compiler can overlap; the gradient
+// g_j = sum_i X_ij r_i - inv_var b_j accumulates over i in order. One
+// thread holds b, g and the 8 partials; X and y are read from shared memory
+// at the same address by every thread of a warp (a broadcast).
+template <int D>
+struct LogisticRegression {
+  static constexpr const char* kName = "logistic_regression";
+  static constexpr int kDim = D;
+  static constexpr int kPartials = 8;
+
+  template <bool kGrad>
+  __device__ __forceinline__ static float eval(const float* b, const float* c,
+                                               int n_consts, float* g) {
+    const int n = (n_consts - 1) / (D + 1);
+    const float* X = c;
+    const float* y = c + n * D;
+    const float inv_var = c[n * (D + 1)];
+    float part[kPartials];
+#pragma unroll
+    for (int m = 0; m < kPartials; ++m) part[m] = 0.0f;
+    if (kGrad) {
+#pragma unroll
+      for (int j = 0; j < D; ++j) g[j] = 0.0f;
+    }
+    for (int i0 = 0; i0 < n; i0 += kPartials) {
+#pragma unroll
+      for (int m = 0; m < kPartials; ++m) {
+        const int i = i0 + m;
+        if (i < n) {
+          const float* xi = X + i * D;
+          float z = xi[0] * b[0];
+#pragma unroll
+          for (int j = 1; j < D; ++j) z = z + xi[j] * b[j];
+          const float e = expf(-fabsf(z));
+          part[m] = part[m] + (y[i] * z - (fmaxf(z, 0.0f) + log1pf(e)));
+          if (kGrad) {
+            const float h = z > 0.0f ? 1.0f : (z == 0.0f ? 0.5f : 0.0f);
+            const float s = z >= 0.0f ? 1.0f : -1.0f;
+            const float r = y[i] - (h - s * (e / (1.0f + e)));
+#pragma unroll
+            for (int j = 0; j < D; ++j) g[j] = g[j] + xi[j] * r;
+          }
+        }
+      }
+    }
+    float ll = part[0];
+#pragma unroll
+    for (int m = 1; m < kPartials; ++m) ll = ll + part[m];
+    float bb = b[0] * b[0];
+#pragma unroll
+    for (int j = 1; j < D; ++j) bb = bb + b[j] * b[j];
+    if (kGrad) {
+#pragma unroll
+      for (int j = 0; j < D; ++j) g[j] = g[j] - b[j] * inv_var;
+    }
+    return ll - (0.5f * inv_var) * bb;
+  }
+
+  __device__ static float logp(const float* b, const float* c, int n_consts) {
+    return eval<false>(b, c, n_consts, nullptr);
+  }
+
+  __device__ static float value_and_grad(const float* b, const float* c,
+                                         int n_consts, float* g) {
+    return eval<true>(b, c, n_consts, g);
   }
 };
 

@@ -134,6 +134,7 @@ int launch_emcee(float* x_state, float* lp_state, const float* consts,
     err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   const size_t smem = (size_t)n_consts * sizeof(float);
   auto* kernel = emcee_sample_kernel<Density>;
+  if (err == cudaSuccess) err = allow_shared(kernel, smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                         kEmceeBlock, smem);

@@ -52,21 +52,20 @@ __device__ __forceinline__ bool mala_step(float (&x)[Density::kDim], float& lp,
                                           uint64_t j, uint32_t c, uint32_t k0,
                                           uint32_t k1) {
   constexpr int D = Density::kDim;
-  float z[D];
+  // y holds the normals, then the proposal; the drift x + (s2/2) g is
+  // recomputed where it is needed, so that at d = 32 only x, g, y and g_y
+  // are live across the density
+  float y[D], g_y[D];
   float logu;
-  step_noise<D>(j, c, k0, k1, z, logu);
-  float drift_x[D], y[D], g_y[D];
+  step_noise<D>(j, c, k0, k1, y, logu);
 #pragma unroll
-  for (int i = 0; i < D; ++i) {
-    drift_x[i] = x[i] + k.half_s2 * g[i];
-    y[i] = drift_x[i] + k.sigma * z[i];
-  }
+  for (int i = 0; i < D; ++i) y[i] = (x[i] + k.half_s2 * g[i]) + k.sigma * y[i];
   const float lp_y = Density::value_and_grad(y, consts, n_consts, g_y);
   float fwd = 0.0f, bwd = 0.0f;
 #pragma unroll
   for (int i = 0; i < D; ++i) {
     const float drift_y = y[i] + k.half_s2 * g_y[i];
-    const float f = y[i] - drift_x[i];
+    const float f = y[i] - (x[i] + k.half_s2 * g[i]);
     const float b = x[i] - drift_y;
     fwd = i == 0 ? f * f : fwd + f * f;
     bwd = i == 0 ? b * b : bwd + b * b;
@@ -133,8 +132,11 @@ int launch_mala(const float* params_t, const float* lp, const float* grad,
                 uint64_t seed, int64_t burn, int64_t thin, int64_t n_samples,
                 uint64_t offset, int64_t C, float* samples, float* lps,
                 float* accs, float* out_grad, cudaStream_t stream) {
+  const size_t smem = n_consts * sizeof(float);
+  const cudaError_t err = allow_shared(mala_sample_kernel<Density>, smem);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((C + kMalaBlock - 1) / kMalaBlock));
-  mala_sample_kernel<Density><<<grid, kMalaBlock, n_consts * sizeof(float), stream>>>(
+  mala_sample_kernel<Density><<<grid, kMalaBlock, smem, stream>>>(
       params_t, lp, grad, consts, n_consts, k, (uint32_t)seed,
       (uint32_t)(seed >> 32), burn, thin, n_samples, offset, C, samples, lps,
       accs, out_grad);
@@ -151,7 +153,8 @@ int launch_mala(const float* params_t, const float* lp, const float* grad,
   X(amh::GaussianMeanScale)   \
   X(amh::CorrelatedGaussian<2>) \
   X(amh::CorrelatedGaussian<4>) \
-  X(amh::CorrelatedGaussian<8>)
+  X(amh::CorrelatedGaussian<8>) \
+  X(amh::LogisticRegression<32>)
 
 extern "C" {
 

@@ -174,9 +174,12 @@ int launch_ram(const float* params_t, const float* lp, const float* S,
                int64_t warmup, int64_t thin, int64_t n_samples,
                uint64_t offset, int64_t C, float* samples, float* lps,
                float* accs, float* S_out, cudaStream_t stream) {
+  const size_t smem = n_consts * sizeof(float);
+  const cudaError_t err = allow_shared(ram_sample_kernel<Density, kClamp>, smem);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((C + kRamBlock - 1) / kRamBlock));
   ram_sample_kernel<Density, kClamp>
-      <<<grid, kRamBlock, n_consts * sizeof(float), stream>>>(
+      <<<grid, kRamBlock, smem, stream>>>(
           params_t, lp, S, consts, n_consts, p, (uint32_t)seed,
           (uint32_t)(seed >> 32), warmup, thin, n_samples, offset, C, samples,
           lps, accs, S_out);

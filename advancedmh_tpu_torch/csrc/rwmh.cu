@@ -177,8 +177,11 @@ int launch_sample(const float* params_t, const float* lp, const float* scale,
                   int64_t burn, int64_t thin, int64_t n_samples,
                   uint64_t offset, int64_t C, float* samples, float* lps,
                   float* accs, cudaStream_t stream) {
+  const size_t smem = n_consts * sizeof(float);
+  const cudaError_t err = allow_shared(rwmh_sample_kernel<Density, kTril>, smem);
+  if (err != cudaSuccess) return (int)err;
   rwmh_sample_kernel<Density, kTril>
-      <<<grid_for(C), kBlock, n_consts * sizeof(float), stream>>>(
+      <<<grid_for(C), kBlock, smem, stream>>>(
           params_t, lp, scale, consts, n_consts, (uint32_t)seed,
           (uint32_t)(seed >> 32), burn, thin, n_samples, offset, C, samples,
           lps, accs);
@@ -191,8 +194,11 @@ int launch_steps(const float* params_t, const float* lp, const float* scale,
                  int64_t n_steps, uint64_t offset, int64_t C,
                  float* out_params, float* out_lp, float* out_acc,
                  cudaStream_t stream) {
+  const size_t smem = n_consts * sizeof(float);
+  const cudaError_t err = allow_shared(rwmh_kernel<Density, kTril>, smem);
+  if (err != cudaSuccess) return (int)err;
   rwmh_kernel<Density, kTril>
-      <<<grid_for(C), kBlock, n_consts * sizeof(float), stream>>>(
+      <<<grid_for(C), kBlock, smem, stream>>>(
           params_t, lp, scale, consts, n_consts, (uint32_t)seed,
           (uint32_t)(seed >> 32), n_steps, offset, C, out_params, out_lp,
           out_acc);
@@ -212,7 +218,8 @@ int launch_steps(const float* params_t, const float* lp, const float* scale,
   X(amh::CorrelatedGaussian<2>)                                         \
   X(amh::CorrelatedGaussian<4>)                                         \
   X(amh::CorrelatedGaussian<8>)                                         \
-  X(amh::EmceeDemo)
+  X(amh::EmceeDemo)                                                     \
+  X(amh::LogisticRegression<32>)
 
 extern "C" {
 

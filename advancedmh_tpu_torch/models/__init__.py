@@ -18,6 +18,9 @@ from .targets import (
     gaussian_mean_scale_model,
     gaussian_mean_scale_tile,
     gaussian_mean_scale_tile_value_and_grad,
+    logistic_regression_model,
+    logistic_regression_tile,
+    logistic_regression_tile_value_and_grad,
 )
 
 __all__ = [
@@ -27,4 +30,6 @@ __all__ = [
     "correlated_gaussian_tile", "correlated_gaussian_tile_value_and_grad",
     "emcee_demo_model", "emcee_demo_tile", "gaussian_mean_scale_model",
     "gaussian_mean_scale_tile", "gaussian_mean_scale_tile_value_and_grad",
+    "logistic_regression_model", "logistic_regression_tile",
+    "logistic_regression_tile_value_and_grad",
 ]

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..distributions import InverseGamma, MvNormal, Normal
+from ..ops.rwmh import row_sum
 from .density import DensityModel, guarded_logdensity
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -45,17 +46,27 @@ def gaussian_mean_scale_tile(p: torch.Tensor, obs: torch.Tensor) -> torch.Tensor
 
     One reciprocal per chain instead of n divides; ``-inf`` where σ < 0.
     The CUDA functor ``GaussianMeanScale`` in ``csrc/common.cuh`` does the
-    same algebra.
+    same algebra in the same order (the observations summed in order), so
+    the two differ only in the last ulp of log.
     """
     n = obs.shape[0]
     mu, sigma = p[0:1], p[1:2]
     inv = 1.0 / torch.clamp(sigma, min=0.1)
     z = (obs - mu) * inv
-    lp = (
-        torch.sum(-0.5 * z * z, dim=0, keepdim=True)
-        + n * torch.log(inv)
-        - n * _HALF_LOG_2PI
-    )
+    lp = row_sum(-0.5 * z * z) + n * torch.log(inv) - n * _HALF_LOG_2PI
+    return torch.where(sigma >= 0, lp, torch.full_like(lp, -torch.inf))
+
+
+def _gaussian_mean_scale_batched(theta: torch.Tensor, obs: torch.Tensor) -> torch.Tensor:
+    """The flagship's density over a chain batch (C, 2) for the torch
+    engine: the tile density's algebra with one ``torch.sum`` over the
+    observations, where the tile density's ordered sum would cost a launch
+    per observation on every step."""
+    n = obs.shape[0]
+    mu, sigma = theta[:, 0], theta[:, 1]
+    inv = 1.0 / torch.clamp(sigma, min=0.1)
+    z = (obs - mu) * inv
+    lp = torch.sum(-0.5 * z * z, dim=0) + n * torch.log(inv) - n * _HALF_LOG_2PI
     return torch.where(sigma >= 0, lp, torch.full_like(lp, -torch.inf))
 
 
@@ -76,16 +87,11 @@ def gaussian_mean_scale_tile_value_and_grad(p: torch.Tensor, obs: torch.Tensor):
     inv = 1.0 / m
     r = obs - mu
     z = r * inv
-    lp = (
-        torch.sum(-0.5 * z * z, dim=0, keepdim=True)
-        + n * torch.log(inv)
-        - n * _HALF_LOG_2PI
-    )
-    d_inv = (1.0 / inv) * n - torch.sum(z * r, dim=0, keepdim=True)
+    lp = row_sum(-0.5 * z * z) + n * torch.log(inv) - n * _HALF_LOG_2PI
+    d_inv = (1.0 / inv) * n - row_sum(z * r)
     one = torch.ones_like(sigma)
     w = torch.where(sigma > 0.1, one, torch.where(sigma == 0.1, 0.5 * one, 0.0 * one))
-    grad = torch.cat([inv * torch.sum(z, dim=0, keepdim=True),
-                      (-d_inv) / (m * m) * w])
+    grad = torch.cat([inv * row_sum(z), (-d_inv) / (m * m) * w])
     inside = sigma >= 0
     return (torch.where(inside, lp, torch.full_like(lp, -torch.inf)),
             torch.where(inside, grad, torch.zeros_like(grad)))
@@ -114,7 +120,7 @@ def gaussian_mean_scale_model(
     return TileDensityModel(
         logdensity_fn=ld,
         dimension=2,
-        logdensity_batched_fn=lambda theta: gaussian_mean_scale_tile(theta.T, obs)[0],
+        logdensity_batched_fn=lambda theta: _gaussian_mean_scale_batched(theta, obs),
         device=device,
         tile_density=gaussian_mean_scale_tile,
         tile_value_and_grad=gaussian_mean_scale_tile_value_and_grad,
@@ -179,6 +185,161 @@ def correlated_gaussian_model(cov, device="cuda") -> TileDensityModel:
         tile_consts=(prec, const),
         cuda_density="correlated_gaussian",
     )
+
+
+# ---- Bayesian logistic regression ----------------------------------------
+
+# The observation sum of the tile density runs in 8 interleaved partial sums
+# (observation i into partial i mod 8), then the partials in order: the
+# order of LogisticRegression in csrc/common.cuh, where the 8 partials are
+# independent chains of adds for the compiler to overlap.
+_LOGREG_PARTIALS = 8
+
+
+def _softplus(z: torch.Tensor) -> torch.Tensor:
+    """``max(z, 0) + log1p(exp(-|z|))``, the overflow-stable form."""
+    return torch.clamp(z, min=0.0) + torch.log1p(torch.exp(-torch.abs(z)))
+
+
+def _softplus_grad(z: torch.Tensor) -> torch.Tensor:
+    """The derivative JAX's reverse mode gives for :func:`_softplus`:
+    ``maximum`` splits its cotangent at the tie (½ at z = 0) and ``abs``
+    takes the derivative +1 at 0, so with e = exp(−|z|)
+
+        h(z) − s(z)·e/(1 + e),  h = 1, ½, 0 for z >, =, < 0,  s = ±1 (+ at 0),
+
+    which is σ(z) away from 0 and exactly 0 at z = 0."""
+    e = torch.exp(-torch.abs(z))
+    one = torch.ones_like(z)
+    h = torch.where(z > 0, one, torch.where(z == 0, 0.5 * one, 0.0 * one))
+    s = torch.where(z >= 0, one, -one)
+    return h - s * (e / (1.0 + e))
+
+
+def _logits(b: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """z = X·b (n, C) with each z_i summed over the coordinates in order."""
+    z = X[:, 0:1] * b[0:1]
+    for j in range(1, X.shape[1]):
+        z = z + X[:, j : j + 1] * b[j : j + 1]
+    return z
+
+
+def _interleaved_sum(a: torch.Tensor) -> torch.Tensor:
+    """Σ_i a_i (n, C) → (1, C) in the kernel's order (see above)."""
+    n, C = a.shape
+    k = _LOGREG_PARTIALS
+    pad = (-n) % k
+    if pad:
+        a = torch.cat([a, torch.zeros((pad, C), dtype=a.dtype, device=a.device)])
+    blocks = a.reshape(-1, k, C)
+    acc = blocks[0]
+    for r in range(1, blocks.shape[0]):
+        acc = acc + blocks[r]
+    total = acc[0:1]
+    for m in range(1, k):
+        total = total + acc[m : m + 1]
+    return total
+
+
+def logistic_regression_tile(b: torch.Tensor, X: torch.Tensor, y: torch.Tensor,
+                             inv_var: torch.Tensor) -> torch.Tensor:
+    """Tile density of the logistic regression: ``b`` (d, C), ``X`` (n, d),
+    ``y`` (n, 1), ``inv_var`` (1, 1) = 1/prior_scale²:
+
+        Σ_i (y_i z_i − softplus(z_i)) − (inv_var/2)·Σ_j b_j²,  z = X·b.
+
+    ``LogisticRegression`` in ``csrc/common.cuh`` does the same algebra in
+    the same order."""
+    return logistic_regression_tile_value_and_grad(b, X, y, inv_var, grad=False)[0]
+
+
+def logistic_regression_tile_value_and_grad(b: torch.Tensor, X: torch.Tensor,
+                                            y: torch.Tensor, inv_var: torch.Tensor,
+                                            grad: bool = True):
+    """Value and gradient of :func:`logistic_regression_tile`, by hand:
+    ``g = Xᵀ(y − softplus'(z)) − inv_var·b`` with softplus' as JAX's reverse
+    mode gives it (:func:`_softplus_grad`); the sum over observations runs
+    in order i = 0, 1, ..., as in the kernel."""
+    z = _logits(b, X)
+    bb = b[0:1] * b[0:1]
+    for j in range(1, b.shape[0]):
+        bb = bb + b[j : j + 1] * b[j : j + 1]
+    lp = _interleaved_sum(y * z - _softplus(z)) - (0.5 * inv_var) * bb
+    if not grad:
+        return lp, None
+    r = y - _softplus_grad(z)  # (n, C)
+    g = X[0][:, None] * r[0:1]
+    for i in range(1, X.shape[0]):
+        g = g + X[i][:, None] * r[i : i + 1]
+    return lp, g - b * inv_var
+
+
+def logistic_regression_model(
+    n_obs: int = 256,
+    dim: int = 32,
+    *,
+    prior_scale: float = 10.0,
+    seed: int = 0,
+    X=None,
+    y=None,
+    device="cuda",
+) -> TileDensityModel:
+    """Bayesian logistic regression (≙ the JAX package's
+    ``logistic_regression_model``): β ~ N(0, prior_scale²·I),
+    yᵢ ~ Bernoulli(σ(xᵢ·β)).
+
+    Without ``X``/``y`` the synthetic dataset is drawn with
+    ``np.random.default_rng(seed)`` in the JAX package's order (X, then
+    β_true, then the uniforms), so X and y equal its bit for bit, and β_true
+    is attached as ``model.beta_true``. The per-chain density, its gradient
+    and the batched density of the torch engine use ``torch.matmul``, which
+    runs in IEEE float32 on the card (``torch.backends.cuda.matmul.
+    allow_tf32`` is False by default; chip_smoke.py sets it so). The tile
+    forms are the kernels' plain versions (see above)."""
+    beta_true = None
+    if X is None:
+        rng = np.random.default_rng(seed)
+        X = rng.normal(size=(n_obs, dim)).astype(np.float32) / np.sqrt(dim)
+        beta_true = 2.0 * rng.normal(size=(dim,)).astype(np.float32)
+        logits = X @ beta_true
+        y = (rng.uniform(size=n_obs) < 1.0 / (1.0 + np.exp(-logits))).astype(np.float32)
+    elif y is None:
+        raise ValueError("supply y along with X")
+    X = torch.as_tensor(np.asarray(X, np.float32), device=device)
+    y = torch.as_tensor(np.asarray(y, np.float32), device=device)
+    n, d = X.shape
+    inv_var = 1.0 / float(prior_scale) ** 2
+    half_inv_var = 0.5 * inv_var
+
+    def logdensity(beta):
+        z = X @ beta
+        return torch.sum(y * z - _softplus(z)) - half_inv_var * torch.sum(beta * beta)
+
+    def ldg(beta):
+        z = X @ beta
+        lp = torch.sum(y * z - _softplus(z)) - half_inv_var * torch.sum(beta * beta)
+        return lp, X.T @ (y - torch.sigmoid(z)) - inv_var * beta
+
+    def batched(betas):  # (C, d) -> (C,): one matmul for all chains
+        z = betas @ X.T
+        ll = torch.sum(y[None, :] * z - _softplus(z), dim=1)
+        return ll - half_inv_var * torch.sum(betas * betas, dim=1)
+
+    model = TileDensityModel(
+        logdensity_fn=logdensity,
+        logdensity_and_gradient_fn=ldg,
+        dimension=d,
+        logdensity_batched_fn=batched,
+        device=device,
+        tile_density=logistic_regression_tile,
+        tile_value_and_grad=logistic_regression_tile_value_and_grad,
+        tile_consts=(X, y.reshape(-1, 1),
+                     torch.full((1, 1), inv_var, dtype=torch.float32, device=device)),
+        cuda_density="logistic_regression",
+    )
+    if beta_true is not None:
+        object.__setattr__(model, "beta_true", beta_true)
+    return model
 
 
 # ---- the emcee test model ------------------------------------------------

@@ -38,7 +38,8 @@ from typing import FrozenSet, Optional, Tuple
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-KERNELS = ("rwmh", "mala", "ram", "emcee")  # each csrc/<name>.cu exports amh_pairs_<name>
+# each csrc/<name>.cu exports amh_pairs_<name>
+KERNELS = ("rwmh", "mala", "ram", "emcee", "adapt", "hmc", "hmc_adapt")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
@@ -73,7 +74,30 @@ _SIGNATURES = {
     # thin, n_samples, offset, samples, lps, accs, stream
     "amh_emcee_sample": [_S, _I32, _P, _P, _P, _I32, _F, _I64, _I64, _U64,
                          _I64, _I64, _I64, _U64, _P, _P, _P, _P],
+    # density, d, resume, params_t, lp, log_eps_bar, consts, n_consts, target,
+    # t0, kappa, gamma, mu, log_eps0, seed, warmup, thin, n_samples, offset,
+    # C, samples, lps, accs, log_eps_bar_out, stream
+    "amh_adapt_rwmh_sample": [_S, _I32, _I32, _P, _P, _P, _P, _I32, _F, _F, _F,
+                              _F, _F, _F, _U64, _I64, _I64, _I64, _U64, _I64,
+                              _P, _P, _P, _P, _P],
+    # density, d, params_t, lp, grad, minv, consts, n_consts, eps, n_leapfrog,
+    # seed, burn, thin, n_samples, offset, C, samples, lps, accs, x_state,
+    # g_state, stream
+    "amh_hmc_sample": [_S, _I32, _P, _P, _P, _P, _P, _I32, _F, _I32, _U64,
+                       _I64, _I64, _I64, _U64, _I64, _P, _P, _P, _P, _P, _P],
+    # density, d, resume, params_t, lp, grad, log_eps_bar, minv, consts,
+    # n_consts, target, t0, kappa, gamma, mu, log_eps0, mass_reg, warm_start,
+    # n_leapfrog, seed, warmup, thin, n_samples, offset, C, samples, lps,
+    # accs, log_eps_bar_out, minv_out, x_state, g_state, mean, m2, stream
+    "amh_adaptive_hmc_sample": [_S, _I32, _I32, _P, _P, _P, _P, _P, _P, _I32,
+                                _F, _F, _F, _F, _F, _F, _F, _F, _I32, _U64,
+                                _I64, _I64, _I64, _U64, _I64, _P, _P, _P, _P,
+                                _P, _P, _P, _P, _P, _P],
 }
+
+# An H100 block may use at most 227 KB of shared memory; the density's
+# constants are copied there whole (csrc/common.cuh::allow_shared).
+MAX_SHARED_BYTES = 232448
 
 
 def _nvcc() -> str:
@@ -169,6 +193,16 @@ def kernel_pairs(lib: ctypes.CDLL, kernel: str) -> FrozenSet[Tuple[str, int]]:
 def density_arg(cuda_density: Optional[str]) -> Optional[bytes]:
     """A model's ``cuda_density`` tag as the C entry points take it."""
     return None if cuda_density is None else cuda_density.encode()
+
+
+def check_shared_memory(n_floats: int) -> None:
+    """Raise before any launch when ``n_floats`` float32 constants exceed
+    the shared memory one block can use."""
+    if n_floats * 4 > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"the density's constants take {n_floats * 4} bytes of shared memory; "
+            f"a block on this card may use at most {MAX_SHARED_BYTES} bytes (227 KB)"
+        )
 
 
 def check(lib: ctypes.CDLL, code: int, kernel: str, density: Optional[str],

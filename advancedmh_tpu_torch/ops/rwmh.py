@@ -36,8 +36,6 @@ _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
-_MAX_SHARED_CONSTS = 12288  # 48 KB of float32: the default dynamic shared memory
-
 
 # ---- Philox4x32-10 in plain PyTorch (same bits as csrc/philox.cuh) ---------
 
@@ -231,10 +229,10 @@ def _check(params_t, lp, consts, d_counts: Sequence[int]):
 def flat_consts(consts: Sequence[torch.Tensor], device) -> Tuple[torch.Tensor, int]:
     """The density constants as the kernels read them: one contiguous
     float32 vector (one placeholder float when there are none) and its
-    length. They go to shared memory, so at most 48 KB."""
+    length. They go to shared memory, so at most 227 KB
+    (:func:`_build.check_shared_memory`)."""
     n = sum(c.numel() for c in consts)
-    if n > _MAX_SHARED_CONSTS:
-        raise ValueError(f"density constants exceed {_MAX_SHARED_CONSTS} floats")
+    _build.check_shared_memory(n)
     if not consts:
         return torch.zeros(1, dtype=torch.float32, device=device), 0
     return torch.cat([c.reshape(-1).to(torch.float32) for c in consts]).contiguous(), n

@@ -7,7 +7,11 @@ ported (on CPU tensors each kernel's plain PyTorch version runs instead):
   (RWMH, ``ops/rwmh.py``);
 - ``MALA.langevin(step_size_sq)`` (``ops/mala.py``);
 - ``RobustAdaptiveMetropolis``, per-chain or pooled (``ops/ram.py``);
-- ``Ensemble`` with a ``StretchProposal`` (``ops/emcee.py``).
+- ``Ensemble`` with a ``StretchProposal`` (``ops/emcee.py``);
+- ``StepSizeAdaptation.rwmh(d)`` (dual-averaging RWMH, ``ops/adapt.py``);
+- ``HamiltonianMC``, endpoint, with a scalar or diagonal inverse mass
+  (``ops/hmc.py``);
+- ``AdaptiveHMC``, per-chain or pooled (``ops/hmc_adapt.py``).
 
 The model must name a CUDA density (``model.cuda_density``, with its plain
 ``tile_density``, ``tile_value_and_grad`` for MALA, and ``tile_consts``; see
@@ -16,7 +20,10 @@ models/targets.py).
 Schedule contract: sample k is the state after ``burn + (k+1)*thinning``
 steps with ``burn = max(discard_initial - thinning, 0)``, identical to the
 standard schedule when ``discard_initial >= thinning`` (the init state is
-never emitted); for RAM, ``burn`` is the ``num_warmup`` adaptive steps. Step
+never emitted); for RAM and the two adaptive samplers, ``burn`` is the
+``num_warmup`` adaptive steps, so sample k is the state after
+``num_warmup + (k+1)*thinning`` steps (a one-draw offset from the standard
+schedule, as in the JAX package's fused engines). Step
 t of the run is absolute iteration ``iteration_offset + t``, and its noise
 depends only on (seed, iteration, chain or walker), so a run split at any
 point and resumed with ``initial_state`` and ``iteration_offset`` gives the
@@ -24,25 +31,34 @@ same draws as an unsplit one.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from ..distributions import MvNormal, Normal
+from ..ops.adapt import fused_adapt_rwmh_sample
 from ..ops.emcee import check_walkers, fused_emcee_sample
+from ..ops.hmc import fused_hmc_sample, minv_column
+from ..ops.hmc_adapt import DualAveraging, fused_adaptive_hmc_sample
 from ..ops.mala import fused_mala_sample
 from ..ops.ram import RamParams, fused_ram_sample
 from ..ops.rwmh import fused_rwmh_sample
 from ..proposals import RandomWalkProposal, is_proposal
+from ..samplers.adapt import StepSizeAdaptationState
 from ..samplers.base import GradientTransition, Transition
 from ..samplers.emcee import StretchProposal
+from ..samplers.hmc_adapt import AdaptiveHMCState
 from ..samplers.mh import MetropolisHastings
 from ..samplers.ram import RobustAdaptiveMetropolisState
 from ..utils.keys import splitmix64, step_generator
+from ..utils.tree import tree_flatten
 
 _NOT_PORTED = (
     "engine='fused' in advancedmh_tpu_torch runs MetropolisHastings with one "
     "zero-mean Gaussian RandomWalkProposal (RWMH), MALA.langevin, "
-    "RobustAdaptiveMetropolis and Ensemble with a StretchProposal; {what}. "
+    "RobustAdaptiveMetropolis, Ensemble with a StretchProposal, "
+    "StepSizeAdaptation.rwmh, HamiltonianMC and AdaptiveHMC; {what}. "
     "The fused kernels of the other samplers are listed in ROADMAP.md, "
     "'Queue 2 — TPU kernels to port'; use engine='torch' meanwhile."
 )
@@ -186,9 +202,9 @@ def sample_fused_mala(
 
 def _pooled_warmup(model, sampler, key: int, init: torch.Tensor,
                    num_warmup: int, iteration_offset: int):
-    """Stage 1 of pooled RAM: the rank-C pooled warmup on the torch engine
-    (its reduction spans every chain), steps 1..num_warmup drawn as
-    ``sample(engine="torch")`` draws them."""
+    """Stage 1 of pooled RAM and pooled AdaptiveHMC: the pooled warmup on
+    the torch engine (its reduction spans every chain), steps
+    1..num_warmup drawn as ``sample(engine="torch")`` draws them."""
     C = init.shape[1]
     _, state = sampler.init_batched(step_generator(key, 0, model.device), model,
                                     (C,), init.T.contiguous(), True)
@@ -329,3 +345,273 @@ def sample_fused_emcee(
     lp, accepted = lps[:, 0, :], accs[:, 0, :] > 0.5
     return (Transition(params, lp, accepted),
             Transition(params[-1], lp[-1], accepted[-1]))
+
+
+# ---- the HMC family and dual-averaging RWMH ---------------------------------
+
+
+def _dual_averaging(sampler) -> DualAveraging:
+    return DualAveraging(sampler.initial_step_size, sampler.target_accept,
+                         sampler.t0, sampler.kappa, sampler.gamma, sampler.mu)
+
+
+def sample_fused_adapt_rwmh(
+    model,
+    sampler,
+    n_samples: int,
+    *,
+    key: int,
+    num_chains: int,
+    initial_params,
+    num_warmup: int,
+    discard_initial: int,
+    thinning: int,
+    initial_state=None,
+    iteration_offset: int = 0,
+):
+    """Run the fused dual-averaging kernel (≙ JAX ``sample_fused_adapt_rwmh``)
+    for ``StepSizeAdaptation.rwmh``: the HG14 warmup and the frozen-ε̄ draws
+    in one launch. Fresh runs need ``discard_initial == num_warmup``;
+    ``initial_state`` (a final ``StepSizeAdaptationState``) resumes frozen
+    under the chunk-resume schedule (``num_warmup=0``,
+    ``discard_initial=thinning``) on the resume variant of the kernel."""
+    fam = getattr(sampler, "_fused_family", None)
+    if not (isinstance(fam, tuple) and fam and fam[0] == "rwmh_iso"):
+        raise ValueError(
+            "engine='fused' for StepSizeAdaptation requires the "
+            "StepSizeAdaptation.rwmh(d) family (general make_sampler "
+            "closures cannot be introspected); use engine='torch' instead."
+        )
+    resume = initial_state is not None
+    if resume:
+        if num_warmup != 0 or discard_initial != thinning:
+            raise ValueError(
+                "fused StepSizeAdaptation resume expects the chunk-resume "
+                "schedule (num_warmup=0, discard_initial=thinning)."
+            )
+    elif discard_initial != num_warmup:
+        raise ValueError(
+            "fused StepSizeAdaptation supports the standard schedule "
+            "discard_initial == num_warmup; use engine='torch' to keep "
+            "warmup draws."
+        )
+    if initial_params is None and not resume:
+        raise ValueError("engine='fused' requires initial_params")
+    d = fam[1]
+    tile_fn, consts = _tile(model)
+    if resume:
+        params_t = torch.as_tensor(initial_state.inner.params).to(model.device).T.contiguous()
+        lp0 = initial_state.inner.lp.to(model.device).reshape(1, -1).contiguous()
+        leb = initial_state.log_eps_bar.to(model.device).reshape(1, -1).contiguous()
+    else:
+        params_t = _chain_block(model, initial_params, num_chains)
+        lp0 = tile_fn(params_t, *consts)
+        leb = None
+    if params_t.shape != (d, num_chains):
+        raise ValueError(f"the state must be {num_chains} chains of the family's d={d}, "
+                         f"got {tuple(params_t.T.shape)}")
+    samples, lps, accs, leb_out = fused_adapt_rwmh_sample(
+        tile_fn, model.cuda_density, params_t, lp0, consts, fused_seed(key),
+        warmup=num_warmup, thin=thinning, n_samples=n_samples,
+        da=_dual_averaging(sampler), log_eps_bar=leb, iteration_offset=iteration_offset,
+    )
+    params, lp, accepted = _chains_layout(samples, lps, accs)
+    inner = Transition(params[:, -1, :], lp[:, -1], accepted[:, -1])
+    if resume:  # frozen continuation: the saved statistics carry through
+        return (Transition(params, lp, accepted),
+                dataclasses.replace(initial_state, inner=inner))
+    C = num_chains
+    final_state = StepSizeAdaptationState(
+        inner=inner, log_eps=leb_out[0], log_eps_bar=leb_out[0].clone(),
+        h_bar=torch.zeros((C,), dtype=torch.float32, device=model.device),
+        t=torch.full((C,), num_warmup + 1, dtype=torch.int32, device=model.device),
+    )
+    return Transition(params, lp, accepted), final_state
+
+
+def _diagonal_inverse_mass(inverse_mass):
+    """A sampler's inverse mass as the fused HMC kernel takes it: None, a
+    scalar or a (d,) diagonal."""
+    if inverse_mass is None:
+        return None
+    msg = ("engine='fused' HMC supports scalar/diagonal inverse_mass; "
+           "pytree masses need engine='torch'.")
+    if isinstance(inverse_mass, dict):
+        raise ValueError(msg)
+    try:
+        m = np.asarray(_numpy(inverse_mass), np.float32)
+    except (TypeError, ValueError):
+        raise ValueError(msg) from None
+    if m.ndim > 1:
+        raise ValueError(msg)
+    return m
+
+
+def sample_fused_hmc(
+    model,
+    sampler,
+    n_samples: int,
+    *,
+    key: int,
+    num_chains: int,
+    initial_params,
+    discard_initial: int,
+    thinning: int,
+    iteration_offset: int = 0,
+):
+    """Run the fused HMC kernel (≙ JAX ``sample_fused_hmc``): whole
+    leapfrog trajectories with the density's value and gradient in the
+    kernel, scalar or diagonal ``inverse_mass``, endpoint accept. The final
+    ``GradientTransition`` carries the kernel's gradient at the last draws."""
+    if initial_params is None:
+        raise ValueError("please specify initial parameters")
+    if sampler.trajectory_sampling != "endpoint":
+        raise ValueError(
+            "engine='fused' HMC is endpoint-only; multinomial trajectory "
+            "sampling runs on engine='torch'."
+        )
+    minv = _diagonal_inverse_mass(sampler.inverse_mass)
+    value_and_grad, consts = _tile(model, "tile_value_and_grad")
+    params_t = _chain_block(model, initial_params, num_chains)
+    lp0, g0 = value_and_grad(params_t, *consts)
+    samples, lps, accs, g_last = fused_hmc_sample(
+        value_and_grad, model.cuda_density, params_t, lp0, g0, consts, fused_seed(key),
+        step_size=float(sampler.step_size), n_leapfrog=int(sampler.n_leapfrog),
+        inverse_mass=minv_column(minv, params_t.shape[0], model.device),
+        burn=max(discard_initial - thinning, 0), thin=thinning, n_samples=n_samples,
+        iteration_offset=iteration_offset,
+    )
+    params, lp, accepted = _chains_layout(samples, lps, accs)
+    final_state = GradientTransition(params[:, -1, :], lp[:, -1], g_last.T, accepted[:, -1])
+    return Transition(params, lp, accepted), final_state
+
+
+def _pooled_stage(wstate: AdaptiveHMCState, d: int, num_chains: int):
+    """The frozen launch of a pooled AdaptiveHMC state: the per-chain
+    log ε̄ row (pooled AdaptiveHMC pools the mass but dual-averages ε per
+    chain) and the one shared M⁻¹ broadcast to (d, C). Raises for a state
+    whose mass was adapted per chain: the frozen phase would apply chain
+    0's estimate to every chain."""
+    leaves, _ = tree_flatten(wstate.inverse_mass)
+    minv = leaves[0].to(torch.float32)
+    if minv.ndim > 1:
+        spread = float((minv.amax(0) - minv.amin(0)).max())
+        if spread > 1e-5:
+            raise ValueError(
+                "fused pooled AdaptiveHMC needs a replicated (shared) "
+                "inverse-mass estimate, but this state carries per-chain "
+                f"values (spread {spread:.3g}) - it was warmed per-chain "
+                "(pooled=False). Use engine='torch' for it."
+            )
+        minv = minv[0]
+    leb = wstate.log_eps_bar.to(torch.float32).reshape(1, -1).contiguous()
+    minv_block = minv.reshape(d, 1).expand(d, num_chains).contiguous()
+    return leb, minv_block
+
+
+def sample_fused_adaptive_hmc(
+    model,
+    sampler,
+    n_samples: int,
+    *,
+    key: int,
+    num_chains: int,
+    initial_params,
+    num_warmup: int,
+    discard_initial: int,
+    thinning: int,
+    initial_state=None,
+    iteration_offset: int = 0,
+):
+    """Run the fused AdaptiveHMC kernel (≙ JAX ``sample_fused_adaptive_hmc``).
+
+    - Per chain: the joint (ε, diag M⁻¹) warmup and the frozen draws in one
+      launch; ``initial_state`` resumes frozen on the kernel's resume variant
+      under the chunk-resume schedule (``num_warmup=0``,
+      ``discard_initial=thinning``).
+    - ``pooled=True``: the pooled warmup (its Welford merge spans every
+      chain) runs on the torch engine, steps 1..num_warmup drawn as
+      ``sample(engine="torch")`` draws them; then the resume variant runs
+      the frozen phase with each chain's ε̄ and the one shared M⁻¹. Frozen
+      HMC at a constant leapfrog count is the function either way.
+
+    A fresh per-chain final state supports frozen continuation only: the
+    kernel keeps no Welford mean or error sum, so ``mean`` is the last
+    position, ``h_bar`` 0, and M2 is the regularised estimate inverted at
+    ``n = num_warmup`` (the JAX package's reconstruction)."""
+    resume = initial_state is not None
+    if resume:
+        if num_warmup != 0 or discard_initial != thinning:
+            raise ValueError(
+                "fused AdaptiveHMC resume expects the chunk-resume "
+                "schedule (num_warmup=0, discard_initial=thinning)."
+            )
+    else:
+        if discard_initial != num_warmup:
+            raise ValueError(
+                "fused AdaptiveHMC supports the standard schedule "
+                "discard_initial == num_warmup; use engine='torch' to keep "
+                "warmup draws."
+            )
+        if num_warmup < 1:
+            raise ValueError("fused AdaptiveHMC requires num_warmup >= 1")
+        if initial_params is None:
+            raise ValueError("please specify initial parameters")
+    value_and_grad, consts = _tile(model, "tile_value_and_grad")
+    C = num_chains
+    kw = dict(n_leapfrog=int(sampler.n_leapfrog), thin=thinning, n_samples=n_samples,
+              da=_dual_averaging(sampler), mass_regularization=sampler.mass_regularization,
+              mass_warm_start=sampler.mass_warm_start)
+
+    def launch(params_t, lp0, g0, warmup, offset, leb=None, minv=None):
+        return fused_adaptive_hmc_sample(
+            value_and_grad, model.cuda_density, params_t, lp0, g0, consts,
+            fused_seed(key), warmup=warmup, log_eps_bar=leb, inverse_mass=minv,
+            iteration_offset=offset, **kw)
+
+    if sampler.pooled or resume:
+        dev = model.device
+        if resume:  # the state's own lp and gradient: a split run stays exact
+            wstate, offset = initial_state, iteration_offset
+            params_t = wstate.inner.params.to(dev).T.contiguous()
+            lp0 = wstate.inner.lp.to(dev).reshape(1, -1).contiguous()
+            g0 = wstate.inner.gradient.to(dev).T.contiguous()
+        else:
+            init = _chain_block(model, initial_params, C)
+            wstate = _pooled_warmup(model, sampler, key, init, num_warmup, iteration_offset)
+            offset = iteration_offset + num_warmup
+            params_t = wstate.inner.params.T.contiguous()
+            lp0, g0 = value_and_grad(params_t, *consts)
+        d = params_t.shape[0]
+        if sampler.pooled:
+            leb, minv = _pooled_stage(wstate, d, C)
+        else:
+            leaves, _ = tree_flatten(wstate.inverse_mass)
+            leb = wstate.log_eps_bar.to(torch.float32).reshape(1, -1).contiguous()
+            minv = leaves[0].to(torch.float32).T.contiguous()
+        samples, lps, accs, _, _, g_last = launch(params_t, lp0, g0, 0, offset,
+                                                  leb.to(dev), minv.to(dev))
+        params, lp, accepted = _chains_layout(samples, lps, accs)
+        inner = GradientTransition(params[:, -1, :], lp[:, -1], g_last.T, accepted[:, -1])
+        return Transition(params, lp, accepted), dataclasses.replace(wstate, inner=inner)
+
+    params_t = _chain_block(model, initial_params, C)
+    lp0, g0 = value_and_grad(params_t, *consts)
+    samples, lps, accs, leb, minv, g_last = launch(params_t, lp0, g0, num_warmup,
+                                                   iteration_offset)
+    params, lp, accepted = _chains_layout(samples, lps, accs)
+    inner = GradientTransition(params[:, -1, :], lp[:, -1], g_last.T, accepted[:, -1])
+    inv_mass = minv.T.contiguous()  # (C, d)
+    nn = float(max(num_warmup, 1))
+    r = float(sampler.mass_regularization)
+    var = (inv_mass - 1e-3 * (r / (nn + r))) * ((nn + r) / nn)
+    m2 = torch.clamp(var, min=0.0) * max(nn - 1.0, 1.0)
+    final_state = AdaptiveHMCState(
+        inner=inner, log_eps=leb[0], log_eps_bar=leb[0].clone(),
+        h_bar=torch.zeros((C,), dtype=torch.float32, device=model.device),
+        t=torch.full((C,), num_warmup + 1, dtype=torch.int32, device=model.device),
+        mean=inner.params, m2=m2,
+        n=torch.full((C,), nn, dtype=torch.float32, device=model.device),
+        inverse_mass=inv_mass,
+    )
+    return Transition(params, lp, accepted), final_state

@@ -5,8 +5,9 @@ Two engines:
 - ``engine="torch"`` (default; ≙ the JAX package's ``"xla"``): a Python loop
   over steps with the chains as a batch dimension of every tensor, on the
   model's device.
-- ``engine="fused"``: RWMH, Langevin MALA, RAM and the emcee stretch move
-  on the hand-written CUDA kernels (runtime/fused.py; on CPU tensors their
+- ``engine="fused"``: RWMH, Langevin MALA, RAM, the emcee stretch move,
+  dual-averaging RWMH (``StepSizeAdaptation.rwmh``), HMC and AdaptiveHMC on
+  the hand-written CUDA kernels (runtime/fused.py; on CPU tensors their
   plain PyTorch versions).
 
 RNG: step ``j`` of a run draws from ``step_generator(master, j)`` (init is
@@ -259,21 +260,29 @@ def sample(
         initial_params = _on_device(initial_params, model.device)
 
     if engine == "fused":
+        from ..samplers.adapt import StepSizeAdaptation
         from ..samplers.emcee import Ensemble
+        from ..samplers.hmc import HamiltonianMC
+        from ..samplers.hmc_adapt import AdaptiveHMC
         from ..samplers.mala import MALA
         from ..samplers.ram import RobustAdaptiveMetropolis
-        from .fused import (sample_fused, sample_fused_emcee, sample_fused_mala,
-                            sample_fused_ram)
+        from .fused import (sample_fused, sample_fused_adapt_rwmh,
+                            sample_fused_adaptive_hmc, sample_fused_emcee,
+                            sample_fused_hmc, sample_fused_mala, sample_fused_ram)
 
         if collect_states:
             raise ValueError(
                 "engine='fused' does not collect per-step states; use "
                 "engine='torch' for collect_states=True."
             )
-        resume_S = None
+        resume_S = resume_adapt = None
         if initial_state is not None:
             if isinstance(sampler, RobustAdaptiveMetropolis):
                 initial_params, resume_S = initial_state.x, initial_state.S
+            elif isinstance(sampler, (StepSizeAdaptation, AdaptiveHMC)):
+                # frozen continuation: the saved per-chain ε̄ (and M⁻¹) go
+                # back into the kernels' resume variants
+                resume_adapt = initial_state
             else:
                 initial_params = initial_state.params
         common = dict(key=master, initial_params=initial_params,
@@ -287,7 +296,17 @@ def sample(
                            sampler, chain_type, param_names)
         if num_chains is None:
             raise ValueError("engine='fused' requires num_chains")
-        if isinstance(sampler, RobustAdaptiveMetropolis):
+        warm = dict(num_warmup=schedule.num_warmup, initial_state=resume_adapt)
+        if isinstance(sampler, StepSizeAdaptation):
+            transitions, final_state = sample_fused_adapt_rwmh(
+                model, sampler, schedule.n_samples, num_chains=num_chains, **warm, **common)
+        elif isinstance(sampler, AdaptiveHMC):
+            transitions, final_state = sample_fused_adaptive_hmc(
+                model, sampler, schedule.n_samples, num_chains=num_chains, **warm, **common)
+        elif isinstance(sampler, HamiltonianMC):
+            transitions, final_state = sample_fused_hmc(
+                model, sampler, schedule.n_samples, num_chains=num_chains, **common)
+        elif isinstance(sampler, RobustAdaptiveMetropolis):
             transitions, final_state = sample_fused_ram(
                 model, sampler, schedule.n_samples, num_chains=num_chains,
                 num_warmup=schedule.num_warmup, initial_S=resume_S, **common)

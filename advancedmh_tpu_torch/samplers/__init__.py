@@ -1,3 +1,4 @@
+from .adapt import StepSizeAdaptation, StepSizeAdaptationState, optimal_rwmh_accept
 from .base import (
     GradientTransition,
     Sampler,
@@ -8,6 +9,8 @@ from .base import (
     setparams,
 )
 from .emcee import Ensemble, StretchProposal, WalkProposal
+from .hmc import HamiltonianMC
+from .hmc_adapt import AdaptiveHMC, AdaptiveHMCState
 from .mala import MALA
 from .mh import RWMH, MetropolisHastings, StaticMH
 from .ram import RobustAdaptiveMetropolis, RobustAdaptiveMetropolisState
@@ -17,5 +20,6 @@ __all__ = [
     "getparams", "select_tree", "setparams", "RWMH", "MetropolisHastings",
     "StaticMH", "MALA", "RobustAdaptiveMetropolis",
     "RobustAdaptiveMetropolisState", "Ensemble", "StretchProposal",
-    "WalkProposal",
+    "WalkProposal", "HamiltonianMC", "AdaptiveHMC", "AdaptiveHMCState",
+    "StepSizeAdaptation", "StepSizeAdaptationState", "optimal_rwmh_accept",
 ]

@@ -8,7 +8,9 @@ use), checks each kernel against its plain PyTorch version on the card at
 short cases, then drives each main path at full size through the public
 entry points (``sample(engine="fused")`` + ``Chains.summary()``): RWMH (and
 the ``fused_rwmh`` throughput kernel), Langevin MALA, Robust Adaptive
-Metropolis (per chain and pooled) and the emcee ensemble. Each path runs
+Metropolis (per chain and pooled), the emcee ensemble, and slice 3: AdaptiveHMC
+and HamiltonianMC on the d = 32 logistic regression at 8192 chains and
+dual-averaging RWMH (``StepSizeAdaptation.rwmh``) on the flagship. Each path runs
 with every launch counter set to 0 just before it and read just after. The
 posteriors are checked against a float64 grid quadrature (the flagship),
 the analytic means (emcee), the ``engine="torch"`` run and the
@@ -44,6 +46,18 @@ SCALE = 0.35  # bench.py's hand-swept RWMH scale
 MALA_S2 = 0.02  # bench.py's ess_per_s_mu_mala step size
 N_CHECK = 2048  # chains of the correlated-Gaussian checks (tests/test_pallas.py)
 KEY = 2024
+LOGREG_CHAINS = 8192  # bench.py's logistic-regression harness: 8192 chains, 500 + 4000
+N_LEAPFROG = 8  # bench.py's AdaptiveHMC: n_leapfrog=8, initial_step_size=0.05
+AHMC_EPS0 = 0.05
+LOGREG_RWMH_SCALE = 0.45  # bench.py's hand-tuned d = 32 yardsticks
+LOGREG_MALA_S2 = 0.36
+N_REF_CHAINS = 512  # the engine="torch" reference run on the logistic regression
+N_REF_DRAWS = 600
+N_PLAIN_HMC = 10  # steps of the plain HMC versions timed at 8192 chains
+# The plain versions of the PR 1-2 kernels run once at their main path's
+# shape (their flagship density sums the observations one by one, in the
+# kernels' order, which made them 2-3x slower); kernels are best of 3.
+PLAIN_REPEATS = 1
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet) for the bounds.
 PEAK_BYTES_PER_S = 3.35e12
@@ -292,17 +306,11 @@ def phase_kernels_new(models, errs):
         kw = dict(step_size_sq=s2, burn=burn, thin=thin, n_samples=n, iteration_offset=off)
         got = fused_mala_sample(*args, **kw)
         ref = mala_sample_reference(*args, **kw)
-        # the final gradient is held where the states agree (see below)
         r = agreement(got[:3], ref[:3])
-        same = (got[2] == ref[2]).all(0)[0] & _close(got[0], ref[0]).all(dim=(0, 1))
-        g_ok = float(torch.isclose(got[3], ref[3], rtol=1e-4, atol=1e-4).all(0)[same]
-                     .float().mean())
+        g_ok = hold_gradient("mala", got[3], ref[3], got[0], ref[0], got[2], ref[2])
         print(f"kernel mala {m.cuda_density} d={m.dimension} C={C} burn={burn} thin={thin} "
               f"n={n} offset={off}: {r} final-gradient agree {g_ok:.5f}")
         check_agreement("mala", r, SHORT_RUN_CHAINS_MIN, visible_steps=burn == 0 and thin == 1)
-        # the flagship's σ gradient is n·m − Σ z·r over m·m: the two terms
-        # nearly cancel, so the sum's order moves it by up to ~1e-4 relative
-        check(g_ok == 1.0, "mala final gradient differs from the plain version's")
         errs["mala"] = max(errs["mala"], r["max_abs_err"])
 
     ram_cases = [  # (model, C, warmup, thin, n, offset, bounds, S0)
@@ -552,6 +560,435 @@ def phase_correlated(models):
     check(abs(corr - 0.5) < 0.1, "correlated ram corr(SS')")
 
 
+# ---- slice 3: dual-averaging RWMH, HMC, AdaptiveHMC ------------------------------------
+
+
+def _logreg_start(C: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return torch.tensor(0.3 * rng.normal(size=(32, C)), dtype=torch.float32, device=DEVICE)
+
+
+def _slice3_start(m, C, seed):
+    if m.cuda_density == "gaussian_mean_scale":
+        return _start(C, seed)
+    if m.cuda_density == "logistic_regression":
+        return _logreg_start(C, seed)
+    return _gauss_start(m.dimension, C, seed)
+
+
+def hmc_args(m, p, seed):
+    lp, g = m.tile_value_and_grad(p, *m.tile_consts)
+    return (m.tile_value_and_grad, m.cuda_density, p, lp, g, m.tile_consts, seed)
+
+
+def hold_gradient(name, got_g, ref_g, got_s, ref_s, got_a, ref_a):
+    """The final gradient, on the chains whose draws and decisions agree, at
+    1e-4: the flagship's σ component is n·m − Σ z·r over m·m, two terms that
+    nearly cancel, so a last-bit difference in either moves it far more
+    than the states."""
+    same = (got_a == ref_a).all(0)[0] & _close(got_s, ref_s).all(dim=(0, 1))
+    g_ok = float(torch.isclose(got_g, ref_g, rtol=1e-4, atol=1e-4).all(0)[same].float().mean())
+    check(g_ok == 1.0, f"{name}: the final gradient differs from the plain version's")
+    return g_ok
+
+
+def phase_kernels_slice3(models, errs):
+    """dual-averaging RWMH, HMC and AdaptiveHMC against their plain versions
+    at 64-step cases (the flagship with starts outside the support, the
+    correlated Gaussian, the logistic regression at 8192 × 32; ragged C,
+    burn/thin, an offset across the counter's 32-bit word, the resume
+    variants, a diagonal M⁻¹ ≠ 1), and the logistic regression's RWMH and
+    MALA yardsticks at 8192 chains."""
+    from advancedmh_tpu_torch.ops import (DualAveraging, adapt_rwmh_reference,
+                                          adaptive_hmc_reference, fused_adapt_rwmh_sample,
+                                          fused_adaptive_hmc_sample, fused_hmc_sample,
+                                          fused_mala_sample, fused_rwmh_sample,
+                                          hmc_sample_reference, mala_sample_reference,
+                                          minv_column, rwmh_sample_reference)
+
+    flag, corr, lr = models["flagship"], models["corr"], models["logreg"]
+    hmc_cases = [  # (model, eps, M⁻¹, C, burn, thin, n, offset)
+        (flag, 0.03, (1.0, 1.0), 4096, 0, 1, 64, 0),
+        (corr, 0.4, (1.5, 0.7), 4000, 10, 3, 17, 1000),
+        (corr, 0.3, (1.0, 1.0), 3001, 0, 1, 40, (1 << 32) - 30),
+        (lr, 0.05, "linspace", LOGREG_CHAINS, 0, 1, 64, 0),
+    ]
+    for i, (m, eps, mv, C, burn, thin, n, off) in enumerate(hmc_cases):
+        d = m.dimension
+        minv = minv_column(torch.linspace(0.5, 1.5, d) if mv == "linspace" else torch.tensor(mv),
+                           d, DEVICE)
+        args = hmc_args(m, _slice3_start(m, C, 60 + i), 0x4AC0 + i)
+        kw = dict(step_size=eps, n_leapfrog=N_LEAPFROG, inverse_mass=minv, burn=burn,
+                  thin=thin, n_samples=n, iteration_offset=off)
+        got, ref = fused_hmc_sample(*args, **kw), hmc_sample_reference(*args, **kw)
+        r = agreement(got[:3], ref[:3])
+        g_ok = hold_gradient("hmc", got[3], ref[3], got[0], ref[0], got[2], ref[2])
+        print(f"kernel hmc {m.cuda_density} d={d} eps={eps} minv={mv} C={C} burn={burn} "
+              f"thin={thin} n={n} offset={off}: {r} final-gradient agree {g_ok:.5f}")
+        check_agreement("hmc", r, SHORT_RUN_CHAINS_MIN, visible_steps=burn == 0 and thin == 1)
+        errs["hmc"] = max(errs["hmc"], r["max_abs_err"])
+
+    rng = np.random.default_rng(70)
+
+    def frozen(C, d, scale):
+        leb = torch.tensor(np.log(scale * rng.uniform(0.5, 1.5, (1, C))), dtype=torch.float32,
+                           device=DEVICE)
+        minv = torch.tensor(rng.uniform(0.5, 2.0, (d, C)), dtype=torch.float32, device=DEVICE)
+        return leb, minv
+
+    ahmc_cases = [  # (model, C, warmup, thin, n, offset, resume scale)
+        (flag, 4000, 40, 1, 24, 0, None),
+        (corr, 4096, 40, 1, 24, 7, None),
+        (corr, 3001, 20, 3, 11, (1 << 32) - 60, None),
+        (lr, LOGREG_CHAINS, 32, 1, 32, 0, None),
+        (corr, 4000, 0, 2, 20, 5, 0.3),
+        (flag, 4000, 0, 1, 32, 11, 0.01),
+        (lr, LOGREG_CHAINS, 0, 1, 16, 100, 0.03),
+    ]
+    for i, (m, C, warmup, thin, n, off, scale) in enumerate(ahmc_cases):
+        d = m.dimension
+        args = hmc_args(m, _slice3_start(m, C, 80 + i), 0xADA0 + i)
+        leb, minv = frozen(C, d, scale) if scale else (None, None)
+        kw = dict(n_leapfrog=N_LEAPFROG, warmup=warmup, thin=thin, n_samples=n,
+                  da=DualAveraging(AHMC_EPS0, 0.65), log_eps_bar=leb, inverse_mass=minv,
+                  iteration_offset=off)
+        got = fused_adaptive_hmc_sample(*args, **kw)
+        ref = adaptive_hmc_reference(*args, **kw)
+        r = agreement(got[:5], ref[:5])  # draws + the frozen log ε̄ and M⁻¹
+        g_ok = hold_gradient("adaptive_hmc", got[5], ref[5], got[0], ref[0], got[2], ref[2])
+        print(f"kernel adaptive_hmc {m.cuda_density} d={d} C={C} warmup={warmup} thin={thin} "
+              f"n={n} offset={off} resume={scale is not None}: {r} "
+              f"final-gradient agree {g_ok:.5f}")
+        check_agreement("adaptive_hmc", r, SHORT_RUN_CHAINS_MIN,
+                        visible_steps=warmup == 0 and thin == 1)
+        errs["adaptive_hmc"] = max(errs["adaptive_hmc"], r["max_abs_err"])
+
+    adapt_cases = [  # (model, eps0, C, warmup, thin, n, offset, resume)
+        (flag, 1.0, 4096, 40, 1, 24, 0, False),
+        (corr, 10.0, 4000, 40, 3, 11, (1 << 32) - 30, False),
+        (flag, 1.0, 3001, 0, 2, 20, 11, True),
+        (corr, 10.0, 4096, 0, 1, 64, 0, True),
+    ]
+    for i, (m, eps0, C, warmup, thin, n, off, resume) in enumerate(adapt_cases):
+        p = _slice3_start(m, C, 90 + i)
+        leb = (torch.tensor(np.log(rng.uniform(0.3, 3.0, (1, C))), dtype=torch.float32,
+                            device=DEVICE) if resume else None)
+        args = (m.tile_density, m.cuda_density, p, m.tile_density(p, *m.tile_consts),
+                m.tile_consts, 0xADB0 + i)
+        kw = dict(warmup=warmup, thin=thin, n_samples=n, da=DualAveraging(eps0, 0.352),
+                  log_eps_bar=leb, iteration_offset=off)
+        r = agreement(fused_adapt_rwmh_sample(*args, **kw), adapt_rwmh_reference(*args, **kw))
+        print(f"kernel adapt_rwmh {m.cuda_density} eps0={eps0} C={C} warmup={warmup} "
+              f"thin={thin} n={n} offset={off} resume={resume}: {r}")
+        check_agreement("adapt_rwmh", r, SHORT_RUN_CHAINS_MIN,
+                        visible_steps=warmup == 0 and thin == 1)
+        errs["adapt_rwmh"] = max(errs["adapt_rwmh"], r["max_abs_err"])
+
+    # the logistic regression's hand-tuned yardsticks on the PR 1-2 kernels
+    p = _logreg_start(LOGREG_CHAINS, 99)
+    lp = lr.tile_density(p, *lr.tile_consts)
+    args = (lr.tile_density, lr.cuda_density, p, lp, LOGREG_RWMH_SCALE, lr.tile_consts, 0x1A)
+    kw = dict(burn=0, thin=1, n_samples=64)
+    r = agreement(fused_rwmh_sample(*args, **kw), rwmh_sample_reference(*args, **kw))
+    print(f"kernel rwmh_sample logistic_regression d=32 scale={LOGREG_RWMH_SCALE} "
+          f"C={LOGREG_CHAINS} n=64: {r}")
+    check_agreement("rwmh_sample", r, SHORT_RUN_CHAINS_MIN, visible_steps=True)
+    errs["rwmh_sample"] = max(errs["rwmh_sample"], r["max_abs_err"])
+    args = mala_args(lr, p, 0x1B)
+    kw = dict(step_size_sq=LOGREG_MALA_S2, burn=0, thin=1, n_samples=64)
+    got, ref = fused_mala_sample(*args, **kw), mala_sample_reference(*args, **kw)
+    r = agreement(got[:3], ref[:3])
+    hold_gradient("mala", got[3], ref[3], got[0], ref[0], got[2], ref[2])
+    print(f"kernel mala logistic_regression d=32 s2={LOGREG_MALA_S2} C={LOGREG_CHAINS} "
+          f"n=64: {r}")
+    check_agreement("mala", r, SHORT_RUN_CHAINS_MIN, visible_steps=True)
+    errs["mala"] = max(errs["mala"], r["max_abs_err"])
+    sync()
+
+
+def compare_means(path, summary, ref, names):
+    """Posterior means within 4 combined MCSE of the reference run's, per
+    coordinate."""
+    worst = max(abs(summary[n]["mean"] - ref[n]["mean"])
+                / (summary[n]["mcse"] ** 2 + ref[n]["mcse"] ** 2) ** 0.5 for n in names)
+    print(f"{path}: largest |mean - engine=torch mean| / combined MCSE = {worst:.3f}")
+    check(worst < 4.0, f"{path}: a posterior mean is {worst:.2f} combined MCSE from "
+                       "the engine='torch' run's")
+
+
+def phase_main_logreg(model, label, launches):
+    """AdaptiveHMC(n_leapfrog=8, initial_step_size=0.05) on the d = 32
+    logistic regression at 8192 × (500 + 4000) (bench.py's harness), then
+    HamiltonianMC at the adapted median (ε̄, M⁻¹) on the same target, each
+    held against an engine="torch" AdaptiveHMC run."""
+    from advancedmh_tpu_torch import AdaptiveHMC, HamiltonianMC, ess_bulk, sample
+
+    names = [f"β{j}" for j in range(32)]
+    init = torch.zeros(32, device=DEVICE)
+    spl = AdaptiveHMC(n_leapfrog=N_LEAPFROG, initial_step_size=AHMC_EPS0)
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    result = sample(model, spl, N_DRAWS, num_chains=LOGREG_CHAINS, engine="fused",
+                    num_warmup=N_WARM, discard_initial=N_WARM, initial_params=init,
+                    key=KEY + 40)
+    chains = result.to_chains(param_names=names)
+    summary = chains.summary()
+    sync()
+    t_path = time.perf_counter() - t0
+    got = read_launches()
+    check_launches("adaptive hmc main path", got, {"adaptive_hmc": 1})
+    launches["adaptive_hmc"] = got["adaptive_hmc"]
+    check(chains.values.shape == (N_DRAWS, 32, LOGREG_CHAINS), "adaptive hmc Chains shape")
+    check(bool(torch.isfinite(chains.values).all()), "adaptive hmc: non-finite draws")
+    acc = float(result.transitions.accepted.float().mean())
+    rhat = max(summary[n]["rhat"] for n in names)
+    eps = torch.exp(result.final_state.log_eps_bar)
+    minv_med = result.final_state.inverse_mass.median(0).values  # (32,)
+    med_eps, med_minv = float(eps.median()), float(minv_med.median())
+    ess_b0 = float(ess_bulk(chains["β0"]))
+    print(f"[{label}] adaptive hmc first sample(engine='fused') + summary {t_path:.4f} s; "
+          f"acceptance {acc:.4f}; max R-hat {rhat:.5f}; median eps-bar {med_eps:.6f}; "
+          f"median M^-1 {med_minv:.4f} (per coordinate {minv_med.min():.4f}.."
+          f"{minv_med.max():.4f}); ess_bulk(β0)={ess_b0:.1f}, "
+          f"ESS/s(β0) incl. summary {ess_b0 / t_path:.6e}")
+    check(rhat < 1.01, f"adaptive hmc: R-hat {rhat} >= 1.01")
+    check(0.1 < acc < 0.99, f"adaptive hmc acceptance {acc}")
+    # bench.py measured σ̂ ≈ 1.07 per coordinate from the adapted inverse
+    # mass: the median M⁻¹ (a variance) must lie in [0.5, 2.5]
+    check(0.5 <= med_minv <= 2.5, f"adaptive hmc median M^-1 {med_minv} outside [0.5, 2.5]")
+
+    t0 = time.perf_counter()
+    ref = sample(model, spl, N_REF_DRAWS, num_chains=N_REF_CHAINS, engine="torch",
+                 num_warmup=N_WARM, discard_initial=N_WARM, initial_params=init, key=KEY + 41,
+                 chain_type="chains", param_names=names)
+    ref_summary = ref.summary()
+    sync()
+    print(f"[{label}] engine=torch AdaptiveHMC {N_REF_CHAINS} x ({N_WARM} + {N_REF_DRAWS}): "
+          f"{time.perf_counter() - t0:.4f} s")
+    compare_means("adaptive hmc", summary, ref_summary, names)
+
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    hres = sample(model, HamiltonianMC(med_eps, N_LEAPFROG, inverse_mass=minv_med), N_DRAWS,
+                  num_chains=LOGREG_CHAINS, engine="fused", discard_initial=N_WARM,
+                  initial_params=init, key=KEY + 42)
+    hchains = hres.to_chains(param_names=names)
+    hsummary = hchains.summary()
+    sync()
+    t_hmc = time.perf_counter() - t0
+    got = read_launches()
+    check_launches("hmc main path", got, {"hmc": 1})
+    launches["hmc"] = got["hmc"]
+    hacc = float(hres.transitions.accepted.float().mean())
+    hrhat = max(hsummary[n]["rhat"] for n in names)
+    ess_h = float(ess_bulk(hchains["β0"]))
+    print(f"[{label}] hmc at the adapted (eps, M^-1) first sample + summary {t_hmc:.4f} s; "
+          f"acceptance {hacc:.4f}; max R-hat {hrhat:.5f}; ess_bulk(β0)={ess_h:.1f}, "
+          f"ESS/s(β0) incl. summary {ess_h / t_hmc:.6e}")
+    check(bool(torch.isfinite(hchains.values).all()), "hmc: non-finite draws")
+    check(hrhat < 1.01, f"hmc: R-hat {hrhat} >= 1.01")
+    check(0.1 < hacc < 0.99, f"hmc acceptance {hacc}")
+    compare_means("hmc", hsummary, ref_summary, names)
+    return med_eps, minv_med
+
+
+def phase_main_adapt(model, label, launches):
+    """StepSizeAdaptation.rwmh(2, initial_step_size=1.0) on the flagship at
+    16384 × (500 + 4000) (bench.py:241-253)."""
+    from advancedmh_tpu_torch import StepSizeAdaptation, sample
+    from advancedmh_tpu_torch.samplers import optimal_rwmh_accept
+
+    spl = StepSizeAdaptation.rwmh(2, initial_step_size=1.0, device=DEVICE)
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    result = sample(model, spl, N_DRAWS, num_chains=N_CHAINS, engine="fused",
+                    num_warmup=N_WARM, discard_initial=N_WARM, initial_params=[0.0, 1.0],
+                    key=KEY + 50)
+    chains = result.to_chains(param_names=["μ", "σ"])
+    summary = chains.summary()
+    sync()
+    t_path = time.perf_counter() - t0
+    got = read_launches()
+    check_launches("adapt rwmh main path", got, {"adapt_rwmh": 1})
+    launches["adapt_rwmh"] = got["adapt_rwmh"]
+    acc = float(result.transitions.accepted.float().mean())
+    eps = torch.exp(result.final_state.log_eps_bar)
+    print(f"adapt rwmh summary: {json.dumps(summary)}; acceptance {acc:.4f} "
+          f"(target {optimal_rwmh_accept(2)}); median eps-bar {float(eps.median()):.5f}; "
+          f"first sample+summary {t_path:.4f} s")
+    check(chains.values.shape == (N_DRAWS, 2, N_CHAINS), "adapt rwmh Chains shape")
+    check(bool(torch.isfinite(chains.values).all()), "adapt rwmh: non-finite draws")
+    mu_q, sig_q = grid_posterior_means(model.tile_consts[0].cpu().numpy().ravel())
+    posterior_check("adapt rwmh", summary, mu_q, sig_q)
+    check(abs(acc - optimal_rwmh_accept(2)) < 0.08, f"adapt rwmh acceptance {acc}")
+
+
+def phase_slice3_checks(models):
+    """tests/test_pallas.py's card-only checks of the three samplers, at
+    their shapes, and split runs of the adaptive kernels (bit for bit)."""
+    from advancedmh_tpu_torch import AdaptiveHMC, HamiltonianMC, StepSizeAdaptation, sample
+
+    sig = np.array([[1.5, 0.35], [0.35, 1.0]])
+    corr, flag = models["corr"], models["flagship"]
+
+    def draws_of(res):
+        return res.transitions.params.reshape(-1, 2).double().cpu().numpy()
+
+    spl = StepSizeAdaptation.rwmh(2, initial_step_size=10.0, device=DEVICE)
+    res = sample(corr, spl, 4000, key=11, num_chains=N_CHECK, engine="fused", num_warmup=1500,
+                 discard_initial=1500, initial_params=[0.0, 0.0])
+    d, acc = draws_of(res), float(res.transitions.accepted.float().mean())
+    eps = torch.exp(res.final_state.log_eps_bar).cpu().numpy()
+    print(f"adapt rwmh correlated {N_CHECK}x(1500+4000) from eps0=10: acceptance {acc:.4f} "
+          f"mean {d.mean(0).tolist()} cov {np.cov(d.T).tolist()} median eps-bar "
+          f"{np.median(eps):.4f} cv {eps.std() / eps.mean():.4f}")
+    check(abs(acc - spl.target_accept) < 0.08, "adapt rwmh correlated acceptance")
+    check(np.allclose(d.mean(0), 0.0, atol=0.05), "adapt rwmh correlated mean")
+    check(np.allclose(np.cov(d.T), sig, atol=0.15), "adapt rwmh correlated covariance")
+    check(eps.shape == (N_CHECK,) and 0.5 < np.median(eps) < 4.0 and eps.std() / eps.mean() < 0.5,
+          "adapt rwmh correlated eps-bar band")
+    res = sample(flag, StepSizeAdaptation.rwmh(2, device=DEVICE), 200, key=12, num_chains=1024,
+                 engine="fused", num_warmup=600, discard_initial=600, thinning=3,
+                 initial_params=[0.0, 1.0])
+    check(tuple(res.transitions.lp.shape) == (1024, 200), "adapt rwmh thinning shape")
+    check(abs(float(res.transitions.params[..., 0].mean())) < 0.1, "adapt rwmh thinning mean")
+
+    res = sample(corr, HamiltonianMC(0.4, 8), 2000, key=21, num_chains=N_CHECK, engine="fused",
+                 discard_initial=500, initial_params=[1.0, 1.0])
+    d, acc = draws_of(res), float(res.transitions.accepted.float().mean())
+    x = res.final_state.params.double().cpu().numpy()
+    grad_err = np.abs(res.final_state.gradient.double().cpu().numpy()
+                      + (np.linalg.inv(sig) @ x.T).T).max()
+    print(f"hmc(0.4, 8) correlated {N_CHECK}x2000: acceptance {acc:.4f} mean "
+          f"{d.mean(0).tolist()} cov {np.cov(d.T).tolist()} final-gradient |err| {grad_err:.3g}")
+    check(acc > 0.8, "hmc correlated acceptance")
+    check(np.allclose(d.mean(0), 0.0, atol=0.05), "hmc correlated mean")
+    check(np.allclose(np.cov(d.T), sig, atol=0.1), "hmc correlated covariance")
+    check(grad_err < 1e-3 * (1 + np.abs(x).max()), "hmc correlated final gradient")
+    res = sample(models["diag9"], HamiltonianMC(0.5, 6, inverse_mass=[9.0, 1.0]), 600, key=22,
+                 num_chains=1024, engine="fused", discard_initial=300, thinning=3,
+                 initial_params=[0.0, 0.0])
+    d = draws_of(res)
+    print(f"hmc(0.5, 6, M^-1=[9, 1]) thin 3, 1024x600: mean {d.mean(0).tolist()} "
+          f"var {d.var(0).tolist()}")
+    check(tuple(res.transitions.params.shape) == (1024, 600, 2), "hmc thinning shape")
+    check(np.allclose(d.mean(0), 0.0, atol=0.15), "hmc thinning mean")
+    check(np.allclose(d.var(0), [9.0, 1.0], rtol=0.1), "hmc thinning variance")
+
+    cov = np.diag([25.0, 1.0])
+    for pooled, warm in ((False, 500), (True, 400)):
+        res = sample(models["aniso"], AdaptiveHMC(n_leapfrog=8, initial_step_size=0.05,
+                                                  pooled=pooled),
+                     1000, key=30 + pooled, num_chains=N_CHECK, engine="fused", num_warmup=warm,
+                     discard_initial=warm, initial_params=[0.0, 0.0])
+        d, acc = draws_of(res), float(res.transitions.accepted.float().mean())
+        im = res.final_state.inverse_mass.double().cpu().numpy()
+        spread = float(np.ptp(im, axis=0).max())
+        print(f"adaptive hmc{' pooled' if pooled else ''} diag(25, 1) {N_CHECK}x({warm}+1000): "
+              f"acceptance {acc:.4f} mean {d.mean(0).tolist()} cov {np.cov(d.T).tolist()} "
+              f"median M^-1 {np.median(im, 0).tolist()} spread {spread:.3g}")
+        check(np.allclose(d.mean(0) / np.sqrt(np.diag(cov)), 0.0, atol=0.1), "ahmc mean")
+        check(np.allclose(np.cov(d.T), cov, rtol=0.15, atol=0.1), "ahmc covariance")
+        check(np.allclose(np.median(im, 0), np.diag(cov), rtol=0.5), "ahmc median M^-1")
+        check(0.5 < acc < (0.99 if pooled else 0.95), f"ahmc acceptance {acc}")
+        if pooled:
+            check(spread < 1e-5, f"pooled ahmc: M^-1 spread {spread} >= 1e-5")
+
+    # split runs: warmup + 2N in one call = warmup + N, then N resumed
+    split = [
+        ("adapt rwmh", flag, StepSizeAdaptation.rwmh(2, initial_step_size=2.0, device=DEVICE),
+         [0.0, 1.0], 300),
+        ("adaptive hmc", models["aniso"], AdaptiveHMC(n_leapfrog=8, initial_step_size=0.05),
+         [0.0, 0.0], 200),
+    ]
+    for name, m, spl, init, n in split:
+        kw = dict(num_chains=N_CHECK, engine="fused", key=KEY + 60)
+        whole = sample(m, spl, 2 * n, num_warmup=N_WARM, discard_initial=N_WARM,
+                       initial_params=init, **kw)
+        first = sample(m, spl, n, num_warmup=N_WARM, discard_initial=N_WARM,
+                       initial_params=init, **kw)
+        rest = sample(m, spl, n, num_warmup=0, discard_initial=1,
+                      initial_state=first.final_state, iteration_offset=N_WARM + n, **kw)
+        same = (torch.equal(torch.cat([first.transitions.params, rest.transitions.params], 1),
+                            whole.transitions.params)
+                and torch.equal(torch.cat([first.transitions.lp, rest.transitions.lp], 1),
+                                whole.transitions.lp)
+                and torch.equal(rest.final_state.log_eps_bar, whole.final_state.log_eps_bar))
+        print(f"{name} split run {N_CHECK} chains, {N_WARM} warmup + {n} + {n}: "
+              f"bit-exact {same}")
+        check(same, f"{name}: the split run differs from the unsplit one")
+    sync()
+
+
+def phase_timing_slice3(models, label, errs, times, med_eps, minv_med):
+    """The three kernels at their paths' shapes (best of 3), the plain
+    versions at the paths' widths over shorter runs, held against them."""
+    from advancedmh_tpu_torch.ops import (DualAveraging, adapt_rwmh_reference,
+                                          adaptive_hmc_reference, fused_adapt_rwmh_sample,
+                                          fused_adaptive_hmc_sample, fused_hmc_sample,
+                                          hmc_sample_reference, minv_column)
+
+    lr, flag = models["logreg"], models["flagship"]
+    C = LOGREG_CHAINS
+    args = hmc_args(lr, torch.zeros(32, C, device=DEVICE), KEY)
+    da = DualAveraging(AHMC_EPS0, 0.65)
+    kw = dict(n_leapfrog=N_LEAPFROG, warmup=N_WARM, thin=1, n_samples=N_DRAWS, da=da)
+    t_k, out = best_of(lambda: fused_adaptive_hmc_sample(*args, **kw))
+    acc = float(out[2].mean())
+    del out
+    short = dict(n_leapfrog=N_LEAPFROG, warmup=N_PLAIN_HMC // 2, thin=1,
+                 n_samples=N_PLAIN_HMC // 2, da=da)
+    t_ks, out = best_of(lambda: fused_adaptive_hmc_sample(*args, **short))
+    t_p, ref = best_of(lambda: adaptive_hmc_reference(*args, **short))
+    steps = N_WARM + N_DRAWS
+    print(f"[{label}] adaptive_hmc logistic regression at {C} x ({N_WARM} + {N_DRAWS}), "
+          f"L={N_LEAPFROG}: kernel {t_k * 1e3:.4f} ms ({C * steps / t_k:.6e} chain-steps/s, "
+          f"acceptance {acc:.4f}); at {C} x ({N_PLAIN_HMC // 2} + {N_PLAIN_HMC // 2}): kernel "
+          f"{t_ks * 1e3:.4f} ms, plain {t_p * 1e3:.4f} ms")
+    hold(errs, "adaptive_hmc", f"{C} x {N_PLAIN_HMC}", out[:5], ref[:5])
+    times["adaptive_hmc"] = (t_k, t_p, bound_hmc(C, steps, N_DRAWS, N_WARM, 32, 256),
+                             f"plain at {C} x {N_PLAIN_HMC} steps")
+    del out, ref
+
+    minv = minv_column(minv_med, 32, DEVICE)
+    kw = dict(step_size=med_eps, n_leapfrog=N_LEAPFROG, inverse_mass=minv, burn=N_WARM - 1,
+              thin=1, n_samples=N_DRAWS)
+    t_k, out = best_of(lambda: fused_hmc_sample(*args, **kw))
+    del out
+    short = dict(kw, burn=0, n_samples=N_PLAIN_HMC)
+    t_ks, out = best_of(lambda: fused_hmc_sample(*args, **short))
+    t_p, ref = best_of(lambda: hmc_sample_reference(*args, **short))
+    steps = N_WARM - 1 + N_DRAWS
+    print(f"[{label}] hmc logistic regression at {C} x ({N_WARM - 1} + {N_DRAWS}), "
+          f"L={N_LEAPFROG}: kernel {t_k * 1e3:.4f} ms ({C * steps / t_k:.6e} chain-steps/s); "
+          f"at {C} x {N_PLAIN_HMC}: kernel {t_ks * 1e3:.4f} ms, plain {t_p * 1e3:.4f} ms")
+    hold(errs, "hmc", f"{C} x {N_PLAIN_HMC}", out[:3], ref[:3])
+    times["hmc"] = (t_k, t_p, bound_hmc(C, steps, N_DRAWS, 0, 32, 256),
+                    f"plain at {C} x {N_PLAIN_HMC} steps")
+    del out, ref
+
+    p0 = torch.tensor([[0.0], [1.0]], device=DEVICE).expand(2, N_CHAINS).contiguous()
+    args = (flag.tile_density, flag.cuda_density, p0, flag.tile_density(p0, *flag.tile_consts),
+            flag.tile_consts, KEY)
+    kw = dict(warmup=N_WARM, thin=1, n_samples=N_DRAWS, da=DualAveraging(1.0, 0.352))
+    t_k, out = best_of(lambda: fused_adapt_rwmh_sample(*args, **kw))
+    del out
+    short = dict(kw, warmup=50, n_samples=450)
+    t_ks, out = best_of(lambda: fused_adapt_rwmh_sample(*args, **short))
+    t_p, ref = best_of(lambda: adapt_rwmh_reference(*args, **short))
+    print(f"[{label}] adapt_rwmh flagship at {N_CHAINS} x ({N_WARM} + {N_DRAWS}): kernel "
+          f"{t_k * 1e3:.4f} ms ({N_CHAINS * (N_WARM + N_DRAWS) / t_k:.6e} chain-steps/s); at "
+          f"{N_CHAINS} x (50 + 450): kernel {t_ks * 1e3:.4f} ms, plain {t_p * 1e3:.4f} ms")
+    hold(errs, "adapt_rwmh", f"{N_CHAINS} x (50 + 450)", out, ref)
+    times["adapt_rwmh"] = (t_k, t_p, bound("adapt_rwmh", C=N_CHAINS, steps=N_DRAWS,
+                                           emitted=N_DRAWS, warmup=N_WARM),
+                           f"plain at {N_CHAINS} x (50 + 450) steps")
+    del out, ref
+
+
 # ---- timing ------------------------------------------------------------------------
 
 
@@ -578,7 +1015,8 @@ def phase_timing_rwmh(model, spl, p0, lp0, label, errs, times):
          rwmh_reference(*args, n_steps=N_STEPS_THROUGHPUT))
     n_plain = 500
     t_b500, out_b500 = best_of(lambda: fused_rwmh(*args, n_steps=n_plain))
-    t_b500_plain, ref_b500 = best_of(lambda: rwmh_reference(*args, n_steps=n_plain))
+    t_b500_plain, ref_b500 = best_of(lambda: rwmh_reference(*args, n_steps=n_plain),
+                                     PLAIN_REPEATS)
     print(f"[{label}] rwmh at {N_CHAINS} x {n_plain}: kernel {t_b500 * 1e3:.4f} ms "
           f"({N_CHAINS * n_plain / t_b500:.6e} chain-steps/s), plain "
           f"{t_b500_plain * 1e3:.4f} ms ({N_CHAINS * n_plain / t_b500_plain:.6e} chain-steps/s)")
@@ -586,7 +1024,7 @@ def phase_timing_rwmh(model, spl, p0, lp0, label, errs, times):
 
     kw = dict(burn=N_WARM - 1, thin=1, n_samples=N_DRAWS)
     t_a, out_a = best_of(lambda: fused_rwmh_sample(*args, **kw))
-    t_a_plain, ref_a = best_of(lambda: rwmh_sample_reference(*args, **kw))
+    t_a_plain, ref_a = best_of(lambda: rwmh_sample_reference(*args, **kw), PLAIN_REPEATS)
     steps = N_WARM - 1 + N_DRAWS
     print(f"[{label}] rwmh_sample at {N_CHAINS} x ({N_WARM - 1} + {N_DRAWS}): kernel "
           f"{t_a * 1e3:.4f} ms ({N_CHAINS * steps / t_a:.6e} chain-steps/s), plain "
@@ -638,7 +1076,7 @@ def phase_timing_new(models, label, errs, times):
     args = mala_args(flag, p0, KEY)
     kw = dict(step_size_sq=MALA_S2, burn=N_WARM - 1, thin=1, n_samples=N_DRAWS)
     t_k, out = best_of(lambda: fused_mala_sample(*args, **kw))
-    t_p, ref = best_of(lambda: mala_sample_reference(*args, **kw))
+    t_p, ref = best_of(lambda: mala_sample_reference(*args, **kw), PLAIN_REPEATS)
     print(f"[{label}] mala at {N_CHAINS} x ({N_WARM - 1} + {N_DRAWS}): kernel "
           f"{t_k * 1e3:.4f} ms ({N_CHAINS * steps / t_k:.6e} chain-steps/s), plain "
           f"{t_p * 1e3:.4f} ms ({N_CHAINS * steps / t_p:.6e} chain-steps/s)")
@@ -649,7 +1087,7 @@ def phase_timing_new(models, label, errs, times):
     args = ram_args(flag, p0, KEY)
     kw = dict(warmup=N_WARM, thin=1, n_samples=N_DRAWS, params=RamParams())
     t_k, out = best_of(lambda: fused_ram_sample(*args, **kw))
-    t_p, ref = best_of(lambda: ram_sample_reference(*args, **kw))
+    t_p, ref = best_of(lambda: ram_sample_reference(*args, **kw), PLAIN_REPEATS)
     print(f"[{label}] ram at {N_CHAINS} x ({N_WARM} warmup + {N_DRAWS}): kernel "
           f"{t_k * 1e3:.4f} ms ({N_CHAINS * (N_WARM + N_DRAWS) / t_k:.6e} chain-steps/s), "
           f"plain {t_p * 1e3:.4f} ms ({N_CHAINS * (N_WARM + N_DRAWS) / t_p:.6e} chain-steps/s)")
@@ -664,7 +1102,7 @@ def phase_timing_new(models, label, errs, times):
     kw = dict(stretch_length=2.0, tile_walkers=N_CHAINS, burn=N_WARM - 1, thin=1,
               n_samples=N_DRAWS)
     t_k, out = best_of(lambda: fused_emcee_sample(*args, **kw))
-    t_p, ref = best_of(lambda: emcee_sample_reference(*args, **kw))
+    t_p, ref = best_of(lambda: emcee_sample_reference(*args, **kw), PLAIN_REPEATS)
     print(f"[{label}] emcee at {N_CHAINS} walkers x ({N_WARM - 1} + {N_DRAWS}): kernel "
           f"{t_k * 1e3:.4f} ms ({N_CHAINS * steps / t_k:.6e} walker-steps/s), plain "
           f"{t_p * 1e3:.4f} ms ({N_CHAINS * steps / t_p:.6e} walker-steps/s)")
@@ -724,6 +1162,41 @@ _FLOPS = {
 }
 
 
+# Slice 3, counted the same way from csrc/common.cuh, csrc/hmc.cuh,
+# csrc/hmc_adapt.cu and csrc/adapt.cu. The noise of a step is 12 per
+# Box-Muller pair plus 3 (15 at d = 2, as above). The logistic regression's
+# value and gradient at d coefficients and n observations: per observation
+# the logit's 2d - 1, nine for the likelihood term (abs, exp, max, log1p and
+# the adds), seven for softplus' and 2d for the gradient sums; per
+# evaluation 4d + 8 (the partials, b.b, the prior). An HMC step: the noise,
+# 8d for the momentum and both kinetic energies, per leapfrog 7d plus a
+# value and gradient, 6 for the accept; a warmup step of the adaptive kernel
+# adds 13d + 16 (M^-1 from M2, dual averaging, Welford). Dual-averaging
+# RWMH on the flagship: an RWMH step with the isotropic ε (2d), plus 16 in
+# warmup.
+
+
+def _noise_ops(d: int) -> int:
+    return 12 * ((d + 1) // 2) + 3
+
+
+def logreg_vg_ops(d: int, n: int) -> int:
+    return n * ((2 * d - 1) + 9 + 7 + 2 * d) + 4 * d + 8
+
+
+def bound_hmc(C: int, steps: int, emitted: int, warmup: int, d: int, n_obs: int):
+    """(bound in seconds, "bytes" or "operations") of one HMC or AdaptiveHMC
+    launch on the logistic regression with N_LEAPFROG leapfrog steps."""
+    step = (_noise_ops(d) + 8 * d + N_LEAPFROG * (7 * d + logreg_vg_ops(d, n_obs)) + 6)
+    flops = (step * steps + (13 * d + 16) * warmup) * C
+    # in: x, lp, gradient and the constants; out: the draws, the final
+    # gradient and, adaptive, the frozen log ε̄ and M⁻¹
+    nbytes = ((2 * d + 1) * C + n_obs * (d + 1) + 1 + emitted * (d + 2) * C + d * C
+              + (d + 1) * C * (warmup > 0)) * 4
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def bound(name: str, C: int, steps: int, emitted: int, warmup: int = 0, d: int = 2):
     """(bound in seconds, "bytes" or "operations") of one launch: each input
     read once and each output written once over 3.35 TB/s, and the float32
@@ -741,6 +1214,9 @@ def bound(name: str, C: int, steps: int, emitted: int, warmup: int = 0, d: int =
     elif name == "ram":  # + S in and out
         nbytes = state_in + consts + emit + 2 * d * d * C * 4
         flops = (_FLOPS["ram_warmup"] * warmup + _FLOPS["ram"] * steps) * C
+    elif name == "adapt_rwmh":  # + the frozen log ε̄ out
+        nbytes = state_in + consts + emit + C * 4
+        flops = ((_FLOPS["rwmh"] + 16) * warmup + _FLOPS["rwmh"] * steps) * C
     else:  # emcee: one half-move per walker and step
         nbytes = state_in + emit
         flops = _FLOPS["emcee"] * C * steps
@@ -750,12 +1226,42 @@ def bound(name: str, C: int, steps: int, emitted: int, warmup: int = 0, d: int =
 
 # ---- main -------------------------------------------------------------------------------
 
+
+def ptxas_summary(report: str):
+    """One line per compiled kernel of nvcc's -Xptxas -v report: its name,
+    density and flags (from the mangled name), registers and spills."""
+    import re
+
+    out, name, spill = [], None, ""
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(_ZN3amh\d+(\w+?)I\w*)'", line)
+        if m:
+            mangled = m.group(1)
+            dens = re.findall(r"(GaussianMeanScale|EmceeDemo|CorrelatedGaussianILi\d+E"
+                              r"|LogisticRegressionILi\d+E)", mangled)
+            flag = re.search(r"ELb([01])E", mangled)
+            kernel = re.match(r"_ZN3amh\d+([a-z_]+)", mangled).group(1)
+            density = re.sub(r"ILi(\d+)E", r"<\1>", dens[0]) if dens else "?"
+            flags = f", {'true' if flag.group(1) == '1' else 'false'}" if flag else ""
+            name = f"{kernel}<{density}{flags}>"
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{name}: {regs} registers; {spill}")
+            name, spill = None, ""
+    return out
+
+
 REPLACES = {
     "rwmh_sample": ("advancedmh_tpu/ops/pallas_mh.py:238", "rwmh.cu"),
     "rwmh": ("advancedmh_tpu/ops/pallas_mh.py:104", "rwmh.cu"),
     "mala": ("advancedmh_tpu/ops/pallas_mala.py:30", "mala.cu"),
     "ram": ("advancedmh_tpu/ops/pallas_ram.py:36", "ram.cu"),
     "emcee": ("advancedmh_tpu/ops/pallas_emcee.py:33", "emcee.cu"),
+    "adapt_rwmh": ("advancedmh_tpu/ops/pallas_adapt.py:30", "adapt.cu"),
+    "hmc": ("advancedmh_tpu/ops/pallas_hmc.py:32", "hmc.cu"),
+    "adaptive_hmc": ("advancedmh_tpu/ops/pallas_hmc_adapt.py:37", "hmc_adapt.cu"),
 }
 
 
@@ -766,7 +1272,8 @@ def main() -> None:
     try:
         from advancedmh_tpu_torch.models import (correlated_gaussian_model,
                                                  emcee_demo_model,
-                                                 gaussian_mean_scale_model)
+                                                 gaussian_mean_scale_model,
+                                                 logistic_regression_model)
         from advancedmh_tpu_torch.ops import _build
     except ImportError as e:
         fail(f"advancedmh_tpu_torch is not importable next to this script: {e}")
@@ -787,9 +1294,8 @@ def main() -> None:
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True).stdout.strip().splitlines()
     print(f"build: {path.name} in {build_s:.2f} s ({nvcc[-1] if nvcc else 'nvcc'})")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"  ptxas: {line.strip()}")
+    for line in ptxas_summary(report):
+        print(f"  ptxas: {line}")
     lib = _build.library()
     for kernel in _build.KERNELS:
         print(f"registry {kernel}: {sorted(_build.kernel_pairs(lib, kernel))}")
@@ -801,10 +1307,14 @@ def main() -> None:
         "corr4": correlated_gaussian_model(0.5 * np.ones((4, 4)) + 0.5 * np.eye(4),
                                            device=DEVICE),
         "emcee": emcee_demo_model(device=DEVICE),
+        "logreg": logistic_regression_model(256, 32, seed=0, device=DEVICE),
+        "aniso": correlated_gaussian_model(np.diag([25.0, 1.0]), device=DEVICE),
+        "diag9": correlated_gaussian_model(np.diag([9.0, 1.0]), device=DEVICE),
     }
     errs = {name: 0.0 for name in REPLACES}
     phase_kernels_rwmh(models["flagship"], errs)
     phase_kernels_new(models, errs)
+    phase_kernels_slice3(models, errs)
     print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
 
     launches = {}
@@ -813,16 +1323,20 @@ def main() -> None:
     phase_main_ram(models["flagship"], label, launches)
     phase_main_emcee(models["emcee"], label, launches)
     phase_correlated(models)
+    med_eps, minv_med = phase_main_logreg(models["logreg"], label, launches)
+    phase_main_adapt(models["flagship"], label, launches)
+    phase_slice3_checks(models)
     print(f"main paths done at {time.perf_counter() - t_start:.1f} s")
 
     times = {}
     phase_timing_rwmh(models["flagship"], spl, p0, lp0, label, errs, times)
     phase_timing_new(models, label, errs, times)
+    phase_timing_slice3(models, label, errs, times, med_eps, minv_med)
     print(f"[{label}] chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for name, (replaces, source) in REPLACES.items():
-        ms, plain_s, (bound_s, bound_by) = times[name]
+        ms, plain_s, (bound_s, bound_by) = times[name][:3]
         kernels.append({
             "name": name, "route": "cuda", "source": f"advancedmh_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches[name], "max_abs_err": errs[name],

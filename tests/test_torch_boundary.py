@@ -154,12 +154,14 @@ def test_model_tags_name_cuda_functors():
     import numpy as np
 
     from advancedmh_tpu_torch.models import (correlated_gaussian_model, emcee_demo_model,
-                                             gaussian_mean_scale_model)
+                                             gaussian_mean_scale_model,
+                                             logistic_regression_model)
 
     names = set(re.findall(r'kName = "(\w+)"', (PKG / "csrc" / "common.cuh").read_text()))
     tags = {m.cuda_density for m in (gaussian_mean_scale_model(device="cpu"),
                                      correlated_gaussian_model(np.eye(2), device="cpu"),
-                                     emcee_demo_model(device="cpu"))}
+                                     emcee_demo_model(device="cpu"),
+                                     logistic_regression_model(16, 2, device="cpu"))}
     assert tags == names
     for path in PKG.rglob("*.py"):
         assert "CUDA_DENSITIES" not in path.read_text(), path

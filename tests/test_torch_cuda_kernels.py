@@ -224,3 +224,180 @@ def test_wrapper_raises_for_what_has_no_kernel(model):
         has = ("emcee_demo", 2) if name == "emcee" else ("gaussian_mean_scale", 2)
         assert has in _build.kernel_pairs(
             _build.library(), "rwmh" if name.startswith("rwmh") else name)
+
+
+# ---- slice 3: dual-averaging RWMH, HMC, AdaptiveHMC, and the d = 32 target ----
+
+
+def _logreg():
+    from advancedmh_tpu_torch.models import logistic_regression_model
+
+    return logistic_regression_model(256, 32, seed=0, device="cuda")
+
+
+def _slice3_start(m, C, seed):
+    rng = np.random.default_rng(seed)
+    if m.cuda_density == "gaussian_mean_scale":
+        return _start(m, C, seed)[0]
+    if m.cuda_density == "logistic_regression":
+        return torch.tensor(0.3 * rng.normal(size=(32, C)), dtype=torch.float32, device="cuda")
+    return _gauss_start(m.dimension, C, seed)
+
+
+def _slice3_model(model, target):
+    if target == "flagship":
+        return model
+    if target == "logreg":
+        return _logreg()
+    return correlated_gaussian_model(CORR, device="cuda")
+
+
+@pytest.mark.parametrize("target", ["flagship", "corr2", "logreg"])
+@pytest.mark.parametrize("C,burn,thin,n,offset", [
+    (4096, 0, 1, 64, 0), (4001, 5, 3, 11, (1 << 32) - 20),
+])
+def test_hmc_kernel_matches_plain(model, target, C, burn, thin, n, offset):
+    from advancedmh_tpu_torch.ops import fused_hmc_sample, hmc_sample_reference, minv_column
+
+    m = _slice3_model(model, target)
+    if target == "logreg" and burn:  # the main path's width, the bench's step
+        C, n = 8192, 16
+    d = m.dimension
+    p = _slice3_start(m, C, seed=C + 1)
+    lp, g = m.tile_value_and_grad(p, *m.tile_consts)
+    eps = {"flagship": 0.03, "corr2": 0.4, "logreg": 0.05}[target]
+    minv = minv_column(torch.linspace(0.5, 1.5, d), d, "cuda")
+    args = (m.tile_value_and_grad, m.cuda_density, p, lp, g, m.tile_consts, 31)
+    kw = dict(step_size=eps, n_leapfrog=8, inverse_mass=minv, burn=burn, thin=thin,
+              n_samples=n, iteration_offset=offset)
+    before = fused_hmc_sample.launches
+    got = fused_hmc_sample(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_hmc_sample.launches == before + 1
+    ref = hmc_sample_reference(*args, **kw)
+    dec, chains = _agree(got, ref)
+    assert dec >= 0.999 and chains >= 0.999
+
+
+@pytest.mark.parametrize("target", ["flagship", "corr2", "logreg"])
+@pytest.mark.parametrize("resume", [False, True])
+def test_adaptive_hmc_kernel_matches_plain(model, target, resume):
+    from advancedmh_tpu_torch.ops import (DualAveraging, adaptive_hmc_reference,
+                                          fused_adaptive_hmc_sample)
+
+    m = _slice3_model(model, target)
+    C = 8192 if target == "logreg" else 4000
+    d = m.dimension
+    p = _slice3_start(m, C, seed=7)
+    lp, g = m.tile_value_and_grad(p, *m.tile_consts)
+    args = (m.tile_value_and_grad, m.cuda_density, p, lp, g, m.tile_consts, 41)
+    kw = dict(n_leapfrog=8, thin=1 if target == "logreg" else 3, n_samples=16,
+              da=DualAveraging(0.05, 0.65), iteration_offset=9)
+    if resume:
+        rng = np.random.default_rng(3)
+        scale = {"flagship": 0.01, "corr2": 0.3, "logreg": 0.02}[target]
+        kw.update(warmup=0,
+                  log_eps_bar=torch.tensor(np.log(rng.uniform(0.5, 1.5, (1, C)) * scale),
+                                           dtype=torch.float32, device="cuda"),
+                  inverse_mass=torch.tensor(rng.uniform(0.5, 2.0, (d, C)),
+                                            dtype=torch.float32, device="cuda"))
+    else:
+        kw.update(warmup=24)
+    got = fused_adaptive_hmc_sample(*args, **kw)
+    ref = adaptive_hmc_reference(*args, **kw)
+    dec, chains = _agree(got, ref)
+    assert dec >= 0.999 and chains >= 0.999
+    for a, b in zip(got[3:5], ref[3:5]):
+        assert float(_close(a, b).all(0).float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("target", ["flagship", "corr2"])
+@pytest.mark.parametrize("C,warmup,thin,n,offset,resume", [
+    (4096, 40, 1, 24, 0, False), (4001, 10, 3, 11, (1 << 32) - 20, False),
+    (4099, 0, 2, 20, 77, True),
+])
+def test_adapt_rwmh_kernel_matches_plain(model, target, C, warmup, thin, n, offset, resume):
+    from advancedmh_tpu_torch.ops import (DualAveraging, adapt_rwmh_reference,
+                                          fused_adapt_rwmh_sample)
+
+    m = _slice3_model(model, target)
+    p = _slice3_start(m, C, seed=C)
+    lp = m.tile_density(p, *m.tile_consts)
+    leb = (torch.full((1, C), -1.5, device="cuda") + 0.1 * torch.arange(C, device="cuda") / C
+           if resume else None)
+    args = (m.tile_density, m.cuda_density, p, lp, m.tile_consts, 51)
+    kw = dict(warmup=warmup, thin=thin, n_samples=n, da=DualAveraging(10.0, 0.352),
+              log_eps_bar=leb, iteration_offset=offset)
+    before = fused_adapt_rwmh_sample.launches
+    got = fused_adapt_rwmh_sample(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_adapt_rwmh_sample.launches == before + 1
+    ref = adapt_rwmh_reference(*args, **kw)
+    dec, chains = _agree(got, ref)
+    assert dec >= 0.999 and chains >= 0.999
+    assert float(_close(got[3], ref[3]).float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("kernel", ["rwmh", "mala"])
+def test_logistic_regression_yardsticks_match_plain(kernel):
+    """The bench's hand-tuned RWMH (scale 0.45) and MALA (s² = 0.36)
+    yardsticks at d = 32 and the main path's 8192 chains, 64 steps."""
+    m = _logreg()
+    p = _slice3_start(m, 8192, seed=2)
+    if kernel == "rwmh":
+        lp = m.tile_density(p, *m.tile_consts)
+        args = (m.tile_density, m.cuda_density, p, lp, 0.45, m.tile_consts, 61)
+        got = fused_rwmh_sample(*args, burn=0, thin=1, n_samples=64)
+        ref = rwmh_sample_reference(*args, burn=0, thin=1, n_samples=64)
+    else:
+        lp, g = m.tile_value_and_grad(p, *m.tile_consts)
+        args = (m.tile_value_and_grad, m.cuda_density, p, lp, g, m.tile_consts, 61)
+        got = fused_mala_sample(*args, step_size_sq=0.36, burn=0, thin=1, n_samples=64)
+        ref = mala_sample_reference(*args, step_size_sq=0.36, burn=0, thin=1, n_samples=64)
+    dec, chains = _agree(got, ref)
+    assert dec >= 0.999 and chains >= 0.999
+
+
+def test_constants_above_48_kb_launch():
+    """A 300 x 32 logistic regression (38.7 KB) and a 400 x 32 one
+    (51.3 KB, above the default dynamic shared memory) both launch."""
+    from advancedmh_tpu_torch.models import logistic_regression_model
+
+    for n_obs in (300, 400):
+        m = logistic_regression_model(n_obs, 32, seed=1, device="cuda")
+        p = torch.zeros(32, 256, device="cuda")
+        lp = m.tile_density(p, *m.tile_consts)
+        args = (m.tile_density, m.cuda_density, p, lp, 0.05, m.tile_consts, 3)
+        got = fused_rwmh_sample(*args, burn=0, thin=1, n_samples=4)
+        ref = rwmh_sample_reference(*args, burn=0, thin=1, n_samples=4)
+        assert _agree(got, ref)[1] >= 0.99
+
+
+def test_slice3_wrappers_raise_for_what_has_no_kernel(model):
+    """An unknown tag, a missing tag, or a (tag, d) the library lacks raises
+    _build.check's ValueError for the three slice-3 kernels."""
+    from advancedmh_tpu_torch.ops import (fused_adapt_rwmh_sample, fused_adaptive_hmc_sample,
+                                          fused_hmc_sample, minv_column)
+
+    p, lp = _start(model, 64, seed=1)
+    consts = model.tile_consts
+    p3 = torch.zeros(3, 64, device="cuda")
+    calls = {
+        "adapt": lambda tag, x: fused_adapt_rwmh_sample(
+            model.tile_density, tag, x, lp, consts, 1, warmup=1, thin=1, n_samples=2),
+        "hmc": lambda tag, x: fused_hmc_sample(
+            model.tile_value_and_grad, tag, x, lp, torch.zeros_like(x), consts, 1,
+            step_size=0.1, n_leapfrog=2, inverse_mass=minv_column(None, x.shape[0], "cuda"),
+            burn=0, thin=1, n_samples=2),
+        "hmc_adapt": lambda tag, x: fused_adaptive_hmc_sample(
+            model.tile_value_and_grad, tag, x, lp, torch.zeros_like(x), consts, 1,
+            n_leapfrog=2, warmup=1, thin=1, n_samples=2),
+    }
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match="CUDA density tag"):
+            call(None, p)
+        with pytest.raises(ValueError, match="'banana'"):
+            call("banana", p)
+        with pytest.raises(ValueError, match="instantiates only"):
+            call(model.cuda_density, p3)
+        assert ("gaussian_mean_scale", 2) in _build.kernel_pairs(_build.library(), name)
