@@ -3,8 +3,8 @@
 The port of ``advancedmh_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100.
 It carries the reference sampler surface end to end: distributions,
 models, proposal trees, the MH sampler (RWMH), MALA, Robust Adaptive
-Metropolis, the emcee ensemble, HMC, AdaptiveHMC and dual-averaging
-step-size adaptation, ``sample`` with a batched tensor engine
+Metropolis, the emcee ensemble, HMC, AdaptiveHMC, dual-averaging step-size
+adaptation, ChEES-HMC and MEADS, ``sample`` with a batched tensor engine
 (``engine="torch"``) and the hand-written CUDA kernels of the fused engine
 (``engine="fused"``, ``csrc/``), ``Chains`` and the ESS / R̂ / MCSE
 diagnostics. Public names match ``advancedmh_tpu``'s. Models live on the
@@ -52,9 +52,13 @@ from .samplers import (
     RWMH,
     AdaptiveHMC,
     AdaptiveHMCState,
+    ChEESHMC,
+    ChEESHMCState,
     Ensemble,
     GradientTransition,
     HamiltonianMC,
+    MEADS,
+    MEADSState,
     MetropolisHastings,
     RobustAdaptiveMetropolis,
     RobustAdaptiveMetropolisState,
@@ -97,7 +101,8 @@ __all__ = [
     "GradientTransition", "MALA", "RobustAdaptiveMetropolis",
     "RobustAdaptiveMetropolisState", "Ensemble", "StretchProposal",
     "WalkProposal", "HamiltonianMC", "AdaptiveHMC", "AdaptiveHMCState",
-    "StepSizeAdaptation", "StepSizeAdaptationState", "getparams", "setparams",
+    "StepSizeAdaptation", "StepSizeAdaptationState", "ChEESHMC", "ChEESHMCState",
+    "MEADS", "MEADSState", "getparams", "setparams",
     # runtime
     "sample", "Schedule", "SamplingResult",
     "MCMCSerial", "MCMCThreads", "MCMCDistributed",

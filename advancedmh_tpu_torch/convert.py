@@ -4,8 +4,8 @@ Functions here take numpy arrays (never JAX objects) and return the port's
 objects on a given device (the card unless the caller asks for another),
 so one set of inputs can be handed to both packages: model data, proposal
 scales, and the states of RWMH, MALA, RAM, the ensemble sampler,
-StepSizeAdaptation and AdaptiveHMC for ``initial_params`` /
-``initial_state``.
+StepSizeAdaptation, AdaptiveHMC, ChEES-HMC and MEADS for ``initial_params``
+/ ``initial_state``.
 """
 from __future__ import annotations
 
@@ -20,7 +20,9 @@ from .models.targets import (TileDensityModel, correlated_gaussian_model,
                              logistic_regression_model)
 from .samplers.adapt import StepSizeAdaptationState
 from .samplers.base import GradientTransition, Transition
+from .samplers.chees import ChEESHMCState
 from .samplers.hmc_adapt import AdaptiveHMCState
+from .samplers.meads import MEADSState
 from .samplers.ram import RobustAdaptiveMetropolisState
 
 
@@ -133,3 +135,32 @@ def adaptive_hmc_state_from_numpy(
         h_bar=_f32(h_bar, device), t=_i32(t, device), mean=_f32(mean, device),
         m2=_f32(m2, device), n=_f32(n, device), inverse_mass=_f32(inverse_mass, device),
     )
+
+
+def chees_state_from_numpy(
+    inner: GradientTransition, log_eps: np.ndarray, log_eps_bar: np.ndarray,
+    h_bar: np.ndarray, log_traj: np.ndarray, log_traj_bar: np.ndarray,
+    adam_m: np.ndarray, adam_v: np.ndarray, t: np.ndarray, mean: np.ndarray,
+    m2: np.ndarray, n: np.ndarray, inverse_mass: np.ndarray, device="cuda",
+) -> ChEESHMCState:
+    """A ChEES-HMC state (vector params): ``inner`` from
+    :func:`gradient_transition_from_numpy`, the statistics as the JAX state
+    holds them (replicated over the chains on a leading axis)."""
+    f = lambda a: _f32(a, device)
+    return ChEESHMCState(
+        inner=inner, log_eps=f(log_eps), log_eps_bar=f(log_eps_bar), h_bar=f(h_bar),
+        log_traj=f(log_traj), log_traj_bar=f(log_traj_bar), adam_m=f(adam_m),
+        adam_v=f(adam_v), t=_i32(t, device), mean=f(mean), m2=f(m2), n=f(n),
+        inverse_mass=f(inverse_mass),
+    )
+
+
+def meads_state_from_numpy(
+    x: np.ndarray, lp: np.ndarray, grad: np.ndarray, p: np.ndarray, u: np.ndarray,
+    iteration: np.ndarray, isaccept: np.ndarray, device="cuda",
+) -> MEADSState:
+    """A MEADS state: per chain x, gradient and the persistent momentum
+    ``(C, d)``, lp, the slice variable u, iteration and isaccept ``(C,)``."""
+    f = lambda a: _f32(a, device)
+    return MEADSState(x=f(x), lp=f(lp), grad=f(grad), p=f(p), u=f(u),
+                      iteration=_i32(iteration, device), isaccept=_bool(isaccept, device))

@@ -276,6 +276,52 @@ struct LogisticRegression {
   }
 };
 
+// models/targets.py::neal_funnel_tile_value_and_grad: Neal's funnel in D
+// dimensions, x = (v, x_1..x_{D-1}), no constants:
+//   lp = ((-v) v)/18 - (D-1)/2 v - (e/2) S + c,  e = exp(-v), S = sum x_i^2
+// (S summed in order), c = -D log(2 pi)/2 - log 3 in float64; the gradient as
+// JAX's reverse mode gives the tile density: with a = (-v)(1/18),
+// d/dv = (a + a - (D-1)/2) + (S/2) e and d/dx_i = (-e/2) x_i + (-e/2) x_i.
+// For v < -88 e overflows to inf and inf * 0 is NaN, as in JAX.
+template <int D>
+struct NealFunnel {
+  static constexpr const char* kName = "neal_funnel";
+  static constexpr int kDim = D;
+
+  template <bool kGrad>
+  __device__ __forceinline__ static float eval(const float* x, float* g) {
+    constexpr float kHalfDm1 = 0.5f * (float)(D - 1);
+    constexpr float kConst =
+        (float)(-(double)D * 0.91893853320467274178 - 1.0986122886681098);
+    const float v = x[0];
+    float sq = x[1] * x[1];
+#pragma unroll
+    for (int i = 2; i < D; ++i) sq = sq + x[i] * x[i];
+    const float e = expf(-v);
+    const float he = 0.5f * e;
+    const float lp = ((-v) * v / 18.0f - kHalfDm1 * v) - he * sq + kConst;
+    if (kGrad) {
+      const float a = (-v) * (1.0f / 18.0f);
+      g[0] = (a + a - kHalfDm1) + (0.5f * sq) * e;
+#pragma unroll
+      for (int i = 1; i < D; ++i) {
+        const float t = (-he) * x[i];
+        g[i] = t + t;
+      }
+    }
+    return lp;
+  }
+
+  __device__ static float logp(const float* x, const float*, int) {
+    return eval<false>(x, nullptr);
+  }
+
+  __device__ static float value_and_grad(const float* x, const float*, int,
+                                         float* g) {
+    return eval<true>(x, g);
+  }
+};
+
 // models/targets.py::emcee_demo_tile: x = (s, m); s ~ InverseGamma(2, 3),
 // m ~ N(0, sqrt s), observations 1.5 and 2.0 from N(m, sqrt s). Out of the
 // support (s <= 0) the value is -1e30, not -inf, as in the JAX model.

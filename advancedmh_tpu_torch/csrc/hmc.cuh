@@ -29,25 +29,24 @@ __device__ __forceinline__ float kinetic(const float (&p)[D],
   return k * 0.5f;
 }
 
-// One HMC step of absolute index j for chain c, at step size eps and
-// inverse mass minv. On entry x, g, lp hold the current state, which is also
-// stored at x_state / g_state; on exit they hold the next state, stored
-// there too. Returns whether the proposal was accepted.
+// The proposal of an HMC step of absolute index j for chain c, at step size
+// eps and inverse mass minv: momentum from the step's noise, n_leapfrog
+// leapfrog steps. On entry x, g, lp hold the current state; on exit x, g, p
+// hold the end point (y, g_y, p1), lp_y its log density and logu the log of
+// the accept uniform. Returns logalpha (ops/hmc.py::hmc_propose).
 template <class Density>
-__device__ __forceinline__ bool hmc_step(
-    float (&x)[Density::kDim], float& lp, float (&g)[Density::kDim],
-    const float (&minv)[Density::kDim], float eps, int n_leapfrog,
-    const float* consts, int n_consts, float* x_state, float* g_state,
-    int64_t c, int64_t C, uint64_t j, uint32_t k0, uint32_t k1) {
+__device__ __forceinline__ float hmc_propose(
+    float (&x)[Density::kDim], float lp, float (&g)[Density::kDim],
+    float (&p)[Density::kDim], const float (&minv)[Density::kDim], float eps,
+    int n_leapfrog, const float* consts, int n_consts, int64_t c, uint64_t j,
+    uint32_t k0, uint32_t k1, float& lp_y, float& logu) {
   constexpr int D = Density::kDim;
-  float p[D];
-  float logu;
   step_noise<D>(j, (uint32_t)c, k0, k1, p, logu);
 #pragma unroll
   for (int i = 0; i < D; ++i) p[i] = p[i] / sqrtf(minv[i]);
   const float k_0 = kinetic<D>(p, minv);
   const float half = 0.5f * eps;
-  float lp_y = lp;
+  lp_y = lp;
   for (int l = 0; l < n_leapfrog; ++l) {
 #pragma unroll
     for (int i = 0; i < D; ++i) {
@@ -62,7 +61,25 @@ __device__ __forceinline__ bool hmc_step(
 #pragma unroll
     for (int i = 0; i < D; ++i) p[i] = p[i] + half * g[i];
   }
-  const float logalpha = (lp_y - kinetic<D>(p, minv)) - (lp - k_0);
+  return (lp_y - kinetic<D>(p, minv)) - (lp - k_0);
+}
+
+// One HMC step of absolute index j for chain c, at step size eps and
+// inverse mass minv. On entry x, g, lp hold the current state, which is also
+// stored at x_state / g_state; on exit they hold the next state, stored
+// there too. Returns whether the proposal was accepted.
+template <class Density>
+__device__ __forceinline__ bool hmc_step(
+    float (&x)[Density::kDim], float& lp, float (&g)[Density::kDim],
+    const float (&minv)[Density::kDim], float eps, int n_leapfrog,
+    const float* consts, int n_consts, float* x_state, float* g_state,
+    int64_t c, int64_t C, uint64_t j, uint32_t k0, uint32_t k1) {
+  constexpr int D = Density::kDim;
+  float p[D];
+  float lp_y, logu;
+  const float logalpha = hmc_propose<Density>(x, lp, g, p, minv, eps, n_leapfrog,
+                                              consts, n_consts, c, j, k0, k1,
+                                              lp_y, logu);
   const bool accept = -logu > -logalpha;  // NaN rejects
   if (accept) {
 #pragma unroll

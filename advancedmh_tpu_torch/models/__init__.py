@@ -21,6 +21,9 @@ from .targets import (
     logistic_regression_model,
     logistic_regression_tile,
     logistic_regression_tile_value_and_grad,
+    neal_funnel_model,
+    neal_funnel_tile,
+    neal_funnel_tile_value_and_grad,
 )
 
 __all__ = [
@@ -31,5 +34,6 @@ __all__ = [
     "emcee_demo_model", "emcee_demo_tile", "gaussian_mean_scale_model",
     "gaussian_mean_scale_tile", "gaussian_mean_scale_tile_value_and_grad",
     "logistic_regression_model", "logistic_regression_tile",
-    "logistic_regression_tile_value_and_grad",
+    "logistic_regression_tile_value_and_grad", "neal_funnel_model",
+    "neal_funnel_tile", "neal_funnel_tile_value_and_grad",
 ]

@@ -342,6 +342,82 @@ def logistic_regression_model(
     return model
 
 
+# ---- Neal's funnel -------------------------------------------------------
+
+def _funnel_const(d: int) -> float:
+    """log normaliser of the funnel, −½·log(2π·9) − (d−1)·½·log(2π), as
+    ``NealFunnel`` in csrc/common.cuh computes it in float64: −d·½·log(2π) −
+    log 3 from the same two literals."""
+    return -d * 0.91893853320467274178 - 1.0986122886681098
+
+
+def neal_funnel_tile_value_and_grad(t: torch.Tensor, grad: bool = True):
+    """Tile value and gradient of the funnel, ``t`` (d, C) = (v, x_1..x_{d−1}):
+
+        lp = ((−v)·v)/18 − (d−1)/2·v − (e/2)·Σx² + c,  e = exp(−v),
+
+    and the gradient with the algebra JAX's reverse mode gives the tile
+    density: with a = (−v)·(1/18), ``∂v = (a + a − (d−1)/2) + (Σx²/2)·e`` and
+    ``∂x = (−e/2)·x + (−e/2)·x``. For v < −88 exp(−v) overflows to inf, and
+    inf·0 is NaN where Σx² or x is 0, as in JAX. ``NealFunnel`` in
+    csrc/common.cuh does the same operations in the same order."""
+    d = t.shape[0]
+    v, x = t[0:1], t[1:]
+    sq = row_sum(x * x)
+    e = torch.exp(-v)
+    he = 0.5 * e
+    lp = ((-v) * v / torch.full_like(v, 18.0) - (0.5 * (d - 1)) * v) - he * sq + _funnel_const(d)
+    if not grad:
+        return lp, None
+    c18 = torch.ones_like(v) / torch.full_like(v, 18.0)
+    a = (-v) * c18
+    gv = (a + a - 0.5 * (d - 1)) + (0.5 * sq) * e
+    gx = (-he) * x
+    return lp, torch.cat([gv, gx + gx])
+
+
+def neal_funnel_tile(t: torch.Tensor) -> torch.Tensor:
+    """Tile density of the funnel (see :func:`neal_funnel_tile_value_and_grad`)."""
+    return neal_funnel_tile_value_and_grad(t, grad=False)[0]
+
+
+def neal_funnel_model(d: int = 10, device="cuda") -> TileDensityModel:
+    """Neal's funnel (Neal 2003 §8; ≙ the JAX package's ``neal_funnel_model``):
+    v ~ N(0, 3²), x_i | v ~ N(0, eᵛ) for i = 1..d−1, θ = (v, x_1..x_{d−1}),
+
+        log π = −v²/18 − (d−1)v/2 − e^{−v}·Σx²/2 + C.
+
+    The marginal of v is N(0, 9), so the neck mass is P(v < −c) = Φ(−c/3).
+    ``logdensity`` and the per-chain ``ldg`` are the JAX model's closed forms;
+    the tile forms are the kernels' plain versions."""
+    dm1 = d - 1
+    const = float(-0.5 * math.log(2.0 * math.pi * 9.0) - dm1 * _HALF_LOG_2PI)
+
+    def logdensity(theta):
+        v, x = theta[0], theta[1:]
+        return -v * v / 18.0 - 0.5 * dm1 * v - 0.5 * torch.exp(-v) * torch.sum(x * x) + const
+
+    def ldg(theta):
+        v, x = theta[0], theta[1:]
+        e = torch.exp(-v)
+        sq = torch.sum(x * x)
+        lp = -v * v / 18.0 - 0.5 * dm1 * v - 0.5 * e * sq + const
+        gv = -v / 9.0 - 0.5 * dm1 + 0.5 * e * sq
+        return lp, torch.cat([gv[None], -e * x])
+
+    return TileDensityModel(
+        logdensity_fn=logdensity,
+        logdensity_and_gradient_fn=ldg,
+        dimension=d,
+        logdensity_batched_fn=lambda th: neal_funnel_tile(th.T)[0],
+        device=device,
+        tile_density=neal_funnel_tile,
+        tile_value_and_grad=neal_funnel_tile_value_and_grad,
+        tile_consts=(),
+        cuda_density="neal_funnel",
+    )
+
+
 # ---- the emcee test model ------------------------------------------------
 
 _IG_CONST = 2.0 * math.log(3.0)  # InverseGamma(2, 3): α log θ − lgamma(2)

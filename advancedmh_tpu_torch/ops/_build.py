@@ -39,7 +39,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 # each csrc/<name>.cu exports amh_pairs_<name>
-KERNELS = ("rwmh", "mala", "ram", "emcee", "adapt", "hmc", "hmc_adapt")
+KERNELS = ("rwmh", "mala", "ram", "emcee", "adapt", "hmc", "hmc_adapt", "chees", "meads")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
@@ -93,6 +93,26 @@ _SIGNATURES = {
                                 _F, _F, _F, _F, _F, _F, _F, _F, _I32, _U64,
                                 _I64, _I64, _I64, _U64, _I64, _P, _P, _P, _P,
                                 _P, _P, _P, _P, _P, _P],
+    # density, d, params_t, lp, grad, sv_in, minv_in, trips, us, E, n_groups,
+    # consts, n_consts, target, t0, kappa, gamma, mu, lr, b1, 1 - b1, b2,
+    # 1 - b2, log b1, log b2, log max_leapfrog, mass_reg, warm_start,
+    # adapt_mass, seed, offset, C, tile, x_state, lp_out, g_state, acc_out,
+    # sv_tiles, sum_x, sum_x2, partials, nb, stream
+    "amh_chees_warmup": [_S, _I32, _P, _P, _P, _P, _P, _P, _P, _I32, _I64, _P, _I32,
+                         *([_F] * 15), _I32, _U64, _U64, _I64, _I64, _P, _P, _P, _P,
+                         _P, _P, _P, _P, _I64, _P],
+    # density, d, params_t, lp, grad, eps, eps_per_chain, minv, consts,
+    # n_consts, trips, P, phase, seed, thin, n_samples, offset, C, samples,
+    # lps, accs, x_state, g_state, stream
+    "amh_chees_frozen_sample": [_S, _I32, _P, _P, _P, _P, _I32, _P, _P, _I32, _P, _I32,
+                                _I64, _U64, _I64, _I64, _U64, _I64, _P, _P, _P, _P, _P,
+                                _P],
+    # density, d, precond, nonrev, x, lp, g, p, u, consts, n_consts, mult,
+    # clip, slowdown, K, tile, C, seed, t0, burn, thin, n_samples, samples,
+    # lps, accs, partials, nb, stream
+    "amh_meads_sample": [_S, _I32, _I32, _I32, _P, _P, _P, _P, _P, _P, _I32, _F, _F, _F,
+                         _I32, _I64, _I64, _U64, _U64, _I64, _I64, _I64, _P, _P, _P, _P,
+                         _I64, _P],
 }
 
 # An H100 block may use at most 227 KB of shared memory; the density's

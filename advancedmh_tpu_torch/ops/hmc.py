@@ -40,11 +40,10 @@ def kinetic(p: torch.Tensor, minv: torch.Tensor) -> torch.Tensor:
     return row_sum(p * p * minv) * 0.5
 
 
-def hmc_step(x, lp, g, z, logu, eps, minv, n_leapfrog: int, value_and_grad, consts):
-    """One endpoint HMC step on the chain block (the kernel's arithmetic).
-
-    ``eps`` is a float or a per-chain (1, C) row, ``minv`` a (d, 1) column or
-    a (d, C) block. Returns (x, lp, g, accepted)."""
+def hmc_propose(x, lp, g, z, eps, minv, n_leapfrog: int, value_and_grad, consts):
+    """The proposal of an HMC step (csrc/hmc.cuh::hmc_propose): momentum
+    ``z/√M⁻¹``, ``n_leapfrog`` leapfrog steps. Returns the end point
+    (y, p₁, lp_y, g_y) and logα."""
     half = 0.5 * eps
     em = eps * minv
     p = z / torch.sqrt(minv)
@@ -55,7 +54,16 @@ def hmc_step(x, lp, g, z, logu, eps, minv, n_leapfrog: int, value_and_grad, cons
         y = y + em * p
         lp_y, g_y = value_and_grad(y, *consts)
         p = p + half * g_y
-    logalpha = (lp_y - kinetic(p, minv)) - (lp - k0)
+    return y, p, lp_y, g_y, (lp_y - kinetic(p, minv)) - (lp - k0)
+
+
+def hmc_step(x, lp, g, z, logu, eps, minv, n_leapfrog: int, value_and_grad, consts):
+    """One endpoint HMC step on the chain block (the kernel's arithmetic).
+
+    ``eps`` is a float or a per-chain (1, C) row, ``minv`` a (d, 1) column or
+    a (d, C) block. Returns (x, lp, g, accepted)."""
+    y, _, lp_y, g_y, logalpha = hmc_propose(x, lp, g, z, eps, minv, n_leapfrog,
+                                            value_and_grad, consts)
     accept = -logu[None] > -logalpha
     return (torch.where(accept, y, x), torch.where(accept, lp_y, lp),
             torch.where(accept, g_y, g), accept)

@@ -1,0 +1,272 @@
+"""Fused MEADS: the CUDA kernel's wrapper and its plain version.
+
+≙ advancedmh_tpu/ops/pallas_meads.py. The kernel (``csrc/meads.cu``) runs
+the whole warmup-free sampler: ``burn`` steps, then ``n_samples`` thinned
+draws; sample e is the state after ``burn + (e+1)·thin`` steps. The chains
+form independent ensembles of ``tile_chains`` (the last one may be short),
+each split into K contiguous folds of F = size/K chains. In a step the folds
+move one after another; fold k is tuned by fold b = (k − 1) mod K's current
+state:
+
+- σ = max(√(Σ(x − μ)²/F), 1e-10) per coordinate (two passes, μ = Σx/F; 1
+  without ``diagonal_preconditioning``);
+- λ̂ = tr(A²)/tr(A) of σ∘g and of (x − μ)/σ (:func:`max_eig_cols`);
+- ε = min(mult/√max(λ̂_g, 1e-30), clip), γ = max(1/√max(λ̂_x, 1),
+  slowdown/(ε·(t + 1))), α = 1 − exp(−2εγ), δ = α/2;
+
+then each chain of fold k takes one GHMC step: p₁ = √(1−α)·p + √α·z, one
+leapfrog step in σ-preconditioned space, logα from the energy error, the
+acceptance probability a (0 where ``|logα| < 1e30`` fails); the
+nonreversible slice accepts iff u < a and renews u (``u/a`` or
+``(u − a)/(1 − a)``, floors 1e-30, then ``+ δ`` wrapped by a select), the
+Metropolis variant iff ``-log u' > -logα``; a rejection negates p.
+
+Step t (the iteration, ``t0`` for the launch's first) draws z and u' from
+Philox at counter (t, chain) (ops/rwmh.py::step_noise), so a run split at
+any step and resumed from its final state is exact. The pooled sums run in
+the kernel's order (ops/pooling.py). The wrapper runs the plain version for
+tensors on the CPU, and for CUDA tensors launches the kernel or raises;
+``fused_meads_sample.launches`` counts the launches.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .hmc import f32
+from .pooling import (POOL_BLOCK, full, n_blocks, nan_max, nan_min, pooled_sum,
+                      tile_groups, tree_sum)
+from .rwmh import _noise_chunk, check_cuda_launch, flat_consts, row_sum, step_noise
+
+_TINY = 1e-30
+
+
+def max_eig_cols(v: torch.Tensor) -> torch.Tensor:
+    """Soft maximum eigenvalue of A = E[v vᵀ] over the F columns of ``v``
+    (d, F): tr(A²)/tr(A) with the unbiased i≠j pair estimate of tr(A²)
+    (Hoffman-Sountsov 2022 §3.1; ≙ pallas_meads.py::_max_eig_cols), in plain
+    float32 (no TF32)."""
+    F_ = v.shape[1]
+    colnorm2 = torch.sum(v * v, dim=0)
+    tr_a = torch.sum(colnorm2) / F_
+    G = torch.matmul(v, v.T)
+    tr_a2 = (torch.sum(G * G) - torch.sum(colnorm2 * colnorm2)) / (F_ * (F_ - 1.0))
+    return tr_a2 / nan_max(tr_a, _TINY)
+
+
+def pooled_max_eig(v: torch.Tensor) -> torch.Tensor:
+    """:func:`max_eig_cols` of each fold ``v`` (n, d, F) in the kernel's
+    order: the Gram matrix and the column norms pooled over the F chains,
+    then Σ G² with entry e taken by thread e mod POOL_BLOCK (in order), the
+    threads' sums by a tree."""
+    n, d, F_ = v.shape
+    colnorm2 = row_sum(v.transpose(0, 1) * v.transpose(0, 1))[0]  # (n, F)
+    gram = pooled_sum((v[:, :, None, :] * v[:, None, :, :]).reshape(n, d * d, F_))
+    sq = gram * gram
+    m = -(-d * d // POOL_BLOCK)
+    sq = F.pad(sq, (0, m * POOL_BLOCK - d * d)).reshape(n, m, POOL_BLOCK)
+    acc = torch.zeros((n, POOL_BLOCK), dtype=v.dtype, device=v.device)
+    for i in range(m):
+        acc = acc + sq[:, i]
+    s_gg = tree_sum(acc)
+    ff = full(s_gg, float(F_))
+    tr_a = pooled_sum(colnorm2) / ff
+    tr_a2 = (s_gg - pooled_sum(colnorm2 * colnorm2)) / full(s_gg, f32(F_ * (F_ - 1.0)))
+    return tr_a2 / nan_max(tr_a, _TINY)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeadsParams:
+    """The kernel's sampler constants, rounded to float32."""
+
+    step_size_multiplier: float = 0.5
+    step_size_clip: float = 1.0
+    damping_slowdown: float = 1.0
+    diagonal_preconditioning: bool = True
+    accept: str = "nonreversible"
+
+    def __post_init__(self):
+        for name in ("step_size_multiplier", "step_size_clip", "damping_slowdown"):
+            object.__setattr__(self, name, f32(getattr(self, name)))
+
+    @classmethod
+    def of(cls, sampler) -> "MeadsParams":
+        return cls(sampler.step_size_multiplier, sampler.step_size_clip,
+                   sampler.damping_slowdown, sampler.diagonal_preconditioning,
+                   sampler.accept)
+
+
+def fold_parameters(xb: torch.Tensor, gb: torch.Tensor, t: int, prm: MeadsParams):
+    """(σ (n, d), ε, α, δ (n,)) of the folds ``xb``, ``gb`` (n, d, F) at
+    iteration ``t``, in the kernel's order."""
+    F_ = xb.shape[2]
+    mu = pooled_sum(xb) / full(xb[:, :, 0], float(F_))
+    xc = xb - mu[..., None]
+    if prm.diagonal_preconditioning:
+        var = pooled_sum(xc * xc) / full(mu, float(F_))
+        sigma = nan_max(torch.sqrt(var), f32(1e-10))
+    else:
+        sigma = torch.ones_like(mu)
+    lam_g = pooled_max_eig(sigma[..., None] * gb)
+    lam_x = pooled_max_eig(xc / sigma[..., None])
+    eps = prm.step_size_multiplier * (1.0 / torch.sqrt(nan_max(lam_g, _TINY)))
+    eps = nan_min(eps, prm.step_size_clip)
+    gamma = 1.0 / torch.sqrt(nan_max(lam_x, 1.0))
+    gamma = nan_max(gamma, full(eps, prm.damping_slowdown) / (eps * f32(t + 1.0)))
+    alpha = 1.0 - torch.exp(-2.0 * eps * gamma)
+    return sigma, eps, alpha, 0.5 * alpha
+
+
+def ghmc_move(xk, lpk, gk, pk, uk, z, logu, sigma, eps, alpha, delta, value_and_grad,
+              consts, nonreversible: bool):
+    """One GHMC step of chains (d, n) with per-chain parameters (σ (d, n);
+    ε, α, δ (1, n)): returns (x, lp, g, p, u, accepted)."""
+    p1 = torch.sqrt(1.0 - alpha) * pk + torch.sqrt(alpha) * z
+    half = 0.5 * eps
+    ph = p1 + half * (sigma * gk)
+    y = xk + eps * (sigma * ph)
+    lp_y, g_y = value_and_grad(y, *consts)
+    p2 = ph + half * (sigma * g_y)
+    ke1 = 0.5 * row_sum(p1 * p1)
+    ke2 = 0.5 * row_sum(p2 * p2)
+    logalpha = (lp_y - ke2) - (lpk - ke1)
+    a = torch.where(torch.abs(logalpha) < 1e30, torch.exp(nan_min(logalpha, 0.0)),
+                    torch.zeros_like(logalpha))
+    if nonreversible:
+        acc = uk < a
+        u_new = torch.where(acc, uk / nan_max(a, _TINY), (uk - a) / nan_max(1.0 - a, _TINY))
+        v = u_new + delta
+        u_next = torch.where(v >= 1.0, v - 1.0, v)
+    else:
+        acc = -logu[None] > -logalpha
+        u_next = uk
+    return (torch.where(acc, y, xk), torch.where(acc, lp_y, lpk), torch.where(acc, g_y, gk),
+            torch.where(acc, p2, -p1), u_next, acc)
+
+
+def check_folds(n_chains: int, n_folds: int, tile_chains: int) -> None:
+    """Every chain tile splits into n_folds folds of >= 2 chains."""
+    sizes = [size for _, _, size in tile_groups(n_chains, tile_chains)]
+    if n_folds < 2 or any(size % n_folds or size // n_folds < 2 for size in sizes):
+        raise ValueError(
+            f"MEADS needs every chain tile (tiles of {tile_chains} of the {n_chains} "
+            f"chains) divisible by n_folds={n_folds} with >= 2 chains per fold"
+        )
+
+
+def meads_reference(
+    value_and_grad: Callable, cuda_density: Optional[str],
+    params_t: torch.Tensor, lp: torch.Tensor, grad: torch.Tensor, p: torch.Tensor,
+    u: torch.Tensor, consts: Sequence[torch.Tensor], seed: int, *, n_folds: int,
+    t0: int, burn: int, thin: int, n_samples: int, params: MeadsParams,
+    tile_chains: int,
+):
+    """Plain PyTorch version of the kernel (same signature and outputs as
+    :func:`fused_meads_sample`; ``cuda_density`` is unused)."""
+    d, C = params_t.shape
+    K = n_folds
+    dev = params_t.device
+    f = dict(dtype=torch.float32, device=dev)
+    samples = torch.empty((n_samples, d, C), **f)
+    lps = torch.empty((n_samples, 1, C), **f)
+    accs = torch.empty((n_samples, 1, C), **f)
+    x, l, g, pp, uu = (t.clone() for t in (params_t, lp, grad, p, u))
+    acc = torch.zeros((1, C), dtype=torch.bool, device=dev)
+    nonrev = params.accept == "nonreversible"
+    folds = []  # per tile group: (n_t, F, chain index of fold k position j)
+    for start, n_t, size in tile_groups(C, tile_chains):
+        F_ = size // K
+        base = start + torch.arange(n_t, device=dev)[:, None] * size
+        folds.append((n_t, F_, [base + k * F_ + torch.arange(F_, device=dev) for k in range(K)]))
+    n_steps = burn + n_samples * thin
+    chunk = _noise_chunk(C)
+    for s0 in range(0, n_steps, chunk):
+        n = min(chunk, n_steps - s0)
+        z, logu = step_noise(seed, t0 + s0, n, C, d, dev)
+        for i in range(n):
+            s = s0 + i
+            for k in range(K):
+                b = (k - 1) % K
+                for n_t, F_, idx in folds:
+                    ib, ik = idx[b].reshape(-1), idx[k].reshape(-1)
+                    xb = x[:, ib].reshape(d, n_t, F_).transpose(0, 1)
+                    gb = g[:, ib].reshape(d, n_t, F_).transpose(0, 1)
+                    sigma, eps, alpha, delta = fold_parameters(xb, gb, t0 + s, params)
+                    rep = lambda v: torch.repeat_interleave(v, F_, dim=-1)
+                    out = ghmc_move(x[:, ik], l[:, ik], g[:, ik], pp[:, ik], uu[:, ik],
+                                    z[i][:, ik], logu[i][ik], rep(sigma.T),
+                                    rep(eps)[None], rep(alpha)[None], rep(delta)[None],
+                                    value_and_grad, consts, nonrev)
+                    x[:, ik], l[:, ik], g[:, ik], pp[:, ik], uu[:, ik], acc[:, ik] = out
+            if s + 1 > burn and (s + 1 - burn) % thin == 0:
+                e = (s + 1 - burn) // thin - 1
+                samples[e], lps[e], accs[e] = x, l, acc.to(torch.float32)
+    return samples, lps, accs, x, l, g, pp, uu
+
+
+def fused_meads_sample(
+    value_and_grad: Callable, cuda_density: Optional[str],
+    params_t: torch.Tensor, lp: torch.Tensor, grad: torch.Tensor, p: torch.Tensor,
+    u: torch.Tensor, consts: Sequence[torch.Tensor], seed: int, *, n_folds: int,
+    t0: int, burn: int, thin: int, n_samples: int, params: MeadsParams = MeadsParams(),
+    tile_chains: int,
+):
+    """Fused MEADS (≙ pallas_meads.py::fused_meads_sample).
+
+    ``p`` (d, C) and ``u`` (1, C) are the persistent momentum and slice
+    variable, ``t0`` the iteration of the first step (1 for a fresh run).
+    Returns samples ``(n_samples, d, C)``, lps and accepted
+    ``(n_samples, 1, C)`` (float32 0/1), and the final x, lp, gradient, p
+    and u."""
+    if params_t.ndim != 2 or params_t.dtype != torch.float32:
+        raise ValueError("params_t must be a float32 (d, C) tensor")
+    d, C = params_t.shape
+    for name, t, shape in (("lp", lp, (1, C)), ("grad", grad, (d, C)), ("p", p, (d, C)),
+                           ("u", u, (1, C))):
+        if tuple(t.shape) != shape or t.device != params_t.device:
+            raise ValueError(f"{name} must be {shape} on the params' device")
+    if min(burn, thin - 1, n_samples - 1) < 0 or t0 < 0:
+        raise ValueError("burn >= 0, thin >= 1, n_samples >= 1 and t0 >= 0 are required")
+    check_folds(C, n_folds, tile_chains)
+    if params.accept not in ("nonreversible", "metropolis"):
+        raise ValueError(f"unknown accept {params.accept!r}")
+    kw = dict(n_folds=n_folds, t0=t0, burn=burn, thin=thin, n_samples=n_samples,
+              params=params, tile_chains=tile_chains)
+    if params_t.device.type == "cpu":
+        return meads_reference(value_and_grad, cuda_density, params_t, lp, grad, p, u,
+                               consts, seed, **kw)
+    check_cuda_launch(params_t, seed, t0)
+    lib = _build.library()
+    dev = params_t.device
+    flat, n_consts = flat_consts(consts, dev)
+    fl = dict(dtype=torch.float32, device=dev)
+    # the state, updated in place by the kernel, on copies
+    x_s, lp_s, g_s, p_s, u_s = (t.to(torch.float32, copy=True).contiguous()
+                                for t in (params_t, lp, grad, p, u))
+    samples = torch.empty((n_samples, d, C), **fl)
+    lps = torch.empty((n_samples, 1, C), **fl)
+    accs = torch.empty((n_samples, 1, C), **fl)
+    nb = n_blocks(C, tile_chains, lambda size: size // n_folds)
+    # block partials of the three pooled rounds: Σx, Σ(x−μ)², the two Gram
+    # matrices with the column-norm sums
+    partials = torch.empty((nb * (2 * d + 2 * d * d + 4),), **fl)
+    with torch.cuda.device(dev):
+        code = lib.amh_meads_sample(
+            _build.density_arg(cuda_density), d, int(params.diagonal_preconditioning),
+            int(params.accept == "nonreversible"), x_s.data_ptr(), lp_s.data_ptr(),
+            g_s.data_ptr(), p_s.data_ptr(), u_s.data_ptr(), flat.data_ptr(), n_consts,
+            params.step_size_multiplier, params.step_size_clip, params.damping_slowdown,
+            n_folds, tile_chains, C, seed, t0, burn, thin, n_samples, samples.data_ptr(),
+            lps.data_ptr(), accs.data_ptr(), partials.data_ptr(), nb,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(lib, code, "meads", cuda_density, d)
+    fused_meads_sample.launches += 1
+    return samples, lps, accs, x_s, lp_s, g_s, p_s, u_s
+
+
+fused_meads_sample.launches = 0

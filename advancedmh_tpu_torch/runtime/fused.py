@@ -11,7 +11,9 @@ ported (on CPU tensors each kernel's plain PyTorch version runs instead):
 - ``StepSizeAdaptation.rwmh(d)`` (dual-averaging RWMH, ``ops/adapt.py``);
 - ``HamiltonianMC``, endpoint, with a scalar or diagonal inverse mass
   (``ops/hmc.py``);
-- ``AdaptiveHMC``, per-chain or pooled (``ops/hmc_adapt.py``).
+- ``AdaptiveHMC``, per-chain or pooled (``ops/hmc_adapt.py``);
+- ``ChEESHMC``: the warmup and the frozen phase (``ops/chees.py``);
+- ``MEADS`` (``ops/meads.py``).
 
 The model must name a CUDA density (``model.cuda_density``, with its plain
 ``tile_density``, ``tile_value_and_grad`` for MALA, and ``tile_consts``; see
@@ -32,33 +34,40 @@ same draws as an unsplit one.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
 from ..distributions import MvNormal, Normal
 from ..ops.adapt import fused_adapt_rwmh_sample
+from ..ops.chees import (CheesParams, fused_chees_frozen_sample, fused_chees_warmup_block,
+                         halton_trips, vdc)
 from ..ops.emcee import check_walkers, fused_emcee_sample
 from ..ops.hmc import fused_hmc_sample, minv_column
 from ..ops.hmc_adapt import DualAveraging, fused_adaptive_hmc_sample
 from ..ops.mala import fused_mala_sample
+from ..ops.meads import MeadsParams, fused_meads_sample
 from ..ops.ram import RamParams, fused_ram_sample
 from ..ops.rwmh import fused_rwmh_sample
 from ..proposals import RandomWalkProposal, is_proposal
 from ..samplers.adapt import StepSizeAdaptationState
 from ..samplers.base import GradientTransition, Transition
+from ..samplers.chees import ChEESHMCState
 from ..samplers.emcee import StretchProposal
 from ..samplers.hmc_adapt import AdaptiveHMCState
+from ..samplers.meads import MEADSState
 from ..samplers.mh import MetropolisHastings
 from ..samplers.ram import RobustAdaptiveMetropolisState
-from ..utils.keys import splitmix64, step_generator
+from ..utils.keys import fold_in, splitmix64, step_generator
 from ..utils.tree import tree_flatten
 
 _NOT_PORTED = (
     "engine='fused' in advancedmh_tpu_torch runs MetropolisHastings with one "
     "zero-mean Gaussian RandomWalkProposal (RWMH), MALA.langevin, "
     "RobustAdaptiveMetropolis, Ensemble with a StretchProposal, "
-    "StepSizeAdaptation.rwmh, HamiltonianMC and AdaptiveHMC; {what}. "
+    "StepSizeAdaptation.rwmh, HamiltonianMC, AdaptiveHMC, ChEESHMC and MEADS; "
+    "{what}. "
     "The fused kernels of the other samplers are listed in ROADMAP.md, "
     "'Queue 2 — TPU kernels to port'; use engine='torch' meanwhile."
 )
@@ -614,4 +623,307 @@ def sample_fused_adaptive_hmc(
         n=torch.full((C,), nn, dtype=torch.float32, device=model.device),
         inverse_mass=inv_mass,
     )
+    return Transition(params, lp, accepted), final_state
+
+
+# ---- ChEES-HMC and MEADS ------------------------------------------------------
+
+
+def fused_tile(num_chains: int, max_tile: int, d: int, budget: int) -> int:
+    """The JAX engines' pooling tile for ``num_chains`` chains on one device
+    (≙ advancedmh_tpu/runtime/fused.py::_fused_tiling): the largest multiple
+    of 128 up to ``max_tile`` that divides the chain count padded to 128,
+    capped so that 32 draws of (d, tile) float32 fit in ``budget`` bytes.
+    The tile sets how many chains each statistic pools over, so the port
+    keeps the rule; it pads nothing, and a ragged last tile is short."""
+    if max_tile < 128:
+        raise ValueError(f"tile_chains must be >= 128, got {max_tile}")
+    cap = max(128, budget // (32 * d * 4) // 128 * 128)
+    k = -(-num_chains // 128)
+    for t in range(min(k, min(max_tile, cap) // 128), 0, -1):
+        if k % t == 0:
+            return 128 * t
+    raise AssertionError("unreachable: t = 1 divides k")
+
+
+# The JAX engines' largest tiles and budgets: the ChEES warmup pools over
+# 512 chains at d = 32, 1024 at d = 10, 4096 at d = 2; MEADS over 1024, 2048
+# and 4096.
+MAX_TILE = 4096
+CHEES_WARMUP_BUDGET = 2 << 20
+MEADS_BUDGET = 4 << 20
+
+
+def chees_warmup_combine(sv_tiles, sum_x, sum_x2, x, lp, g, acc, minv0, *, m_obs: float,
+                         adapt_mass: bool, reg: float, warm_start: float):
+    """Merge the warmup's tiles (≙ runtime/fused.py::_chees_warmup_combine):
+    the seven adapted scalars averaged over the tiles, the Welford moments
+    merged exactly from the tiles' raw sums with the global count ``m_obs``.
+    Returns the replicated ``ChEESHMCState`` and the packed sv (9, 1) and
+    M⁻¹ (d, 1)."""
+    d, C = x.shape
+    scalars = torch.mean(sv_tiles[0:7], dim=1, keepdim=True)
+    s1 = torch.sum(sum_x, dim=1, keepdim=True)
+    s2 = torch.sum(sum_x2, dim=1, keepdim=True)
+    mean = s1 / m_obs
+    m2 = s2 - s1 * s1 / m_obs
+    if adapt_mass and m_obs >= warm_start:
+        var = m2 / max(m_obs - 1.0, 1.0)
+        minv = (m_obs / (m_obs + reg)) * var + 1e-3 * (reg / (m_obs + reg))
+    else:
+        minv = minv0
+    sv = torch.cat([scalars, sv_tiles[7:8, 0:1], torch.full_like(scalars[:1], m_obs)])
+    row = lambda i: sv[i, 0].expand(C).clone()
+    col = lambda a: a.T.expand(C, d).clone()
+    state = ChEESHMCState(
+        inner=GradientTransition(x.T, lp[0], g.T, acc[0] > 0.5),
+        log_eps=row(0), log_eps_bar=row(1), h_bar=row(2), log_traj=row(3),
+        log_traj_bar=row(4), adam_m=row(5), adam_v=row(6),
+        t=sv[7, 0].to(torch.int32).expand(C).clone(), mean=col(mean), m2=col(m2), n=row(8),
+        inverse_mass=col(minv))
+    return state, sv, minv
+
+
+def fused_chees_warmup(model, sampler, key: int, x_t, lp0, g_t, num_warmup: int, *,
+                       iteration_offset: int = 0, attempts=None):
+    """The fused ChEES warmup (≙ runtime/fused.py::fused_chees_warmup): the
+    whole warmup in one launch, pooled over the JAX rule's tiles, then the
+    tiles' combine. The trips are staged from the initial ratio T₀/ε₀ with
+    van der Corput jitter of period ``e_w``, the largest divisor of
+    ``num_warmup`` up to 16. If the adapted ratio T̄/ε̄ lands more than 3×
+    off the staged one, the warmup runs again from the start, staged at the
+    adapted ratio (at most 3 attempts), with the noise of another seed.
+    ``attempts`` (a list) receives one entry per launch."""
+    value_and_grad, consts = _tile(model, "tile_value_and_grad")
+    d, C = x_t.shape
+    tile = fused_tile(C, MAX_TILE, d, CHEES_WARMUP_BUDGET)
+    sv = torch.zeros(9, dtype=torch.float32, device=x_t.device)
+    sv[0] = sv[1] = math.log(sampler.initial_step_size)
+    sv[3] = sv[4] = math.log(sampler.initial_trajectory_length)
+    sv[7] = 1.0
+    minv = torch.ones((d, 1), dtype=torch.float32, device=x_t.device)
+    max_l = int(sampler.max_leapfrog)
+    e_w = max(e for e in range(1, 17) if num_warmup % e == 0)
+    us = tuple(vdc(j + 1) for j in range(e_w))
+    ratio = sampler.initial_trajectory_length / sampler.initial_step_size
+    prm = CheesParams.of(sampler)
+    for attempt in range(3):
+        trips = tuple(max(1, min(max_l, round(u * ratio))) for u in us)
+        xo, lpo, go, acc, sv_tiles, sx, sx2 = fused_chees_warmup_block(
+            value_and_grad, model.cuda_density, x_t, lp0, g_t, consts,
+            fused_seed(fold_in(fold_in(key, 1), attempt)), trips=trips, us=us,
+            n_groups=num_warmup // e_w, sv=sv, inverse_mass=minv, params=prm,
+            tile_chains=tile, iteration_offset=iteration_offset)
+        out = chees_warmup_combine(
+            sv_tiles, sx, sx2, xo, lpo, go, acc, minv, m_obs=float(C * num_warmup),
+            adapt_mass=bool(sampler.adapt_mass), reg=float(sampler.mass_regularization),
+            warm_start=float(sampler.mass_warm_start))
+        if attempts is not None:
+            attempts.append(dict(trips=trips, tile=tile))
+        ratio_hat = float(torch.exp(out[1][4, 0] - out[1][1, 0]))
+        if ratio / 3.0 - 1.0 <= ratio_hat <= 3.0 * ratio + 1.0:
+            break
+        ratio = ratio_hat
+    return out
+
+
+def chees_frozen_stage(sampler, wstate: ChEESHMCState, d: int):
+    """The frozen launch's inputs from a warmed state (≙
+    runtime/fused.py::chees_frozen_stage): the ratio
+    ``max(1, min(round(T̄/ε̄), max_leapfrog))`` in float64 on the host from
+    the float32 ε̄ = exp(log ε̄) and T̄ = exp(log T̄), ε̄ (1,) and the M⁻¹
+    column (d, 1). Raises for a state whose statistics are not replicated:
+    the frozen kernel applies one (ε̄, T̄, M⁻¹) to every chain."""
+    leb = wstate.log_eps_bar.to(torch.float32).reshape(-1)
+    ltb = wstate.log_traj_bar.to(torch.float32).reshape(-1)
+    leaves, _ = tree_flatten(wstate.inverse_mass)
+    minv = leaves[0].to(torch.float32)
+    spread = max(float(leb.max() - leb.min()), float(ltb.max() - ltb.min()))
+    if minv.ndim > 1:
+        spread = max(spread, float((minv.amax(0) - minv.amin(0)).max()))
+    if spread > 1e-5:
+        raise ValueError(
+            "fused ChEESHMC needs replicated (shared) adaptation statistics, but this "
+            f"state carries per-chain values (spread {spread:.3g}) - it was warmed by "
+            "the per-chain fallback kernels (single-chain), not the batched pooled "
+            "warmup. Use engine='torch' for it.")
+    eps = torch.exp(leb[0:1])
+    eps_bar, t_bar = float(eps[0]), float(torch.exp(ltb[0]))
+    ratio = max(1, min(int(round(t_bar / eps_bar)), int(sampler.max_leapfrog)))
+    minv_col = (minv[0] if minv.ndim > 1 else minv).reshape(d, 1).contiguous()
+    return ratio, eps, minv_col
+
+
+def sample_fused_chees(
+    model,
+    sampler,
+    n_samples: int,
+    *,
+    key: int,
+    num_chains: int,
+    initial_params,
+    num_warmup: int,
+    discard_initial: int,
+    thinning: int,
+    initial_state=None,
+    iteration_offset: int = 0,
+    warmup_engine: str = "fused",
+    stage_clock=None,
+):
+    """Fused ChEES-HMC (≙ runtime/fused.py::sample_fused_chees), in two
+    stages:
+
+    1. the warmup: ``"fused"`` on the warmup kernel
+       (:func:`fused_chees_warmup`, steps ``1..num_warmup``), ``"torch"`` on
+       the torch engine (``step_warmup_batched`` over the whole batch, as
+       ``sample(engine="torch")`` draws it);
+    2. the frozen phase on the frozen kernel: (ε̄, T̄) staged on the host, the
+       ratio R = round(T̄/ε̄) and the van der Corput schedule
+       ``halton_trips(R, E·thinning)`` with E = min(16, n_samples). Frozen
+       step j (absolute, ``num_warmup + 1`` the first of a fresh run) runs
+       ``trips[(j − t_w) mod (E·thinning)]`` leapfrog steps, t_w = num_warmup
+       + 1 the state's warmup counter, so a resumed run continues the
+       schedule where the split left it.
+
+    ``initial_state`` (a ``ChEESHMCState``, e.g. a ``final_state``) resumes
+    frozen under the chunk-resume schedule (``num_warmup=0``,
+    ``discard_initial=thinning``); ``iteration_offset`` then counts the
+    steps of the earlier calls, warmup included. The warmup noise comes from
+    a seed derived from (key, attempt), the frozen noise from the key's, so
+    a run split after its warmup and resumed equals the unsplit run bit for
+    bit when both calls draw at least 16 samples. ``stage_clock`` (a dict)
+    receives ``warmup_s`` (everything before the frozen launch),
+    ``warmup_launch_s`` (the fused warmup's launches and their tile
+    combines), ``sampling_s`` (the frozen launch), each fenced by a
+    synchronize, and the launches' ``attempts``, ``ratio`` and ``trips``."""
+    import time as _time
+
+    if initial_state is not None:
+        if num_warmup != 0 or discard_initial != thinning:
+            raise ValueError(
+                "fused ChEESHMC resume expects the chunk-resume schedule "
+                "(num_warmup=0, discard_initial=thinning).")
+    else:
+        if discard_initial != num_warmup:
+            raise ValueError(
+                "fused ChEESHMC supports the standard schedule discard_initial == "
+                "num_warmup; use engine='torch' to keep warmup draws.")
+        if num_warmup < 1:
+            raise ValueError(
+                "fused ChEESHMC requires num_warmup >= 1 (the engine exists to freeze "
+                "the warmup-adapted (ε̄, T̄)).")
+        if initial_params is None:
+            raise ValueError("please specify initial parameters")
+    if warmup_engine not in ("fused", "torch"):
+        raise ValueError(f"unknown warmup_engine {warmup_engine!r}")
+    value_and_grad, consts = _tile(model, "tile_value_and_grad")
+    dev = model.device
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    t_start = _time.perf_counter()
+    attempts, warmup_launch_s = [], 0.0
+    if initial_state is not None:
+        wstate, offset = initial_state, iteration_offset
+        x_t = wstate.inner.params.to(dev).T.contiguous()
+        lp0 = wstate.inner.lp.to(dev).reshape(1, -1).contiguous()
+        g_t = wstate.inner.gradient.to(dev).T.contiguous()
+        ratio, eps, minv = chees_frozen_stage(sampler, wstate, x_t.shape[0])
+    else:
+        x0 = _chain_block(model, initial_params, num_chains)
+        offset = iteration_offset + num_warmup
+        if warmup_engine == "torch":
+            wstate = _pooled_warmup(model, sampler, key, x0, num_warmup, iteration_offset)
+            x_t = wstate.inner.params.T.contiguous()
+            lp0, g_t = value_and_grad(x_t, *consts)
+            ratio, eps, minv = chees_frozen_stage(sampler, wstate, x_t.shape[0])
+        else:
+            lp00, g00 = value_and_grad(x0, *consts)
+            sync()
+            t_launch = _time.perf_counter()
+            wstate, sv, minv = fused_chees_warmup(
+                model, sampler, key, x0, lp00, g00, num_warmup,
+                iteration_offset=iteration_offset, attempts=attempts)
+            sync()
+            warmup_launch_s = _time.perf_counter() - t_launch
+            x_t = wstate.inner.params.T.contiguous()
+            lp0 = wstate.inner.lp.reshape(1, -1).contiguous()
+            g_t = wstate.inner.gradient.T.contiguous()
+            eps = torch.exp(sv[1])  # the replicated scalars: no guard needed
+            ratio = max(1, min(int(round(float(torch.exp(sv[4, 0])) / float(eps[0]))),
+                               int(sampler.max_leapfrog)))
+    E = min(16, n_samples)
+    trips = halton_trips(ratio, E * thinning, sampler.max_leapfrog)
+    t_w = int(wstate.t.reshape(-1)[0])
+    sync()
+    t_frozen = _time.perf_counter()
+    samples, lps, accs, g_last = fused_chees_frozen_sample(
+        value_and_grad, model.cuda_density, x_t, lp0, g_t, consts, fused_seed(key),
+        trips=trips, phase=(offset + 1 - t_w) % len(trips), step_size=eps.reshape(1, 1),
+        inverse_mass=minv, thin=thinning, n_samples=n_samples, iteration_offset=offset)
+    if stage_clock is not None:
+        sync()
+        stage_clock.update(warmup_s=t_frozen - t_start, warmup_launch_s=warmup_launch_s,
+                           sampling_s=_time.perf_counter() - t_frozen, attempts=attempts,
+                           ratio=ratio, trips=trips)
+    params, lp, accepted = _chains_layout(samples, lps, accs)
+    inner = GradientTransition(params[:, -1, :], lp[:, -1], g_last.T, accepted[:, -1])
+    return Transition(params, lp, accepted), dataclasses.replace(wstate, inner=inner)
+
+
+def sample_fused_meads(
+    model,
+    sampler,
+    n_samples: int,
+    *,
+    key: int,
+    num_chains: int,
+    initial_params,
+    discard_initial: int,
+    thinning: int,
+    initial_state=None,
+    iteration_offset: int = 0,
+):
+    """Fused MEADS (≙ runtime/fused.py::sample_fused_meads): the whole
+    sampler in one launch, folds pooled within the JAX rule's tiles (a
+    ragged last tile is short and pools over its own chains; every tile
+    must split into n_folds folds of >= 2 chains).
+
+    Iteration t of the kernel is ``t0 + s``: ``t0 = 1 + iteration_offset``
+    fresh (the torch engine's 1-based ``state.iteration``) or the resumed
+    state's ``iteration``; the persistent p and u of a fresh run are drawn
+    as ``sample(engine="torch")`` draws them (generator of step 0). The
+    kernel runs exactly ``burn + n_samples·thinning`` steps, ``burn =
+    max(discard_initial − thinning, 0)``, and the final state's
+    ``iteration`` is ``t0`` plus that count, so a run split anywhere and
+    resumed from ``final_state`` equals the unsplit run bit for bit."""
+    value_and_grad, consts = _tile(model, "tile_value_and_grad")
+    dev = model.device
+    if initial_state is not None:
+        st = initial_state
+        x_t = st.x.to(dev).T.contiguous()
+        lp0 = st.lp.to(dev).reshape(1, -1).contiguous()
+        g0 = st.grad.to(dev).T.contiguous()
+        p0 = st.p.to(dev).T.contiguous()
+        u0 = st.u.to(dev).reshape(1, -1).contiguous()
+        t0 = int(st.iteration.reshape(-1)[0])
+    else:
+        if initial_params is None:
+            raise ValueError("engine='fused' requires initial_params")
+        x_t = _chain_block(model, initial_params, num_chains)
+        lp0, g0 = value_and_grad(x_t, *consts)
+        gen = step_generator(key, 0, dev)
+        p0 = torch.randn(x_t.T.shape, generator=gen, device=dev).T.contiguous()
+        u0 = torch.rand((num_chains,), generator=gen, device=dev).reshape(1, -1)
+        t0 = 1 + int(iteration_offset)
+    d, C = x_t.shape
+    burn = max(discard_initial - thinning, 0)
+    samples, lps, accs, x_f, lp_f, g_f, p_f, u_f = fused_meads_sample(
+        value_and_grad, model.cuda_density, x_t, lp0, g0, p0, u0, consts, fused_seed(key),
+        n_folds=int(sampler.n_folds), t0=t0, burn=burn, thin=thinning, n_samples=n_samples,
+        params=MeadsParams.of(sampler), tile_chains=fused_tile(C, MAX_TILE, d, MEADS_BUDGET))
+    params, lp, accepted = _chains_layout(samples, lps, accs)
+    final_state = MEADSState(
+        x=x_f.T, lp=lp_f[0], grad=g_f.T, p=p_f.T, u=u_f[0],
+        iteration=torch.full((C,), t0 + burn + n_samples * thinning, dtype=torch.int32,
+                             device=dev),
+        isaccept=accepted[:, -1])
     return Transition(params, lp, accepted), final_state

@@ -6,8 +6,8 @@ Two engines:
   over steps with the chains as a batch dimension of every tensor, on the
   model's device.
 - ``engine="fused"``: RWMH, Langevin MALA, RAM, the emcee stretch move,
-  dual-averaging RWMH (``StepSizeAdaptation.rwmh``), HMC and AdaptiveHMC on
-  the hand-written CUDA kernels (runtime/fused.py; on CPU tensors their
+  dual-averaging RWMH (``StepSizeAdaptation.rwmh``), HMC, AdaptiveHMC,
+  ChEES-HMC and MEADS on the hand-written CUDA kernels (runtime/fused.py; on CPU tensors their
   plain PyTorch versions).
 
 RNG: step ``j`` of a run draws from ``step_generator(master, j)`` (init is
@@ -261,14 +261,17 @@ def sample(
 
     if engine == "fused":
         from ..samplers.adapt import StepSizeAdaptation
+        from ..samplers.chees import ChEESHMC
         from ..samplers.emcee import Ensemble
         from ..samplers.hmc import HamiltonianMC
         from ..samplers.hmc_adapt import AdaptiveHMC
         from ..samplers.mala import MALA
+        from ..samplers.meads import MEADS
         from ..samplers.ram import RobustAdaptiveMetropolis
         from .fused import (sample_fused, sample_fused_adapt_rwmh,
-                            sample_fused_adaptive_hmc, sample_fused_emcee,
-                            sample_fused_hmc, sample_fused_mala, sample_fused_ram)
+                            sample_fused_adaptive_hmc, sample_fused_chees,
+                            sample_fused_emcee, sample_fused_hmc, sample_fused_mala,
+                            sample_fused_meads, sample_fused_ram)
 
         if collect_states:
             raise ValueError(
@@ -279,9 +282,10 @@ def sample(
         if initial_state is not None:
             if isinstance(sampler, RobustAdaptiveMetropolis):
                 initial_params, resume_S = initial_state.x, initial_state.S
-            elif isinstance(sampler, (StepSizeAdaptation, AdaptiveHMC)):
-                # frozen continuation: the saved per-chain ε̄ (and M⁻¹) go
-                # back into the kernels' resume variants
+            elif isinstance(sampler, (StepSizeAdaptation, AdaptiveHMC, ChEESHMC, MEADS)):
+                # frozen continuation: the saved per-chain ε̄ (and M⁻¹), the
+                # ChEES statistics or MEADS's persistent (p, u, iteration)
+                # go back into the kernels
                 resume_adapt = initial_state
             else:
                 initial_params = initial_state.params
@@ -297,7 +301,14 @@ def sample(
         if num_chains is None:
             raise ValueError("engine='fused' requires num_chains")
         warm = dict(num_warmup=schedule.num_warmup, initial_state=resume_adapt)
-        if isinstance(sampler, StepSizeAdaptation):
+        if isinstance(sampler, MEADS):
+            transitions, final_state = sample_fused_meads(
+                model, sampler, schedule.n_samples, num_chains=num_chains,
+                initial_state=resume_adapt, **common)
+        elif isinstance(sampler, ChEESHMC):
+            transitions, final_state = sample_fused_chees(
+                model, sampler, schedule.n_samples, num_chains=num_chains, **warm, **common)
+        elif isinstance(sampler, StepSizeAdaptation):
             transitions, final_state = sample_fused_adapt_rwmh(
                 model, sampler, schedule.n_samples, num_chains=num_chains, **warm, **common)
         elif isinstance(sampler, AdaptiveHMC):

@@ -8,10 +8,12 @@ from .base import (
     select_tree,
     setparams,
 )
+from .chees import ChEESHMC, ChEESHMCState
 from .emcee import Ensemble, StretchProposal, WalkProposal
 from .hmc import HamiltonianMC
 from .hmc_adapt import AdaptiveHMC, AdaptiveHMCState
 from .mala import MALA
+from .meads import MEADS, MEADSState
 from .mh import RWMH, MetropolisHastings, StaticMH
 from .ram import RobustAdaptiveMetropolis, RobustAdaptiveMetropolisState
 
@@ -22,4 +24,5 @@ __all__ = [
     "RobustAdaptiveMetropolisState", "Ensemble", "StretchProposal",
     "WalkProposal", "HamiltonianMC", "AdaptiveHMC", "AdaptiveHMCState",
     "StepSizeAdaptation", "StepSizeAdaptationState", "optimal_rwmh_accept",
+    "ChEESHMC", "ChEESHMCState", "MEADS", "MEADSState",
 ]

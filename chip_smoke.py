@@ -8,9 +8,11 @@ use), checks each kernel against its plain PyTorch version on the card at
 short cases, then drives each main path at full size through the public
 entry points (``sample(engine="fused")`` + ``Chains.summary()``): RWMH (and
 the ``fused_rwmh`` throughput kernel), Langevin MALA, Robust Adaptive
-Metropolis (per chain and pooled), the emcee ensemble, and slice 3: AdaptiveHMC
+Metropolis (per chain and pooled), the emcee ensemble, slice 3: AdaptiveHMC
 and HamiltonianMC on the d = 32 logistic regression at 8192 chains and
-dual-averaging RWMH (``StepSizeAdaptation.rwmh``) on the flagship. Each path runs
+dual-averaging RWMH (``StepSizeAdaptation.rwmh``) on the flagship, and slice 4:
+ChEES-HMC and MEADS on the logistic regression at 8192 chains and MEADS on
+Neal's funnel (d = 10). Each path runs
 with every launch counter set to 0 just before it and read just after. The
 posteriors are checked against a float64 grid quadrature (the flagship),
 the analytic means (emcee), the ``engine="torch"`` run and the
@@ -56,7 +58,8 @@ N_REF_DRAWS = 600
 N_PLAIN_HMC = 10  # steps of the plain HMC versions timed at 8192 chains
 # The plain versions of the PR 1-2 kernels run once at their main path's
 # shape (their flagship density sums the observations one by one, in the
-# kernels' order, which made them 2-3x slower); kernels are best of 3.
+# kernels' order, which made them 2-3x slower), as do slice 4's at their
+# short shapes; kernels are best of 3.
 PLAIN_REPEATS = 1
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet) for the bounds.
@@ -791,7 +794,7 @@ def phase_main_logreg(model, label, launches):
     check(hrhat < 1.01, f"hmc: R-hat {hrhat} >= 1.01")
     check(0.1 < hacc < 0.99, f"hmc acceptance {hacc}")
     compare_means("hmc", hsummary, ref_summary, names)
-    return med_eps, minv_med
+    return med_eps, minv_med, ref_summary
 
 
 def phase_main_adapt(model, label, launches):
@@ -987,6 +990,449 @@ def phase_timing_slice3(models, label, errs, times, med_eps, minv_med):
                                            emitted=N_DRAWS, warmup=N_WARM),
                            f"plain at {N_CHAINS} x (50 + 450) steps")
     del out, ref
+
+
+# ---- slice 4: ChEES-HMC and MEADS ----------------------------------------------------------
+
+# bench.py's rows: ChEES (bench.py:440-449) and MEADS(n_folds=2) (bench.py:422-437,
+# 475-493) on the d = 32 logistic regression and Neal's funnel, 8192 chains.
+CHEES = dict(initial_step_size=0.1, initial_trajectory_length=1.0, max_leapfrog=16)
+N_PLAIN_SLICE4 = 10  # steps of the slice-4 plain versions timed at 8192 chains
+
+
+def _slice4_start(m, C: int, seed: int):
+    if m.cuda_density == "neal_funnel":
+        return _gauss_start(10, C, seed)
+    return _slice3_start(m, C, seed)
+
+
+def _tile_equal(name, got, ref):
+    """Per-tile outputs of the warmup kernel: bit for bit, else within
+    1e-4 relative (printing why)."""
+    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    close = all(torch.allclose(a, b, rtol=1e-4, atol=1e-5) for a, b in zip(got, ref))
+    if not same:
+        print(f"{name}: the per-tile statistics are not bit-equal (a decision parted); "
+              f"within 1e-4: {close}")
+    check(close, f"{name}: the per-tile statistics differ from the plain version's")
+    return same
+
+
+def phase_kernels_slice4(models, errs):
+    """The ChEES warmup and frozen kernels and MEADS against their plain
+    versions at 64-step cases: the logistic regression at 1024 chains, the
+    funnel and the correlated Gaussian at 2048, each pooled over the JAX
+    rule's tiles."""
+    from advancedmh_tpu_torch import ChEESHMC
+    from advancedmh_tpu_torch.ops import (CheesParams, MeadsParams, chees_frozen_reference,
+                                          chees_warmup_reference, fused_chees_frozen_sample,
+                                          fused_chees_warmup_block, fused_meads_sample,
+                                          halton_trips, meads_reference, vdc)
+    from advancedmh_tpu_torch.runtime.fused import (CHEES_WARMUP_BUDGET, MAX_TILE,
+                                                    MEADS_BUDGET, fused_tile)
+
+    for i, (key, C, eps0) in enumerate((("logreg", 1024, 0.1), ("funnel", 2048, 0.2),
+                                        ("corr", 2048, 0.1))):
+        m = models[key]
+        d = m.dimension
+        p = _slice4_start(m, C, 100 + i)
+        lp, g = m.tile_value_and_grad(p, *m.tile_consts)
+        args = (m.tile_value_and_grad, m.cuda_density, p, lp, g, m.tile_consts, 0xC4EE + i)
+        spl = ChEESHMC(initial_step_size=eps0, initial_trajectory_length=1.0, max_leapfrog=16)
+        us = tuple(vdc(j + 1) for j in range(16))
+        trips = tuple(max(1, min(16, round(u / eps0))) for u in us)
+        sv = torch.tensor([np.log(eps0)] * 2 + [0.0] * 5 + [1.0, 0.0], dtype=torch.float32,
+                          device=DEVICE)
+        tile = fused_tile(C, MAX_TILE, d, CHEES_WARMUP_BUDGET)
+        kw = dict(trips=trips, us=us, n_groups=4, sv=sv,
+                  inverse_mass=torch.ones(d, 1, device=DEVICE), params=CheesParams.of(spl),
+                  tile_chains=tile, iteration_offset=7)
+        got = fused_chees_warmup_block(*args, **kw)
+        ref = chees_warmup_reference(*args, **kw)
+        r = agreement((got[0][None], got[1][None], got[3][None], got[2]),
+                      (ref[0][None], ref[1][None], ref[3][None], ref[2]))
+        tiles = _tile_equal("chees_warmup", got[4:], ref[4:])
+        print(f"kernel chees_warmup {m.cuda_density} d={d} C={C} tile={tile} 64 steps: {r}; "
+              f"per-tile sv, sum x, sum x^2 identical {tiles}")
+        check_agreement("chees_warmup", r, SHORT_RUN_CHAINS_MIN, visible_steps=False)
+        errs["chees_warmup"] = max(errs["chees_warmup"], r["max_abs_err"])
+
+        kw = dict(trips=halton_trips(5, 32, 16), phase=3,
+                  step_size=torch.full((1, 1), 0.5 * eps0, device=DEVICE),
+                  inverse_mass=torch.linspace(0.5, 1.5, d, device=DEVICE)[:, None], thin=2,
+                  n_samples=32, iteration_offset=(1 << 32) - 40)
+        got = fused_chees_frozen_sample(*args, **kw)
+        ref = chees_frozen_reference(*args, **kw)
+        r = agreement(got[:3], ref[:3])
+        g_ok = hold_gradient("chees_frozen", got[3], ref[3], got[0], ref[0], got[2], ref[2])
+        print(f"kernel chees_frozen {m.cuda_density} d={d} C={C} 64 trajectories, thin 2: {r} "
+              f"final-gradient agree {g_ok:.5f}")
+        check_agreement("chees_frozen", r, SHORT_RUN_CHAINS_MIN, visible_steps=False)
+        errs["chees_frozen"] = max(errs["chees_frozen"], r["max_abs_err"])
+
+        rng = np.random.default_rng(110 + i)
+        mom = torch.tensor(rng.normal(size=(d, C)), dtype=torch.float32, device=DEVICE)
+        u = torch.tensor(rng.uniform(size=(1, C)), dtype=torch.float32, device=DEVICE)
+        margs = (m.tile_value_and_grad, m.cuda_density, p, lp, g, mom, u, m.tile_consts,
+                 0x3EAD + i)
+        tile = fused_tile(C, MAX_TILE, d, MEADS_BUDGET)
+        kw = dict(n_folds=2, t0=1, burn=0, thin=1, n_samples=64, params=MeadsParams(),
+                  tile_chains=tile)
+        got = fused_meads_sample(*margs, **kw)
+        ref = meads_reference(*margs, **kw)
+        r = agreement(got, ref)  # draws + the final x, lp, gradient, p and u
+        print(f"kernel meads {m.cuda_density} d={d} C={C} tile={tile} K=2 64 steps: {r}")
+        check_agreement("meads", r, SHORT_RUN_CHAINS_MIN, visible_steps=True)
+        errs["meads"] = max(errs["meads"], r["max_abs_err"])
+    sync()
+
+
+def _logreg_path(model, sampler, key, **kw):
+    from advancedmh_tpu_torch import sample
+
+    names = [f"β{j}" for j in range(32)]
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    result = sample(model, sampler, N_DRAWS, num_chains=LOGREG_CHAINS, engine="fused",
+                    discard_initial=N_WARM, initial_params=torch.zeros(32, device=DEVICE),
+                    key=key, **kw)
+    chains = result.to_chains(param_names=names)
+    summary = chains.summary()
+    sync()
+    return result, chains, summary, time.perf_counter() - t0, read_launches()
+
+
+def phase_main_chees_meads(models, label, launches, ref_summary):
+    """ChEESHMC (bench.py:440-449) and MEADS(n_folds=2) (bench.py:422-437) on
+    the d = 32 logistic regression at 8192 × (500 + 4000), each held against
+    slice 3's engine="torch" AdaptiveHMC run (the same posterior), then
+    MEADS(n_folds=2) on the funnel at 8192 chains (bench.py:475-493)."""
+    from advancedmh_tpu_torch import MEADS, ChEESHMC, ess_bulk, sample
+
+    lr, names = models["logreg"], [f"β{j}" for j in range(32)]
+    result, chains, summary, t_path, got = _logreg_path(lr, ChEESHMC(**CHEES), KEY + 70,
+                                                        num_warmup=N_WARM)
+    check(1 <= got["chees_warmup"] <= 3, f"chees warmup launches {got['chees_warmup']}")
+    check_launches("chees main path", got,
+                   {"chees_warmup": got["chees_warmup"], "chees_frozen": 1})
+    launches.update(chees_warmup=got["chees_warmup"], chees_frozen=got["chees_frozen"])
+    st = result.final_state
+    eps, T = float(torch.exp(st.log_eps_bar[0])), float(torch.exp(st.log_traj_bar[0]))
+    acc = float(result.transitions.accepted.float().mean())
+    rhat = max(summary[n]["rhat"] for n in names)
+    ess_b0 = float(ess_bulk(chains["β0"]))
+    print(f"[{label}] chees first sample(engine='fused') + summary {t_path:.4f} s; acceptance "
+          f"{acc:.4f}; max R-hat {rhat:.5f}; eps-bar {eps:.6f}, T-bar {T:.6f}, ratio "
+          f"{T / eps:.4f}; median M^-1 {float(st.inverse_mass[0].median()):.4f}; "
+          f"ess_bulk(β0)={ess_b0:.1f}, ESS/s(β0) incl. summary {ess_b0 / t_path:.6e}")
+    check(bool(torch.isfinite(chains.values).all()), "chees: non-finite draws")
+    check(chains.values.shape == (N_DRAWS, 32, LOGREG_CHAINS), "chees Chains shape")
+    check(rhat < 1.01, f"chees: R-hat {rhat} >= 1.01")
+    check(0.2 < acc < 0.99, f"chees acceptance {acc}")
+    compare_means("chees", summary, ref_summary, names)
+
+    result, chains, summary, t_path, got = _logreg_path(lr, MEADS(n_folds=2), KEY + 71)
+    check_launches("meads main path", got, {"meads": 1})
+    launches["meads"] = got["meads"]
+    acc = float(result.transitions.accepted.float().mean())
+    rhat = max(summary[n]["rhat"] for n in names)
+    ess_b0 = float(ess_bulk(chains["β0"]))
+    print(f"[{label}] meads first sample(engine='fused') + summary {t_path:.4f} s; acceptance "
+          f"{acc:.4f}; max R-hat {rhat:.5f}; ess_bulk(β0)={ess_b0:.1f}, ESS/s(β0) incl. "
+          f"summary {ess_b0 / t_path:.6e}; final iteration {int(result.final_state.iteration[0])}")
+    check(bool(torch.isfinite(chains.values).all()), "meads: non-finite draws")
+    check(rhat < 1.01, f"meads: R-hat {rhat} >= 1.01")
+    check(0.5 < acc <= 1.0, f"meads acceptance {acc}")
+    check(int(result.final_state.iteration[0]) == 1 + N_WARM - 1 + N_DRAWS,
+          "meads: the final iteration is not the steps run")
+    compare_means("meads", summary, ref_summary, names)
+
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    res = sample(models["funnel"], MEADS(n_folds=2), N_DRAWS, num_chains=LOGREG_CHAINS,
+                 engine="fused", discard_initial=N_WARM,
+                 initial_params=torch.zeros(10, device=DEVICE), key=KEY + 72)
+    sync()
+    t_f = time.perf_counter() - t0
+    check_launches("meads funnel path", read_launches(), {"meads": 1})
+    v = res.transitions.params[:, :, 0]
+    print(f"[{label}] meads funnel d=10 {LOGREG_CHAINS} x ({N_WARM} + {N_DRAWS}): {t_f:.4f} s; "
+          f"acceptance {float(res.transitions.accepted.float().mean()):.4f}; mean v "
+          f"{float(v.mean()):.4f}, P(v < -2) {float((v < -2).float().mean()):.4f} "
+          f"(N(0, 9): 0.2525)")
+    check(bool(torch.isfinite(res.transitions.lp).all()), "meads funnel: non-finite lp")
+    check(bool(torch.isfinite(res.transitions.params).all()), "meads funnel: non-finite draws")
+
+
+def phase_slice4_checks(models):
+    """tests/test_pallas.py's card-only ChEES and MEADS checks at their
+    shapes; sample_chunked is not ported, so the chunked tests are split
+    runs through initial_state + iteration_offset, held bit for bit."""
+    from advancedmh_tpu_torch import MEADS, ChEESHMC, sample
+    from advancedmh_tpu_torch.runtime.fused import (CHEES_WARMUP_BUDGET, MAX_TILE,
+                                                    fused_tile, sample_fused_chees)
+
+    SIG = np.array([[1.5, 0.35], [0.35, 1.0]])
+    SIG2 = np.array([[1.0, 0.5], [0.5, 1.0]])
+    corr, corr2 = models["corr"], models["corr_ram"]
+    zeros = torch.zeros(2, device=DEVICE)
+
+    def draws_of(tr):
+        return tr.params.reshape(-1, 2).double().cpu().numpy()
+
+    def moments(name, d, sig, atol_mean, **cov_tol):
+        mean, cov = d.mean(0), np.cov(d.T)
+        print(f"{name}: mean {mean.tolist()} cov {cov.tolist()}")
+        check(np.allclose(mean, 0.0, atol=atol_mean), f"{name}: mean")
+        check(np.allclose(cov, sig, **cov_tol), f"{name}: covariance")
+
+    # MEADS (tests/test_pallas.py:1275-1347)
+    res = sample(corr, MEADS(), 2000, key=0, num_chains=N_CHECK, engine="fused",
+                 discard_initial=500, initial_params=zeros)
+    acc = float(res.transitions.accepted.float().mean())
+    u = res.final_state.u
+    print(f"meads correlated {N_CHECK}x(500+2000): acceptance {acc:.4f}")
+    moments("meads correlated", draws_of(res.transitions), SIG, 0.05, rtol=0.08, atol=0.04)
+    check(0.8 < acc <= 1.0 and bool(((u >= 0) & (u < 1)).all()), "meads acceptance / u")
+    res = sample(models["aniso"], MEADS(n_folds=2), 1000, key=1, num_chains=N_CHECK,
+                 engine="fused", discard_initial=1000, thinning=2, initial_params=zeros)
+    var = draws_of(res.transitions).var(0)
+    print(f"meads n_folds=2 thin 2 diag(25, 1): var {var.tolist()}")
+    check(tuple(res.transitions.params.shape) == (N_CHECK, 1000, 2), "meads thinning shape")
+    check(np.allclose(var, [25.0, 1.0], rtol=0.1), "meads diag(25, 1) variance")
+    kw = dict(key=2, num_chains=N_CHECK, engine="fused")
+    whole = sample(corr2, MEADS(), 2000, discard_initial=500, initial_params=zeros, **kw)
+    first = sample(corr2, MEADS(), 1000, discard_initial=500, initial_params=zeros, **kw)
+    rest = sample(corr2, MEADS(), 1000, discard_initial=1, initial_state=first.final_state, **kw)
+    same = all(torch.equal(torch.cat([getattr(first.transitions, f),
+                                      getattr(rest.transitions, f)], 1),
+                           getattr(whole.transitions, f)) for f in ("params", "lp", "accepted"))
+    st = rest.final_state
+    print(f"meads split run {N_CHECK} chains, 500 + 1000 + 1000: bit-exact {same}, "
+          f"iteration {int(st.iteration[0])}")
+    check(same, "meads: the split run differs from the unsplit one")
+    moments("meads split run", draws_of(whole.transitions), SIG2, 1.0, rtol=0.08, atol=0.04)
+    check(int(st.iteration[0]) > 2000 and bool(((st.u >= 0) & (st.u < 1)).all()),
+          "meads split run: iteration / u")
+
+    # ChEES (tests/test_pallas.py:1351-1708)
+    spl = ChEESHMC(initial_step_size=0.1, initial_trajectory_length=0.5, max_leapfrog=8)
+    res = sample(corr, spl, 800, key=3, num_chains=N_CHECK, engine="fused", num_warmup=300,
+                 discard_initial=300, initial_params=zeros)
+    acc = float(res.transitions.accepted.float().mean())
+    print(f"chees correlated {N_CHECK}x(300+800): acceptance {acc:.4f}")
+    check(0.4 < acc < 0.95, f"chees acceptance {acc}")
+    moments("chees correlated", draws_of(res.transitions), SIG, 0.06, atol=0.15)
+    st = res.final_state
+    check(bool(torch.isfinite(st.log_eps_bar).all() and torch.isfinite(st.log_traj_bar).all())
+          and tuple(st.inner.params.shape) == (N_CHECK, 2), "chees final state")
+    x0 = torch.tensor(np.random.default_rng(0).normal(size=(N_CHECK, 2)) * 0.1,
+                      dtype=torch.float32, device=DEVICE)
+    res = sample(corr, spl, 400, key=11, num_chains=N_CHECK, engine="fused", num_warmup=300,
+                 discard_initial=300, thinning=2, initial_params=x0, initial_params_batched=True)
+    moments("chees thin 2, batched init", draws_of(res.transitions), SIG, 0.07, atol=0.16)
+    kw = dict(key=5, num_chains=N_CHECK, engine="fused")
+    whole = sample(corr, spl, 800, num_warmup=300, discard_initial=300, initial_params=zeros,
+                   **kw)
+    first = sample(corr, spl, 400, num_warmup=300, discard_initial=300, initial_params=zeros,
+                   **kw)
+    rest = sample(corr, spl, 400, num_warmup=0, discard_initial=1,
+                  initial_state=first.final_state, iteration_offset=700, **kw)
+    same = all(torch.equal(torch.cat([getattr(first.transitions, f),
+                                      getattr(rest.transitions, f)], 1),
+                           getattr(whole.transitions, f)) for f in ("params", "lp", "accepted"))
+    print(f"chees split run {N_CHECK} chains, 300 warmup + 400 + 400: bit-exact {same}")
+    check(same, "chees: the split run differs from the unsplit one")
+    moments("chees split run", draws_of(whole.transitions), SIG, 0.06, atol=0.16)
+
+    def adapted(st):
+        return (float(torch.exp(st.log_eps_bar[0])), float(torch.exp(st.log_traj_bar[0])),
+                st.inverse_mass[0].double().cpu().numpy())
+
+    for C in (4096, 1000):  # the fused warmup lands the torch engine's regime
+        kw = dict(key=9 if C == 4096 else 17, num_chains=C, initial_params=zeros,
+                  num_warmup=400, discard_initial=400, thinning=1)
+        tr_f, st_f = sample_fused_chees(corr, spl, 600, warmup_engine="fused", **kw)
+        tr_t, st_t = sample_fused_chees(corr, spl, 600, warmup_engine="torch", **kw)
+        (eps_f, t_f, m_f), (eps_t, t_t, m_t) = adapted(st_f), adapted(st_t)
+        print(f"chees {C} chains fused vs torch warmup: eps {eps_f:.4f} / {eps_t:.4f}, "
+              f"T {t_f:.4f} / {t_t:.4f}, M^-1 {m_f.tolist()} / {m_t.tolist()}, n "
+              f"{float(st_f.n[0])}")
+        check(0.6 < eps_f / eps_t < 1.6 and 0.4 < t_f / t_t < 2.5, "chees fused warmup regime")
+        check(np.allclose(m_f, m_t, rtol=0.35), "chees fused warmup M^-1")
+        check(abs(float(st_f.n[0]) - C * 400) < 1, "chees fused warmup count")
+        tol = dict(atol_mean=0.06 if C == 4096 else 0.08, atol=0.16 if C == 4096 else 0.2)
+        for tr in (tr_f, tr_t):
+            moments(f"chees {C} chains", draws_of(tr), SIG, tol["atol_mean"], atol=tol["atol"])
+    res = sample(corr, ChEESHMC(initial_step_size=0.1, initial_trajectory_length=0.5,
+                                max_leapfrog=8, adapt_mass=False), 500, key=22,
+                 num_chains=N_CHECK, engine="fused", num_warmup=300, discard_initial=300,
+                 initial_params=zeros)
+    check(bool((res.final_state.inverse_mass == 1.0).all()), "chees adapt_mass=False: M^-1")
+    moments("chees adapt_mass=False", draws_of(res.transitions), SIG, 0.06, atol=0.16)
+    clock = {}
+    tr, st = sample_fused_chees(corr, ChEESHMC(initial_step_size=0.01,
+                                               initial_trajectory_length=0.01, max_leapfrog=16),
+                                600, key=3, num_chains=4096, initial_params=zeros,
+                                num_warmup=500, discard_initial=500, thinning=1,
+                                stage_clock=clock)
+    eps, t_bar, _ = adapted(st)
+    print(f"chees bad init ratio: {len(clock['attempts'])} warmup launches, eps {eps:.4f}, "
+          f"T/eps {t_bar / eps:.4f}")
+    check(t_bar / eps < 8.0 and 0.5 < eps < 3.0, "chees bad init ratio did not recover")
+    moments("chees bad init ratio", draws_of(tr), SIG, 0.06, atol=0.16)
+    res = sample(corr, spl, 500, key=21, num_chains=8192, engine="fused", num_warmup=300,
+                 discard_initial=300, initial_params=zeros)
+    st = res.final_state
+    im = st.inverse_mass.double().cpu().numpy()
+    spread = max(float(st.log_eps_bar.max() - st.log_eps_bar.min()),
+                 float(st.log_traj_bar.max() - st.log_traj_bar.min()), float(np.ptp(im, 0).max()))
+    print(f"chees 8192 chains (tiles of {fused_tile(8192, MAX_TILE, 2, CHEES_WARMUP_BUDGET)}): "
+          f"M^-1 {im[0].tolist()}, spread {spread:.3g}")
+    moments("chees multi-tile", draws_of(res.transitions), SIG, 0.05, atol=0.15)
+    check(spread < 1e-6 and np.allclose(im[0], np.diag(SIG), rtol=0.3)
+          and 0.3 < float(torch.exp(st.log_eps_bar[0])) < 3.0, "chees multi-tile combine")
+    res = sample(models["funnel"], ChEESHMC(initial_step_size=0.2, initial_trajectory_length=1.0,
+                                            max_leapfrog=16), 600, key=2, num_chains=N_CHECK,
+                 engine="fused", num_warmup=400, discard_initial=400,
+                 initial_params=torch.zeros(10, device=DEVICE))
+    v = res.transitions.params[:, :, 0]
+    st = res.final_state
+    print(f"chees funnel d=10 {N_CHECK}x(400+600): P(v < -2) {float((v < -2).float().mean()):.4f}"
+          f", mean v {float(v.mean()):.4f}")
+    check(bool(torch.isfinite(res.transitions.lp).all()) and bool(
+        torch.isfinite(st.log_eps_bar).all() and torch.isfinite(st.log_traj_bar).all()),
+        "chees funnel: non-finite")
+    check(float((v < -2).float().mean()) > 0.08 and abs(float(v.mean())) < 1.2,
+          "chees funnel: the neck")
+    sync()
+
+
+def phase_timing_slice4(models, label, errs, times):
+    """The three kernels at the main paths' shapes (best of 3), the plain
+    versions at 8192 chains over N_PLAIN_SLICE4 steps, held against them, and
+    the ChEES stages timed apart."""
+    from advancedmh_tpu_torch import MEADS, ChEESHMC
+    from advancedmh_tpu_torch import sample
+    from advancedmh_tpu_torch.ops import (CheesParams, MeadsParams, chees_frozen_reference,
+                                          chees_warmup_reference, fused_chees_frozen_sample,
+                                          fused_chees_warmup_block, fused_meads_sample,
+                                          meads_reference, vdc)
+    from advancedmh_tpu_torch.runtime.fused import (MAX_TILE, MEADS_BUDGET, fused_tile,
+                                                    sample_fused_chees)
+
+    lr, C = models["logreg"], LOGREG_CHAINS
+    spl = ChEESHMC(**CHEES)
+    clock = {}
+    sync()
+    t0 = time.perf_counter()
+    tr, st = sample_fused_chees(lr, spl, N_DRAWS, key=KEY + 70, num_chains=C,
+                                initial_params=torch.zeros(32, device=DEVICE),
+                                num_warmup=N_WARM, discard_initial=N_WARM, thinning=1,
+                                stage_clock=clock)
+    sync()
+    t_all = time.perf_counter() - t0
+    print(f"[{label}] chees stages at {C} x ({N_WARM} + {N_DRAWS}): warmup "
+          f"{len(clock['attempts'])} launch(es) + tile combine "
+          f"{clock['warmup_launch_s'] * 1e3:.4f} ms, the rest before the frozen launch (initial "
+          f"lp and gradient, host staging of R) "
+          f"{(clock['warmup_s'] - clock['warmup_launch_s']) * 1e3:.4f} ms, frozen launch "
+          f"{clock['sampling_s'] * 1e3:.4f} ms, whole call {t_all * 1e3:.4f} ms; ratio "
+          f"{clock['ratio']}, frozen trips {clock['trips']}")
+    x, lp, g = (st.inner.params.T.contiguous(), st.inner.lp[None].contiguous(),
+                st.inner.gradient.T.contiguous())
+    vg = lr.tile_value_and_grad
+    att = clock["attempts"][0]
+    e_w = len(att["trips"])
+    us = tuple(vdc(j + 1) for j in range(e_w))
+    sv = torch.tensor([np.log(CHEES["initial_step_size"])] * 2 + [0.0] * 5 + [1.0, 0.0],
+                      dtype=torch.float32, device=DEVICE)
+    kw = dict(trips=att["trips"], us=us, n_groups=N_WARM // e_w, sv=sv,
+              inverse_mass=torch.ones(32, 1, device=DEVICE), params=CheesParams.of(spl),
+              tile_chains=att["tile"])
+    x0 = torch.zeros(32, C, device=DEVICE)
+    args = (vg, lr.cuda_density, x0, *vg(x0, *lr.tile_consts), lr.tile_consts, KEY)
+    t_k, out = best_of(lambda: fused_chees_warmup_block(*args, **kw))
+    del out
+    short = dict(kw, n_groups=1)
+    t_ks, out = best_of(lambda: fused_chees_warmup_block(*args, **short))
+    t_p, ref = best_of(lambda: chees_warmup_reference(*args, **short), PLAIN_REPEATS)
+    print(f"[{label}] chees_warmup logistic regression at {C} x {N_WARM} (tile {att['tile']}, "
+          f"trips {att['trips']}): kernel {t_k * 1e3:.4f} ms; at {C} x {e_w}: kernel "
+          f"{t_ks * 1e3:.4f} ms, plain {t_p * 1e3:.4f} ms")
+    hold(errs, "chees_warmup", f"{C} x {e_w}", (out[0][None], out[1][None], out[3][None],
+                                                 out[2]),
+         (ref[0][None], ref[1][None], ref[3][None], ref[2]))
+    times["chees_warmup"] = (t_k, t_p, bound_chees(C, att["trips"] * (N_WARM // e_w), 0, True),
+                             f"plain at {C} x {e_w} steps")
+    del out, ref
+
+    eps = torch.exp(st.log_eps_bar[0:1]).reshape(1, 1)
+    minv = st.inverse_mass[0].reshape(32, 1).contiguous()
+    args = (vg, lr.cuda_density, x, lp, g, lr.tile_consts, KEY)
+    kw = dict(trips=clock["trips"], phase=0, step_size=eps, inverse_mass=minv, thin=1,
+              n_samples=N_DRAWS, iteration_offset=N_WARM)
+    t_k, out = best_of(lambda: fused_chees_frozen_sample(*args, **kw))
+    del out
+    short = dict(kw, n_samples=N_PLAIN_SLICE4)
+    t_ks, out = best_of(lambda: fused_chees_frozen_sample(*args, **short))
+    t_p, ref = best_of(lambda: chees_frozen_reference(*args, **short), PLAIN_REPEATS)
+    P = len(clock["trips"])
+    n_trips = [clock["trips"][k % P] for k in range(N_DRAWS)]
+    print(f"[{label}] chees_frozen logistic regression at {C} x {N_DRAWS} ({sum(n_trips)} "
+          f"leapfrog steps a chain): kernel {t_k * 1e3:.4f} ms "
+          f"({C * sum(n_trips) / t_k:.6e} chain-gradients/s); at {C} x {N_PLAIN_SLICE4}: "
+          f"kernel {t_ks * 1e3:.4f} ms, plain {t_p * 1e3:.4f} ms")
+    hold(errs, "chees_frozen", f"{C} x {N_PLAIN_SLICE4}", out[:3], ref[:3])
+    times["chees_frozen"] = (t_k, t_p, bound_chees(C, n_trips, N_DRAWS, False),
+                             f"plain at {C} x {N_PLAIN_SLICE4} steps")
+    del out, ref
+
+    tile = fused_tile(C, MAX_TILE, 32, MEADS_BUDGET)
+    rng = np.random.default_rng(7)
+    mom = torch.tensor(rng.normal(size=(32, C)), dtype=torch.float32, device=DEVICE)
+    u = torch.tensor(rng.uniform(size=(1, C)), dtype=torch.float32, device=DEVICE)
+    args = (vg, lr.cuda_density, x0, *vg(x0, *lr.tile_consts), mom, u, lr.tile_consts, KEY)
+    kw = dict(n_folds=2, t0=1, burn=N_WARM - 1, thin=1, n_samples=N_DRAWS,
+              params=MeadsParams.of(MEADS(n_folds=2)), tile_chains=tile)
+    t_k, out = best_of(lambda: fused_meads_sample(*args, **kw))
+    acc = float(out[2].mean())
+    del out
+    short = dict(kw, burn=0, n_samples=N_PLAIN_SLICE4)
+    t_ks, out = best_of(lambda: fused_meads_sample(*args, **short))
+    t_p, ref = best_of(lambda: meads_reference(*args, **short), PLAIN_REPEATS)
+    steps = N_WARM - 1 + N_DRAWS
+    print(f"[{label}] meads logistic regression at {C} x ({N_WARM - 1} + {N_DRAWS}), K=2, tile "
+          f"{tile}: kernel {t_k * 1e3:.4f} ms ({C * steps / t_k:.6e} chain-steps/s, acceptance "
+          f"{acc:.4f}); at {C} x {N_PLAIN_SLICE4}: kernel {t_ks * 1e3:.4f} ms, plain "
+          f"{t_p * 1e3:.4f} ms")
+    hold(errs, "meads", f"{C} x {N_PLAIN_SLICE4}", out, ref)
+    times["meads"] = (t_k, t_p, bound_meads(C, steps, N_DRAWS),
+                      f"plain at {C} x {N_PLAIN_SLICE4} steps")
+    del out, ref
+    # the same launch on the correlated Gaussian (d = 2): the pooling and
+    # barriers with a trivial density and Gram matrix
+    m2 = models["corr"]
+    x2 = torch.zeros(2, C, device=DEVICE)
+    args = (m2.tile_value_and_grad, m2.cuda_density, x2, *m2.tile_value_and_grad(
+        x2, *m2.tile_consts), mom[:2].contiguous(), u, m2.tile_consts, KEY)
+    kw2 = dict(kw, tile_chains=fused_tile(C, MAX_TILE, 2, MEADS_BUDGET))
+    t_2, out = best_of(lambda: fused_meads_sample(*args, **kw2))
+    del out
+    print(f"[{label}] meads correlated Gaussian d=2 at {C} x ({N_WARM - 1} + {N_DRAWS}), K=2, "
+          f"tile {kw2['tile_chains']}: kernel {t_2 * 1e3:.4f} ms ({t_2 / steps * 1e6:.3f} us a "
+          f"step; d = 32: {t_k / steps * 1e6:.3f} us)")
+
+    names = [f"β{j}" for j in range(32)]
+    for name, s, kw in (("chees", spl, dict(num_warmup=N_WARM)),
+                        ("meads", MEADS(n_folds=2), {})):
+        time_path(label, f"{name} sample(engine='fused') logistic regression {C} x "
+                  f"({N_WARM} + {N_DRAWS})",
+                  lambda: sample(lr, s, N_DRAWS, num_chains=C, engine="fused",
+                                 discard_initial=N_WARM, initial_params=torch.zeros(32, device=DEVICE),
+                                 key=KEY + 73, chain_type="chains", param_names=names, **kw), "β0")
 
 
 # ---- timing ------------------------------------------------------------------------
@@ -1197,6 +1643,40 @@ def bound_hmc(C: int, steps: int, emitted: int, warmup: int, d: int, n_obs: int)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# Slice 4, counted the same way from csrc/chees.cu and csrc/meads.cu. A ChEES
+# trajectory of L leapfrog steps is an HMC step (above) with L trips; a
+# warmup step adds, per chain, the acceptance probability and the healthy
+# test (2d + 4), the two rounds' values (4d + 3) and the ChEES pieces
+# (8d + 6), 14d + 13 in all (the tile's scalar update is shared). A MEADS
+# chain-step: the noise, the GHMC move (11d + 14 and one value and
+# gradient), and its share of the fold statistics as a member of the
+# complementary fold: mu and sigma (3d), sigma g and (x - mu)/sigma with
+# their column norms (6d) and the two Gram matrices (2 d^2 multiply-adds,
+# 4 d^2 operations).
+
+
+def bound_chees(C: int, trips, emitted: int, warmup: bool, d: int = 32, n_obs: int = 256):
+    """(bound in seconds, "bytes" or "operations") of a ChEES launch on the
+    logistic regression whose steps run ``trips`` leapfrog steps each."""
+    per_traj = _noise_ops(d) + 8 * d + 6 + (14 * d + 13) * warmup
+    flops = (len(trips) * per_traj + sum(trips) * (7 * d + logreg_vg_ops(d, n_obs))) * C
+    # in: x, lp, gradient and the constants; out: the draws (frozen) or the
+    # final state and decisions (warmup), and the final gradient
+    nbytes = ((2 * d + 1) * C + n_obs * (d + 1) + 1 + emitted * (d + 2) * C + d * C
+              + (d + 2) * C * warmup) * 4
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_meads(C: int, steps: int, emitted: int, d: int = 32, n_obs: int = 256):
+    """(bound in seconds, "bytes" or "operations") of one MEADS launch on the
+    logistic regression."""
+    step = _noise_ops(d) + 11 * d + 14 + logreg_vg_ops(d, n_obs) + 9 * d + 4 * d * d
+    nbytes = ((4 * d + 2) * C * 2 + n_obs * (d + 1) + 1 + emitted * (d + 2) * C) * 4
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, step * steps * C / PEAK_F32_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def bound(name: str, C: int, steps: int, emitted: int, warmup: int = 0, d: int = 2):
     """(bound in seconds, "bytes" or "operations") of one launch: each input
     read once and each output written once over 3.35 TB/s, and the float32
@@ -1238,11 +1718,11 @@ def ptxas_summary(report: str):
         if m:
             mangled = m.group(1)
             dens = re.findall(r"(GaussianMeanScale|EmceeDemo|CorrelatedGaussianILi\d+E"
-                              r"|LogisticRegressionILi\d+E)", mangled)
-            flag = re.search(r"ELb([01])E", mangled)
+                              r"|LogisticRegressionILi\d+E|NealFunnelILi\d+E)", mangled)
+            flags = re.findall(r"Lb([01])E", mangled)
             kernel = re.match(r"_ZN3amh\d+([a-z_]+)", mangled).group(1)
             density = re.sub(r"ILi(\d+)E", r"<\1>", dens[0]) if dens else "?"
-            flags = f", {'true' if flag.group(1) == '1' else 'false'}" if flag else ""
+            flags = "".join(f", {'true' if f == '1' else 'false'}" for f in flags)
             name = f"{kernel}<{density}{flags}>"
         elif "spill stores" in line:
             spill = line.strip()
@@ -1262,6 +1742,9 @@ REPLACES = {
     "adapt_rwmh": ("advancedmh_tpu/ops/pallas_adapt.py:30", "adapt.cu"),
     "hmc": ("advancedmh_tpu/ops/pallas_hmc.py:32", "hmc.cu"),
     "adaptive_hmc": ("advancedmh_tpu/ops/pallas_hmc_adapt.py:37", "hmc_adapt.cu"),
+    "chees_warmup": ("advancedmh_tpu/ops/pallas_chees.py:306", "chees.cu"),
+    "chees_frozen": ("advancedmh_tpu/ops/pallas_chees.py:73", "chees.cu"),
+    "meads": ("advancedmh_tpu/ops/pallas_meads.py:68", "meads.cu"),
 }
 
 
@@ -1273,7 +1756,8 @@ def main() -> None:
         from advancedmh_tpu_torch.models import (correlated_gaussian_model,
                                                  emcee_demo_model,
                                                  gaussian_mean_scale_model,
-                                                 logistic_regression_model)
+                                                 logistic_regression_model,
+                                                 neal_funnel_model)
         from advancedmh_tpu_torch.ops import _build
     except ImportError as e:
         fail(f"advancedmh_tpu_torch is not importable next to this script: {e}")
@@ -1310,11 +1794,13 @@ def main() -> None:
         "logreg": logistic_regression_model(256, 32, seed=0, device=DEVICE),
         "aniso": correlated_gaussian_model(np.diag([25.0, 1.0]), device=DEVICE),
         "diag9": correlated_gaussian_model(np.diag([9.0, 1.0]), device=DEVICE),
+        "funnel": neal_funnel_model(10, device=DEVICE),
     }
     errs = {name: 0.0 for name in REPLACES}
     phase_kernels_rwmh(models["flagship"], errs)
     phase_kernels_new(models, errs)
     phase_kernels_slice3(models, errs)
+    phase_kernels_slice4(models, errs)
     print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
 
     launches = {}
@@ -1323,15 +1809,18 @@ def main() -> None:
     phase_main_ram(models["flagship"], label, launches)
     phase_main_emcee(models["emcee"], label, launches)
     phase_correlated(models)
-    med_eps, minv_med = phase_main_logreg(models["logreg"], label, launches)
+    med_eps, minv_med, ref_summary = phase_main_logreg(models["logreg"], label, launches)
     phase_main_adapt(models["flagship"], label, launches)
     phase_slice3_checks(models)
+    phase_main_chees_meads(models, label, launches, ref_summary)
+    phase_slice4_checks(models)
     print(f"main paths done at {time.perf_counter() - t_start:.1f} s")
 
     times = {}
     phase_timing_rwmh(models["flagship"], spl, p0, lp0, label, errs, times)
     phase_timing_new(models, label, errs, times)
     phase_timing_slice3(models, label, errs, times, med_eps, minv_med)
+    phase_timing_slice4(models, label, errs, times)
     print(f"[{label}] chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     kernels = []

@@ -401,3 +401,148 @@ def test_slice3_wrappers_raise_for_what_has_no_kernel(model):
         with pytest.raises(ValueError, match="instantiates only"):
             call(model.cuda_density, p3)
         assert ("gaussian_mean_scale", 2) in _build.kernel_pairs(_build.library(), name)
+
+
+# ---- slice 4: the ChEES warmup and frozen kernels, MEADS ---------------------------
+
+
+def _slice4_model(model, target):
+    from advancedmh_tpu_torch.models import neal_funnel_model
+
+    return neal_funnel_model(10, device="cuda") if target == "funnel" else _slice3_model(
+        model, target)
+
+
+def _slice4_start(m, C, seed):
+    if m.cuda_density == "neal_funnel":
+        return _gauss_start(10, C, seed)
+    return _slice3_start(m, C, seed)
+
+
+def _chees_args(model, target, C, seed):
+    m = _slice4_model(model, target)
+    p = _slice4_start(m, C, seed)
+    lp, g = m.tile_value_and_grad(p, *m.tile_consts)
+    return m, (m.tile_value_and_grad, m.cuda_density, p, lp, g, m.tile_consts, 71 + seed)
+
+
+def _bits_or_close(a, b):
+    """Per chain: every entry equal, or within 1e-5 (NaN equal to NaN)."""
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b)) | _close(a, b)
+    return same.reshape(-1, same.shape[-1]).all(0)
+
+
+@pytest.mark.parametrize("target,C,tile", [
+    ("flagship", 4096, 1024), ("corr2", 4001, 1024), ("logreg", 1024, 512), ("funnel", 2048, 1024),
+])
+def test_chees_warmup_kernel_matches_plain(model, target, C, tile):
+    from advancedmh_tpu_torch import ChEESHMC
+    from advancedmh_tpu_torch.ops import (CheesParams, chees_warmup_reference,
+                                          fused_chees_warmup_block)
+
+    m, args = _chees_args(model, target, C, seed=1)
+    eps0 = {"flagship": 0.03, "corr2": 0.3, "logreg": 0.05, "funnel": 0.2}[target]
+    spl = ChEESHMC(initial_step_size=eps0, max_leapfrog=16)
+    sv = torch.tensor([np.log(eps0), np.log(eps0), 0, 0, 0, 0, 0, 1, 0], dtype=torch.float32,
+                      device="cuda")
+    kw = dict(trips=(5, 2, 8, 1), us=(0.5, 0.25, 0.75, 0.125), n_groups=16, sv=sv,
+              inverse_mass=torch.ones(m.dimension, 1, device="cuda"),
+              params=CheesParams.of(spl), tile_chains=tile, iteration_offset=3)
+    before = fused_chees_warmup_block.launches
+    got = fused_chees_warmup_block(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_chees_warmup_block.launches == before + 1
+    ref = chees_warmup_reference(*args, **kw)
+    for a, b in zip(got[:4], ref[:4]):  # x, lp, gradient, decisions
+        assert float(_bits_or_close(a, b).float().mean()) >= 0.999
+    for a, b in zip(got[4:], ref[4:]):  # the tiles' scalars and sums
+        assert bool(_bits_or_close(a, b).all())
+
+
+@pytest.mark.parametrize("target", ["flagship", "corr2", "logreg", "funnel"])
+@pytest.mark.parametrize("per_chain_eps", [False, True])
+def test_chees_frozen_kernel_matches_plain(model, target, per_chain_eps):
+    from advancedmh_tpu_torch.ops import chees_frozen_reference, fused_chees_frozen_sample
+
+    C = 8192 if target == "logreg" else 4000
+    m, args = _chees_args(model, target, C, seed=2)
+    eps = {"flagship": 0.03, "corr2": 0.4, "logreg": 0.05, "funnel": 0.2}[target]
+    step = (eps * torch.linspace(0.5, 1.5, C, device="cuda")[None] if per_chain_eps
+            else torch.full((1, 1), eps, device="cuda"))
+    kw = dict(trips=(3, 5, 1, 7, 2, 6), phase=4, step_size=step,
+              inverse_mass=torch.linspace(0.5, 1.5, m.dimension, device="cuda")[:, None],
+              thin=2, n_samples=8, iteration_offset=(1 << 32) - 5)
+    before = fused_chees_frozen_sample.launches
+    got = fused_chees_frozen_sample(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_chees_frozen_sample.launches == before + 1
+    ref = chees_frozen_reference(*args, **kw)
+    dec, chains = _agree(got, ref)
+    assert dec >= 0.999 and chains >= 0.999
+
+
+@pytest.mark.parametrize("target,C,tile,K", [
+    ("flagship", 4096, 1024, 4), ("corr2", 4000, 1024, 2), ("logreg", 2048, 1024, 2),
+    ("funnel", 2048, 2048, 2),
+])
+@pytest.mark.parametrize("accept", ["nonreversible", "metropolis"])
+@pytest.mark.parametrize("precond", [True, False])
+def test_meads_kernel_matches_plain(model, target, C, tile, K, accept, precond):
+    from advancedmh_tpu_torch.ops import MeadsParams, fused_meads_sample, meads_reference
+
+    m = _slice4_model(model, target)
+    p0 = _slice4_start(m, C, seed=3)
+    lp, g = m.tile_value_and_grad(p0, *m.tile_consts)
+    rng = np.random.default_rng(4)
+    mom = torch.tensor(rng.normal(size=(m.dimension, C)), dtype=torch.float32, device="cuda")
+    u = torch.tensor(rng.uniform(size=(1, C)), dtype=torch.float32, device="cuda")
+    args = (m.tile_value_and_grad, m.cuda_density, p0, lp, g, mom, u, m.tile_consts, 81)
+    kw = dict(n_folds=K, t0=5, burn=3, thin=2, n_samples=12,
+              params=MeadsParams(diagonal_preconditioning=precond, accept=accept),
+              tile_chains=tile)
+    before = fused_meads_sample.launches
+    got = fused_meads_sample(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_meads_sample.launches == before + 1
+    ref = meads_reference(*args, **kw)
+    dec, chains = _agree(got, ref)
+    assert dec >= 0.999 and chains >= 0.999
+    for a, b in zip(got[3:], ref[3:]):  # the final x, lp, gradient, p, u
+        assert float(_bits_or_close(a, b).float().mean()) >= 0.999
+
+
+def test_slice4_wrappers_raise_for_what_has_no_kernel(model):
+    """An unknown tag, a missing tag, or a (tag, d) the library lacks raises
+    _build.check's ValueError for the three slice-4 kernels."""
+    from advancedmh_tpu_torch import ChEESHMC
+    from advancedmh_tpu_torch.ops import (CheesParams, MeadsParams, fused_chees_frozen_sample,
+                                          fused_chees_warmup_block, fused_meads_sample)
+
+    p, lp = _start(model, 64, seed=1)
+    consts = model.tile_consts
+    p3 = torch.zeros(3, 64, device="cuda")
+    vg = model.tile_value_and_grad
+    calls = {
+        "warmup": lambda tag, x: fused_chees_warmup_block(
+            vg, tag, x, lp, torch.zeros_like(x), consts, 1, trips=(1,), us=(0.5,), n_groups=1,
+            sv=torch.zeros(9, device="cuda"), inverse_mass=torch.ones(x.shape[0], 1, device="cuda"),
+            params=CheesParams.of(ChEESHMC()), tile_chains=64),
+        "frozen": lambda tag, x: fused_chees_frozen_sample(
+            vg, tag, x, lp, torch.zeros_like(x), consts, 1, trips=(1,), phase=0,
+            step_size=torch.full((1, 1), 0.1, device="cuda"),
+            inverse_mass=torch.ones(x.shape[0], 1, device="cuda"), thin=1, n_samples=2),
+        "meads": lambda tag, x: fused_meads_sample(
+            vg, tag, x, lp, torch.zeros_like(x), torch.zeros_like(x), torch.zeros_like(lp),
+            consts, 1, n_folds=2, t0=1, burn=0, thin=1, n_samples=2, params=MeadsParams(),
+            tile_chains=64),
+    }
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match="CUDA density tag"):
+            call(None, p)
+        with pytest.raises(ValueError, match="'banana'"):
+            call("banana", p)
+        with pytest.raises(ValueError, match="instantiates only"):
+            call(model.cuda_density, p3)
+    for kernel in ("chees", "meads"):
+        pairs = _build.kernel_pairs(_build.library(), kernel)
+        assert {("logistic_regression", 32), ("neal_funnel", 10)} <= pairs
