@@ -4,10 +4,11 @@ The port of ``advancedmh_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100.
 It carries the reference sampler surface end to end: distributions,
 models, proposal trees, the MH sampler (RWMH), MALA, Robust Adaptive
 Metropolis, the emcee ensemble, HMC, AdaptiveHMC, dual-averaging step-size
-adaptation, ChEES-HMC and MEADS, ``sample`` with a batched tensor engine
-(``engine="torch"``) and the hand-written CUDA kernels of the fused engine
-(``engine="fused"``, ``csrc/``), ``Chains`` and the ESS / R̂ / MCSE
-diagnostics. Public names match ``advancedmh_tpu``'s. Models live on the
+adaptation, ChEES-HMC, MEADS, slice sampling, elliptical slice sampling,
+the Barker proposal and preconditioned Crank-Nicolson, ``sample`` with a
+batched tensor engine (``engine="torch"``) and the hand-written CUDA kernels
+of the fused engine (``engine="fused"``, ``csrc/``), ``Chains`` and the
+ESS / R̂ / MCSE diagnostics. Public names match ``advancedmh_tpu``'s. Models live on the
 card unless the caller passes another ``device``. The package imports torch
 and numpy and never jax; the kernels are built with nvcc at their first
 launch.
@@ -52,16 +53,20 @@ from .samplers import (
     RWMH,
     AdaptiveHMC,
     AdaptiveHMCState,
+    Barker,
     ChEESHMC,
     ChEESHMCState,
+    EllipticalSlice,
     Ensemble,
     GradientTransition,
     HamiltonianMC,
     MEADS,
     MEADSState,
     MetropolisHastings,
+    PreconditionedCrankNicolson,
     RobustAdaptiveMetropolis,
     RobustAdaptiveMetropolisState,
+    SliceSampler,
     StaticMH,
     StepSizeAdaptation,
     StepSizeAdaptationState,
@@ -102,7 +107,8 @@ __all__ = [
     "RobustAdaptiveMetropolisState", "Ensemble", "StretchProposal",
     "WalkProposal", "HamiltonianMC", "AdaptiveHMC", "AdaptiveHMCState",
     "StepSizeAdaptation", "StepSizeAdaptationState", "ChEESHMC", "ChEESHMCState",
-    "MEADS", "MEADSState", "getparams", "setparams",
+    "MEADS", "MEADSState", "SliceSampler", "EllipticalSlice", "Barker",
+    "PreconditionedCrankNicolson", "getparams", "setparams",
     # runtime
     "sample", "Schedule", "SamplingResult",
     "MCMCSerial", "MCMCThreads", "MCMCDistributed",

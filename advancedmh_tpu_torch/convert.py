@@ -2,8 +2,8 @@
 
 Functions here take numpy arrays (never JAX objects) and return the port's
 objects on a given device (the card unless the caller asks for another),
-so one set of inputs can be handed to both packages: model data, proposal
-scales, and the states of RWMH, MALA, RAM, the ensemble sampler,
+so one set of inputs can be handed to both packages: model data (the GP
+latent field's with its prior), proposal scales, and the states of RWMH, MALA, RAM, the ensemble sampler,
 StepSizeAdaptation, AdaptiveHMC, ChEES-HMC and MEADS for ``initial_params``
 / ``initial_state``.
 """
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from .distributions import MvNormal
-from .models.targets import (TileDensityModel, correlated_gaussian_model,
+from .models.targets import (TileDensityModel, _gp_model, correlated_gaussian_model,
                              emcee_demo_model, gaussian_mean_scale_model,
                              logistic_regression_model)
 from .samplers.adapt import StepSizeAdaptationState
@@ -56,6 +56,18 @@ def logistic_regression_from_numpy(X: np.ndarray, y: np.ndarray,
     return logistic_regression_model(X=np.asarray(X, np.float32),
                                      y=np.asarray(y, np.float32),
                                      prior_scale=prior_scale, device=device)
+
+
+def gp_latent_from_numpy(y: np.ndarray, L: np.ndarray, likelihood: str = "gaussian",
+                         noise: float = 0.25, device="cuda"):
+    """The GP latent field's likelihood model on the observations ``y`` and
+    its prior ``MvNormal(0, scale_tril=L)``, from the JAX package's arrays
+    (``aux["y"]`` and ``prior.scale_tril`` of its ``gp_latent_model``)."""
+    if likelihood not in ("gaussian", "logistic"):
+        raise ValueError(f"unknown likelihood {likelihood!r}")
+    L = _f32(L, device)
+    return (_gp_model(np.asarray(y, np.float64), likelihood, float(noise), device),
+            MvNormal(torch.zeros(L.shape[0], dtype=torch.float32, device=device), scale_tril=L))
 
 
 def mvnormal_from_numpy(

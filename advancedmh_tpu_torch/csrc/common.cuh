@@ -80,6 +80,80 @@ __device__ __forceinline__ void tril_matvec(const float* L, const float (&z)[D],
   }
 }
 
+// z <- L z in place for a lower-triangular L: row i sums k = 0..i in order
+// and rows run from the last up, so each reads only z[k <= i] not yet
+// overwritten. The entries above the diagonal are exact zeros, so the bits
+// are those of tril_matvec's full rows (adding +-0 changes no sum).
+template <int D>
+__device__ __forceinline__ void tril_matvec_inplace(const float* L, float (&z)[D]) {
+#pragma unroll
+  for (int i = D - 1; i >= 0; --i) {
+    float acc = L[i * D] * z[0];
+#pragma unroll
+    for (int k = 1; k <= i; ++k) acc = acc + L[i * D + k] * z[k];
+    z[i] = acc;
+  }
+}
+
+// jnp.maximum / jnp.minimum: NaN if either side is NaN (fmaxf would drop it).
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return a != a ? a : (b != b ? b : fmaxf(a, b));
+}
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return a != a ? a : (b != b ? b : fminf(a, b));
+}
+
+// softplus(t) = max(t, 0) + log(1 + exp(-|t|)), the JAX kernels' form
+// (raw exp and log, not log1p), NaN in NaN out.
+__device__ __forceinline__ float softplus(float t) {
+  return nan_max(t, 0.0f) + logf(1.0f + expf(-fabsf(t)));
+}
+
+// The Philox words of one chain-step, for kernels whose step reads more
+// words than it keeps in registers (a data-dependent trip count, or d
+// uniforms beside d normals): word w is element w % 4 of sub-block w / 4 of
+// counter (j, c), and a sub-block is computed when a word of it is first
+// needed, then kept until a word of another one is asked for. The words are
+// those step_noise and ops/rwmh.py::philox_uniforms give.
+struct StepWords {
+  uint32_t j_lo, c, j_hi, k0, k1;
+  int block = -1;
+  Words4 w;
+
+  __device__ __forceinline__ StepWords(uint64_t j, uint32_t chain, uint32_t key0,
+                                       uint32_t key1)
+      : j_lo((uint32_t)j), c(chain), j_hi((uint32_t)(j >> 32)), k0(key0), k1(key1) {}
+
+  __device__ __forceinline__ uint32_t word(int i) {
+    const int b = i >> 2;
+    if (b != block) {
+      w = philox4x32_10(j_lo, c, (uint32_t)b, j_hi, k0, k1);
+      block = b;
+    }
+    const int e = i & 3;  // a select, so that w stays in registers
+    return e == 0 ? w.v[0] : (e == 1 ? w.v[1] : (e == 2 ? w.v[2] : w.v[3]));
+  }
+
+  __device__ __forceinline__ float uniform(int i) { return uniform_from_bits(word(i)); }
+};
+
+// The D normals of a step from words 0 .. 2P-1 (P = ceil(D/2) Box-Muller
+// pairs), as step_noise draws them.
+template <int D>
+__device__ __forceinline__ void step_normals(StepWords& s, float (&z)[D]) {
+  constexpr int P = (D + 1) / 2;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const float u1 = s.uniform(2 * p);
+    const float u2 = s.uniform(2 * p + 1);
+    const float r = sqrtf(-2.0f * logf(u1));
+    float sn, cs;
+    sincosf(kTwoPi * u2, &sn, &cs);
+    z[2 * p] = r * cs;
+    if (2 * p + 1 < D) z[2 * p + 1] = r * sn;
+  }
+}
+
 __device__ __forceinline__ void load_consts(float* sh, const float* consts,
                                             int n_consts) {
   for (int i = threadIdx.x; i < n_consts; i += blockDim.x) sh[i] = consts[i];
@@ -319,6 +393,46 @@ struct NealFunnel {
   __device__ static float value_and_grad(const float* x, const float*, int,
                                          float* g) {
     return eval<true>(x, g);
+  }
+};
+
+// models/targets.py::gp_regression_tile: the Gaussian log-likelihood of the
+// GP latent field f at its D grid points (the prior is the sampler's, not
+// the density's); consts = y (D), then inv2 = 1/noise^2 and norm =
+// D (log(2 pi)/2 + log noise), each rounded once from float64:
+//   lp = (-0.5 inv2) S - norm,  S = sum_i (y_i - f_i)^2 in order.
+template <int D>
+struct GPRegression {
+  static constexpr const char* kName = "gp_regression";
+  static constexpr int kDim = D;
+
+  __device__ static float logp(const float* f, const float* c, int) {
+    float s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      const float r = c[i] - f[i];
+      s = i == 0 ? r * r : s + r * r;
+    }
+    return (-0.5f * c[D]) * s - c[D + 1];
+  }
+};
+
+// models/targets.py::gp_classification_tile: GP binary classification,
+// y_i in {-1, +1}; consts = y (D). lp = -sum_i softplus((-y_i) f_i) in
+// order, softplus in the JAX tile's max + log(1 + exp(-|t|)) form.
+template <int D>
+struct GPClassification {
+  static constexpr const char* kName = "gp_classification";
+  static constexpr int kDim = D;
+
+  __device__ static float logp(const float* f, const float* c, int) {
+    float s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      const float sp = softplus((-c[i]) * f[i]);
+      s = i == 0 ? sp : s + sp;
+    }
+    return -s;
   }
 };
 

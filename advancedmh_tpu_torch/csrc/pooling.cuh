@@ -107,14 +107,6 @@ __host__ __device__ inline int64_t pool_blocks(int64_t n_full, int64_t tile_item
          (last_items + kPoolBlock - 1) / kPoolBlock;
 }
 
-// jnp.maximum / jnp.minimum: NaN if either side is NaN (fmaxf would drop it).
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return a != a ? a : (b != b ? b : fmaxf(a, b));
-}
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return a != a ? a : (b != b ? b : fminf(a, b));
-}
-
 // Launch `kernel` cooperatively with n_blocks of kPoolBlock threads and
 // `smem` bytes of dynamic shared memory. A grid that cannot be co-resident
 // is an error (cudaErrorCooperativeLaunchTooLarge), never a silent

@@ -1,6 +1,7 @@
 """Prebuilt target models (≙ advancedmh_tpu/models/targets.py): the README
-flagship, the correlated Gaussian of the RAM and MALA tests, and the emcee
-test model.
+flagship, the correlated Gaussian of the RAM and MALA tests, the Bayesian
+logistic regression, Neal's funnel, the GP latent field and the emcee test
+model.
 
 A model that the fused engine can run carries, besides its per-chain
 density, a *tile* density over the transposed chain block ``(d, C) ->
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from ..distributions import InverseGamma, MvNormal, Normal
-from ..ops.rwmh import row_sum
+from ..ops.rwmh import row_sum, softplus
 from .density import DensityModel, guarded_logdensity
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -416,6 +417,101 @@ def neal_funnel_model(d: int = 10, device="cuda") -> TileDensityModel:
         tile_consts=(),
         cuda_density="neal_funnel",
     )
+
+
+# ---- the Gaussian-process latent field -------------------------------------
+
+
+def gp_regression_tile(f: torch.Tensor, y: torch.Tensor, inv2: torch.Tensor,
+                       norm: torch.Tensor) -> torch.Tensor:
+    """Tile log-likelihood of the GP regression, ``f`` (d, C), ``y`` (d, 1),
+    ``inv2`` = 1/noise² and ``norm`` = d·(½log 2π + log noise) (1, 1):
+    ``(−½·inv2)·Σ(y − f)² − norm``, summed over the points in order, as
+    ``GPRegression`` in csrc/common.cuh."""
+    r = y - f
+    return (-0.5 * inv2) * row_sum(r * r) - norm
+
+
+def gp_classification_tile(f: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Tile log-likelihood of GP classification, y ∈ {−1, +1} (d, 1):
+    ``−Σ softplus((−y)·f)`` over the points in order (softplus in the JAX
+    tile's max + log(1 + exp(−|t|)) form, ops/rwmh.py::softplus), as
+    ``GPClassification`` in csrc/common.cuh."""
+    return -row_sum(softplus((-y) * f))
+
+
+def gp_latent_model(
+    n_points: int = 64,
+    likelihood: str = "gaussian",
+    noise: float = 0.25,
+    lengthscale: float = 0.2,
+    amplitude: float = 1.0,
+    seed: int = 0,
+    device="cuda",
+):
+    """1-D Gaussian-process latent field on a uniform grid of [0, 1] (≙ the
+    JAX package's ``gp_latent_model``), the target of ``EllipticalSlice``
+    and ``PreconditionedCrankNicolson``: f ~ N(0, K) with an RBF kernel, and
+    observations of a ground-truth draw.
+
+    Returns ``(model, prior, aux)``: ``model``'s density is the
+    **log-likelihood only**, ``prior`` is ``MvNormal(0, scale_tril=chol(K))``
+    and ``aux`` holds (numpy, float64) the grid ``x``, ``f_true``, ``y`` and,
+    for ``likelihood="gaussian"``, the closed-form ``post_mean`` and
+    ``post_cov``. Grid, K, its Cholesky factor and the data are made with the
+    JAX package's numpy calls in its order, so they equal its bit for bit.
+    ``likelihood="logistic"`` is GP classification (y ∈ {−1, +1}, log σ(y·f)
+    per point)."""
+    rng = np.random.default_rng(seed)
+    x = np.linspace(0.0, 1.0, n_points, dtype=np.float64)
+    sq = (x[:, None] - x[None, :]) ** 2
+    K = amplitude**2 * np.exp(-0.5 * sq / lengthscale**2)
+    K += 1e-6 * np.eye(n_points)
+    L = np.linalg.cholesky(K)
+    f_true = L @ rng.normal(size=n_points)
+    prior = MvNormal(torch.zeros(n_points, dtype=torch.float32, device=device),
+                     scale_tril=torch.as_tensor(L, dtype=torch.float32, device=device))
+    aux = {"x": x, "f_true": f_true}
+    if likelihood == "gaussian":
+        y = f_true + noise * rng.normal(size=n_points)
+        A = np.linalg.solve(K + noise**2 * np.eye(n_points), K)
+        aux["post_mean"] = K @ np.linalg.solve(K + noise**2 * np.eye(n_points), y)
+        aux["post_cov"] = K - K @ A
+    elif likelihood == "logistic":
+        y = np.where(f_true + noise * rng.normal(size=n_points) > 0, 1.0, -1.0)
+    else:
+        raise ValueError(f"unknown likelihood {likelihood!r}")
+    aux["y"] = y
+    return _gp_model(y, likelihood, noise, device), prior, aux
+
+
+def _gp_model(y, likelihood: str, noise: float, device) -> TileDensityModel:
+    """The GP latent field's likelihood model on the observations ``y``."""
+    n = len(y)
+    y_t = torch.as_tensor(np.asarray(y, np.float32), device=device)
+    col = y_t.reshape(-1, 1)
+    if likelihood == "gaussian":
+        inv2 = 1.0 / (noise * noise)
+        norm = n * (_HALF_LOG_2PI + math.log(noise))
+
+        def loglik(f):
+            r = y_t - f
+            return -0.5 * inv2 * torch.sum(r * r, dim=-1) - norm
+
+        full = lambda v: torch.full((1, 1), v, dtype=torch.float32, device=device)
+        return TileDensityModel(
+            logdensity_fn=loglik, dimension=n, logdensity_batched_fn=loglik, device=device,
+            tile_density=gp_regression_tile, tile_consts=(col, full(inv2), full(norm)),
+            cuda_density="gp_regression")
+
+    def loglik(f):
+        t = -y_t * f
+        return -torch.sum(torch.logaddexp(torch.zeros_like(t), t), dim=-1)
+
+    return TileDensityModel(
+        logdensity_fn=loglik, dimension=n, logdensity_batched_fn=loglik, device=device,
+        tile_density=gp_classification_tile, tile_consts=(col,),
+        cuda_density="gp_classification")
 
 
 # ---- the emcee test model ------------------------------------------------

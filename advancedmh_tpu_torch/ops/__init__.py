@@ -1,23 +1,29 @@
 from .adapt import adapt_rwmh_reference, fused_adapt_rwmh_sample
+from .barker import barker_sample_reference, barker_step, fused_barker_sample
 from .chees import (CheesParams, chees_frozen_reference, chees_warmup_reference,
                     fused_chees_frozen_sample, fused_chees_warmup_block, halton_trips, vdc)
 from .cholesky import chol_rank1_update, chol_rank1_update_batched
 from .emcee import emcee_sample_reference, fused_emcee_sample
+from .ess import ess_sample_reference, ess_trips, fused_ess_sample
 from .hmc import fused_hmc_sample, hmc_sample_reference, minv_column
 from .hmc_adapt import DualAveraging, adaptive_hmc_reference, fused_adaptive_hmc_sample
 from .mala import fused_mala_sample, mala_sample_reference
 from .meads import MeadsParams, fused_meads_sample, max_eig_cols, meads_reference
+from .pcn import fused_pcn_sample, pcn_constants, pcn_sample_reference, pcn_step
 from .ram import RamParams, fused_ram_sample, ram_sample_reference
 from .rwmh import (
+    box_muller,
     fused_rwmh,
     fused_rwmh_sample,
     philox4x32_reference,
+    philox_uniforms,
     rwmh_reference,
     rwmh_sample_reference,
     scale_block,
     step_noise,
     uniform_from_bits,
 )
+from .slice import fused_slice_sample, slice_sample_reference, slice_trips, unit_direction
 
 # Every kernel wrapper, by its name in chip_smoke.py's report.
 KERNEL_WRAPPERS = {
@@ -32,9 +38,17 @@ KERNEL_WRAPPERS = {
     "chees_warmup": fused_chees_warmup_block,
     "chees_frozen": fused_chees_frozen_sample,
     "meads": fused_meads_sample,
+    "slice": fused_slice_sample,
+    "ess": fused_ess_sample,
+    "barker": fused_barker_sample,
+    "pcn": fused_pcn_sample,
 }
 
 __all__ = [
+    "barker_sample_reference", "barker_step", "box_muller", "ess_sample_reference",
+    "ess_trips", "fused_barker_sample", "fused_ess_sample", "fused_pcn_sample",
+    "fused_slice_sample", "pcn_constants", "pcn_sample_reference", "pcn_step",
+    "philox_uniforms", "slice_sample_reference", "slice_trips", "unit_direction",
     "CheesParams", "MeadsParams", "chees_frozen_reference", "chees_warmup_reference",
     "fused_chees_frozen_sample", "fused_chees_warmup_block", "fused_meads_sample",
     "halton_trips", "max_eig_cols", "meads_reference", "vdc",

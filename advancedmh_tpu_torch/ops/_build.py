@@ -16,7 +16,11 @@ with it, 3.93 ms without) and the throughput kernel 5% at 16384 x 10000
 (7.31 against 6.96 ms), and it cut the decisions that differ from the plain
 version's from 8.9e-7 to 2.6e-7 per chain-step. ``-Xptxas -v`` makes the
 compiler report registers, shared memory and spills for each kernel;
-:func:`build` returns that report.
+:func:`build` returns that report. ``--split-compile=0`` compiles the kernels
+of one source in parallel threads: ``ess.cu`` and ``pcn.cu``, whose unrolled
+64 × 64 triangular matvecs make them the slowest sources, took 84-211 s each
+in five builds without it and 87-140 s in two with it on the H100 machine's
+8 cores (the time varies with the machine's load).
 
 Which (density, d) pairs each kernel is instantiated for is said once, in
 its source's registry list; the library exports it (:func:`kernel_pairs`)
@@ -32,6 +36,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import FrozenSet, Optional, Tuple
 
@@ -39,10 +44,11 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 # each csrc/<name>.cu exports amh_pairs_<name>
-KERNELS = ("rwmh", "mala", "ram", "emcee", "adapt", "hmc", "hmc_adapt", "chees", "meads")
+KERNELS = ("rwmh", "mala", "ram", "emcee", "adapt", "hmc", "hmc_adapt", "chees", "meads",
+           "slice", "ess", "barker", "pcn")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v", "--split-compile=0",
 )
 
 NO_KERNEL = -1  # amh::kNoKernel: no kernel instantiated for (density, d)
@@ -113,6 +119,23 @@ _SIGNATURES = {
     "amh_meads_sample": [_S, _I32, _I32, _I32, _P, _P, _P, _P, _P, _P, _I32, _F, _F, _F,
                          _I32, _I64, _I64, _U64, _U64, _I64, _I64, _I64, _P, _P, _P, _P,
                          _I64, _P],
+    # density, d, params_t, lp, consts, n_consts, width, max_stepout,
+    # max_shrink, seed, burn, thin, n_samples, offset, C, samples, lps, accs,
+    # stream
+    "amh_slice_sample": [_S, _I32, _P, _P, _P, _I32, _F, _I32, _I32, _U64, _I64, _I64,
+                         _I64, _U64, _I64, _P, _P, _P, _P],
+    # density, d, tril, params_t, lp, loc, scale, consts, n_consts, max_shrink,
+    # seed, burn, thin, n_samples, offset, C, samples, lps, accs, stream
+    "amh_ess_sample": [_S, _I32, _I32, _P, _P, _P, _P, _P, _I32, _I32, _U64, _I64, _I64,
+                       _I64, _U64, _I64, _P, _P, _P, _P],
+    # density, d, params_t, lp, grad, consts, n_consts, sigma, seed, burn, thin,
+    # n_samples, offset, C, samples, lps, accs, out_grad, stream
+    "amh_barker_sample": [_S, _I32, _P, _P, _P, _P, _I32, _F, _U64, _I64, _I64, _I64,
+                          _U64, _I64, _P, _P, _P, _P, _P],
+    # density, d, tril, params_t, lp, mean, scale, consts, n_consts, rho, beta,
+    # seed, burn, thin, n_samples, offset, C, samples, lps, accs, stream
+    "amh_pcn_sample": [_S, _I32, _I32, _P, _P, _P, _P, _P, _I32, _F, _F, _U64, _I64, _I64,
+                       _I64, _U64, _I64, _P, _P, _P, _P],
 }
 
 # An H100 block may use at most 227 KB of shared memory; the density's
@@ -147,7 +170,8 @@ def library_path() -> Path:
 def build() -> Tuple[Path, float, str]:
     """Compile the kernels unless the library for these sources exists.
 
-    Returns (library path, seconds spent compiling, compiler report)."""
+    Returns (library path, seconds spent compiling, compiler report: each
+    source's compile time, then nvcc's output for it)."""
     out = library_path()
     if out.is_file():
         return out, 0.0, ""
@@ -155,19 +179,22 @@ def build() -> Tuple[Path, float, str]:
     nvcc = _nvcc()
     tag = f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    procs = []
-    for src in sorted(CSRC_DIR.glob("*.cu")):
-        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-        procs.append((src.name, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    srcs = sorted(CSRC_DIR.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
+
+    def compile_one(src, obj):
+        t = time.perf_counter()
+        r = subprocess.run([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return src.name, r.returncode, r.stdout, time.perf_counter() - t
+
+    with ThreadPoolExecutor(max_workers=len(srcs)) as pool:
+        results = list(pool.map(compile_one, srcs, objs))
     report, failed = [], []
-    for name, _, proc in procs:
-        text, _ = proc.communicate()
-        report.append(text)
-        if proc.returncode != 0:
-            failed.append(f"{name} ({proc.returncode}):\n{text}")
-    objs = [obj for _, obj, _ in procs]
+    for name, code, text, seconds in results:
+        report.append(f"amh build: {name} compiled in {seconds:.1f} s\n{text}")
+        if code != 0:
+            failed.append(f"{name} ({code}):\n{text}")
     try:
         if failed:
             raise RuntimeError("nvcc failed: " + "\n".join(failed))

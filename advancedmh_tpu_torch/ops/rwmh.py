@@ -77,14 +77,12 @@ def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
     return (bits & 0x7FFFFF).to(torch.float32) * 2.0**-23 + 2.0**-24
 
 
-def step_noise(
-    seed: int, j0: int, n: int, n_chains: int, d: int, device
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Noise of absolute steps ``j0 .. j0+n-1`` for every chain, as the
-    kernels draw it: normals ``(n, d, C)`` (Box-Muller pairs from words 2p,
-    2p+1) and ``log(u)`` ``(n, C)`` of the accept uniform (word 2P)."""
-    pairs = (d + 1) // 2
-    n_words = 2 * pairs + 1
+def philox_uniforms(
+    seed: int, j0: int, n: int, n_chains: int, n_words: int, device
+) -> torch.Tensor:
+    """Words ``0 .. n_words-1`` of absolute steps ``j0 .. j0+n-1`` for every
+    chain as uniforms ``(n, C, n_words)``: word w is element w % 4 of
+    sub-block w / 4 of counter (j, chain) (csrc/common.cuh::StepWords)."""
     n_sub = (n_words + 3) // 4
     i64 = dict(dtype=torch.int64, device=device)
     j = torch.arange(j0, j0 + n, **i64).view(n, 1, 1)
@@ -98,13 +96,30 @@ def step_noise(
     )
     key = (seed & _MASK32, (seed >> 32) & _MASK32)
     words = philox4x32_reference(counter, key).reshape(n, n_chains, 4 * n_sub)
-    u = uniform_from_bits(words[..., :n_words])
+    return uniform_from_bits(words[..., :n_words])
+
+
+def box_muller(u: torch.Tensor, d: int) -> torch.Tensor:
+    """The d normals of uniforms ``(n, C, W)``: pair p from words 2p and
+    2p+1, as ``(n, d, C)`` (csrc/common.cuh::step_normals)."""
+    n, n_chains = u.shape[:2]
+    pairs = (d + 1) // 2
     u1, u2 = u[..., 0 : 2 * pairs : 2], u[..., 1 : 2 * pairs : 2]
     r = torch.sqrt(-2.0 * torch.log(u1))
     theta = _TWO_PI * u2
     z = torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=-1)
-    z = z.reshape(n, n_chains, 2 * pairs)[..., :d].permute(0, 2, 1)
-    return z, torch.log(u[..., 2 * pairs])
+    return z.reshape(n, n_chains, 2 * pairs)[..., :d].permute(0, 2, 1)
+
+
+def step_noise(
+    seed: int, j0: int, n: int, n_chains: int, d: int, device
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Noise of absolute steps ``j0 .. j0+n-1`` for every chain, as the
+    kernels draw it: normals ``(n, d, C)`` (Box-Muller pairs from words 2p,
+    2p+1) and ``log(u)`` ``(n, C)`` of the accept uniform (word 2P)."""
+    pairs = (d + 1) // 2
+    u = philox_uniforms(seed, j0, n, n_chains, 2 * pairs + 1, device)
+    return box_muller(u, d), torch.log(u[..., 2 * pairs])
 
 
 # ---- the plain step --------------------------------------------------------
@@ -141,6 +156,12 @@ def row_sum(t: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def softplus(t: torch.Tensor) -> torch.Tensor:
+    """``max(t, 0) + log(1 + exp(−|t|))`` with raw exp and log, NaN in NaN
+    out: the JAX kernels' softplus (csrc/common.cuh::softplus)."""
+    return torch.maximum(t, torch.zeros_like(t)) + torch.log(1.0 + torch.exp(-torch.abs(t)))
+
+
 def rwmh_step(x, lp, z, logu, scale, tril, tile_fn, consts):
     """One RWMH step on the chain block: accept iff log(u) < lp_cand − lp."""
     cand = x + _perturb(scale, tril, z)
@@ -149,9 +170,10 @@ def rwmh_step(x, lp, z, logu, scale, tril, tile_fn, consts):
     return torch.where(accept, cand, x), torch.where(accept, lp_cand, lp), accept
 
 
-def _noise_chunk(n_chains: int) -> int:
-    """Steps of noise made per vectorized call: about 2²² Philox outputs."""
-    return max(1, (1 << 22) // max(1, n_chains))
+def _noise_chunk(n_chains: int, n_words: int = 4) -> int:
+    """Steps of noise made per vectorized call: about 2²² Philox blocks of
+    ``n_words`` words each chain-step."""
+    return max(1, (1 << 22) // max(1, n_chains * ((n_words + 3) // 4)))
 
 
 def _run_plain(tile_fn, params_t, lp, scale, consts, seed, n_steps, offset, on_step):

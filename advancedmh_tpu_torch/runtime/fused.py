@@ -13,7 +13,11 @@ ported (on CPU tensors each kernel's plain PyTorch version runs instead):
   (``ops/hmc.py``);
 - ``AdaptiveHMC``, per-chain or pooled (``ops/hmc_adapt.py``);
 - ``ChEESHMC``: the warmup and the frozen phase (``ops/chees.py``);
-- ``MEADS`` (``ops/meads.py``).
+- ``MEADS`` (``ops/meads.py``);
+- ``SliceSampler`` (``ops/slice.py``), ``EllipticalSlice`` (``ops/ess.py``),
+  ``Barker`` (``ops/barker.py``) and ``PreconditionedCrankNicolson``
+  (``ops/pcn.py``); the prior of the last two and of ``EllipticalSlice`` is
+  one Normal or MvNormal leaf.
 
 The model must name a CUDA density (``model.cuda_density``, with its plain
 ``tile_density``, ``tile_value_and_grad`` for MALA, and ``tile_consts``; see
@@ -41,15 +45,19 @@ import torch
 
 from ..distributions import MvNormal, Normal
 from ..ops.adapt import fused_adapt_rwmh_sample
+from ..ops.barker import fused_barker_sample
 from ..ops.chees import (CheesParams, fused_chees_frozen_sample, fused_chees_warmup_block,
                          halton_trips, vdc)
 from ..ops.emcee import check_walkers, fused_emcee_sample
+from ..ops.ess import fused_ess_sample
 from ..ops.hmc import fused_hmc_sample, minv_column
 from ..ops.hmc_adapt import DualAveraging, fused_adaptive_hmc_sample
 from ..ops.mala import fused_mala_sample
 from ..ops.meads import MeadsParams, fused_meads_sample
+from ..ops.pcn import fused_pcn_sample
 from ..ops.ram import RamParams, fused_ram_sample
 from ..ops.rwmh import fused_rwmh_sample
+from ..ops.slice import fused_slice_sample
 from ..proposals import RandomWalkProposal, is_proposal
 from ..samplers.adapt import StepSizeAdaptationState
 from ..samplers.base import GradientTransition, Transition
@@ -66,7 +74,8 @@ _NOT_PORTED = (
     "engine='fused' in advancedmh_tpu_torch runs MetropolisHastings with one "
     "zero-mean Gaussian RandomWalkProposal (RWMH), MALA.langevin, "
     "RobustAdaptiveMetropolis, Ensemble with a StretchProposal, "
-    "StepSizeAdaptation.rwmh, HamiltonianMC, AdaptiveHMC, ChEESHMC and MEADS; "
+    "StepSizeAdaptation.rwmh, HamiltonianMC, AdaptiveHMC, ChEESHMC, MEADS, "
+    "SliceSampler, EllipticalSlice, Barker and PreconditionedCrankNicolson; "
     "{what}. "
     "The fused kernels of the other samplers are listed in ROADMAP.md, "
     "'Queue 2 — TPU kernels to port'; use engine='torch' meanwhile."
@@ -926,4 +935,208 @@ def sample_fused_meads(
         iteration=torch.full((C,), t0 + burn + n_samples * thinning, dtype=torch.int32,
                              device=dev),
         isaccept=accepted[:, -1])
+    return Transition(params, lp, accepted), final_state
+
+
+# ---- slice sampling, elliptical slice, Barker and pCN ------------------------------------
+
+# The JAX engines' caps on the trip budgets (runtime/fused.py:1837, 1981-1982 of
+# the JAX package): they decide when a chain reports accepted=False.
+MAX_STEPOUT = 8
+MAX_SHRINK = 24
+
+
+def _extract_ess_prior(sampler, d: int):
+    """(loc (d,), scale) of the sampler's Gaussian prior: a per-dimension
+    std-dev (d,) or the lower Cholesky factor (d, d). Raises for a tree
+    prior (the fused engine takes one leaf; tree priors run on
+    engine='torch')."""
+    p = sampler.prior
+    if isinstance(p, MvNormal):
+        loc = np.broadcast_to(_numpy(p.loc).astype(np.float32), (d,))
+        if p.scale_tril is not None:
+            return loc, np.tril(_numpy(p.scale_tril).astype(np.float32))
+        if p.scale_diag is not None:
+            return loc, np.broadcast_to(_numpy(p.scale_diag), (d,))
+        return loc, np.broadcast_to(_numpy(p.scale), (d,))
+    if isinstance(p, Normal):
+        return (np.broadcast_to(_numpy(p.loc).astype(np.float32), (d,)),
+                np.broadcast_to(_numpy(p.scale).astype(np.float32), (d,)))
+    raise ValueError(
+        "engine='fused' EllipticalSlice needs a single Normal/MvNormal prior leaf "
+        "(pytree priors: use engine='torch').")
+
+
+def _start_block(model, num_chains: int, initial_params, initial_state, tile_fn, consts,
+                 prior_start=None):
+    """The kernels' (d, C) start and its lp (1, C): a resumed state's own
+    params and lp (so that a split run stays exact), else ``initial_params``
+    with lp from the tile density, else ``prior_start()`` (C, d)."""
+    dev = model.device
+    if initial_state is not None:
+        return (initial_state.params.to(dev).T.contiguous(),
+                initial_state.lp.to(dev).reshape(1, -1).contiguous())
+    if initial_params is None:
+        if prior_start is None:
+            raise ValueError("please specify initial parameters")
+        params_t = prior_start().T.contiguous()
+    else:
+        params_t = _chain_block(model, initial_params, num_chains)
+    return params_t, tile_fn(params_t, *consts)
+
+
+def _finish_plain(samples, lps, accs):
+    params, lp, accepted = _chains_layout(samples, lps, accs)
+    return (Transition(params, lp, accepted),
+            Transition(params[:, -1, :], lp[:, -1], accepted[:, -1]))
+
+
+def sample_fused_slice(
+    model,
+    sampler,
+    n_samples: int,
+    *,
+    key: int,
+    num_chains: int,
+    initial_params,
+    discard_initial: int,
+    thinning: int,
+    initial_state=None,
+    iteration_offset: int = 0,
+):
+    """Fused slice sampling (≙ runtime/fused.py::sample_fused_slice): the
+    stepping-out budget ``sampler.max_stepout`` capped at 8 and the shrink
+    budget ``sampler.max_shrink`` capped at 24, as the JAX engine caps them;
+    a chain that exhausts them keeps its state and reports
+    accepted=False."""
+    tile_fn, consts = _tile(model)
+    params_t, lp0 = _start_block(model, num_chains, initial_params, initial_state, tile_fn,
+                                 consts)
+    samples, lps, accs = fused_slice_sample(
+        tile_fn, model.cuda_density, params_t, lp0, consts, fused_seed(key),
+        width=float(sampler.width), max_stepout=min(int(sampler.max_stepout), MAX_STEPOUT),
+        max_shrink=min(int(sampler.max_shrink), MAX_SHRINK),
+        burn=max(discard_initial - thinning, 0), thin=thinning, n_samples=n_samples,
+        iteration_offset=iteration_offset)
+    return _finish_plain(samples, lps, accs)
+
+
+def _prior_sampler_start(model, sampler, key, num_chains, initial_params, initial_state,
+                         tile_fn, consts):
+    """The start of ESS and pCN and the prior's (loc, scale) on the model's
+    device. Without ``initial_params`` every chain starts at a prior draw
+    ``loc + L z`` (or ``loc + σ ⊙ z``), z from the generator of step 0."""
+    dev = model.device
+    d = model.dimension
+    if d is None:
+        if initial_params is None and initial_state is None:
+            raise ValueError("engine='fused' ESS and pCN need model.dimension or "
+                             "initial_params")
+        src = initial_state.params if initial_state is not None else initial_params
+        d = int(np.asarray(_numpy(src)).shape[-1])
+    as_t = lambda a: torch.as_tensor(np.array(a, np.float32), device=dev)
+    loc, scale = (as_t(a) for a in _extract_ess_prior(sampler, d))
+
+    def prior_start():
+        z = torch.randn((num_chains, d), generator=step_generator(key, 0, dev), device=dev)
+        return loc + (z @ scale.T if scale.ndim == 2 else z * scale)
+
+    params_t, lp0 = _start_block(model, num_chains, initial_params, initial_state, tile_fn,
+                                 consts, prior_start)
+    return params_t, lp0, loc, scale
+
+
+def sample_fused_ess(
+    model,
+    sampler,
+    n_samples: int,
+    *,
+    key: int,
+    num_chains: int,
+    initial_params,
+    discard_initial: int,
+    thinning: int,
+    initial_state=None,
+    iteration_offset: int = 0,
+):
+    """Fused elliptical slice sampling (≙ runtime/fused.py::sample_fused_ess):
+    the model's tile density is the log-likelihood, the prior one
+    Normal/MvNormal leaf, ``sampler.max_shrink`` capped at 24 trips (a chain
+    that exhausts them keeps its state and reports accepted=False).
+    ``initial_params=None`` starts every chain at a prior draw."""
+    tile_fn, consts = _tile(model)
+    params_t, lp0, loc, scale = _prior_sampler_start(model, sampler, key, num_chains,
+                                                     initial_params, initial_state, tile_fn,
+                                                     consts)
+    samples, lps, accs = fused_ess_sample(
+        tile_fn, model.cuda_density, params_t, lp0, loc, scale, consts, fused_seed(key),
+        max_shrink=min(int(sampler.max_shrink), MAX_SHRINK),
+        burn=max(discard_initial - thinning, 0), thin=thinning, n_samples=n_samples,
+        iteration_offset=iteration_offset)
+    return _finish_plain(samples, lps, accs)
+
+
+def sample_fused_pcn(
+    model,
+    sampler,
+    n_samples: int,
+    *,
+    key: int,
+    num_chains: int,
+    initial_params,
+    discard_initial: int,
+    thinning: int,
+    initial_state=None,
+    iteration_offset: int = 0,
+):
+    """Fused pCN (≙ runtime/fused.py::sample_fused_pcn): the RWMH kernel with
+    the state contracted toward the prior mean and the likelihood-only
+    accept; one Normal/MvNormal prior leaf. ``initial_params=None`` starts
+    every chain at a prior draw."""
+    tile_fn, consts = _tile(model)
+    params_t, lp0, loc, scale = _prior_sampler_start(model, sampler, key, num_chains,
+                                                     initial_params, initial_state, tile_fn,
+                                                     consts)
+    samples, lps, accs = fused_pcn_sample(
+        tile_fn, model.cuda_density, params_t, lp0, loc, scale, consts, fused_seed(key),
+        beta=float(sampler.beta), burn=max(discard_initial - thinning, 0), thin=thinning,
+        n_samples=n_samples, iteration_offset=iteration_offset)
+    return _finish_plain(samples, lps, accs)
+
+
+def sample_fused_barker(
+    model,
+    sampler,
+    n_samples: int,
+    *,
+    key: int,
+    num_chains: int,
+    initial_params,
+    discard_initial: int,
+    thinning: int,
+    initial_state=None,
+    iteration_offset: int = 0,
+):
+    """Fused Barker (≙ runtime/fused.py::sample_fused_barker): the gradient
+    in the kernel, carried between steps as in fused MALA. The final
+    ``GradientTransition`` carries the kernel's gradient at the last draws;
+    a resumed ``initial_state`` gives its own lp and gradient back to the
+    kernel."""
+    value_and_grad, consts = _tile(model, "tile_value_and_grad")
+    dev = model.device
+    if initial_state is not None:
+        params_t = initial_state.params.to(dev).T.contiguous()
+        lp0 = initial_state.lp.to(dev).reshape(1, -1).contiguous()
+        g0 = initial_state.gradient.to(dev).T.contiguous()
+    else:
+        if initial_params is None:
+            raise ValueError("please specify initial parameters")
+        params_t = _chain_block(model, initial_params, num_chains)
+        lp0, g0 = value_and_grad(params_t, *consts)
+    samples, lps, accs, g_last = fused_barker_sample(
+        value_and_grad, model.cuda_density, params_t, lp0, g0, consts, fused_seed(key),
+        step_size=float(sampler.step_size), burn=max(discard_initial - thinning, 0),
+        thin=thinning, n_samples=n_samples, iteration_offset=iteration_offset)
+    params, lp, accepted = _chains_layout(samples, lps, accs)
+    final_state = GradientTransition(params[:, -1, :], lp[:, -1], g_last.T, accepted[:, -1])
     return Transition(params, lp, accepted), final_state

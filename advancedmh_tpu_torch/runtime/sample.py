@@ -7,8 +7,9 @@ Two engines:
   model's device.
 - ``engine="fused"``: RWMH, Langevin MALA, RAM, the emcee stretch move,
   dual-averaging RWMH (``StepSizeAdaptation.rwmh``), HMC, AdaptiveHMC,
-  ChEES-HMC and MEADS on the hand-written CUDA kernels (runtime/fused.py; on CPU tensors their
-  plain PyTorch versions).
+  ChEES-HMC, MEADS, slice sampling, elliptical slice sampling, the Barker
+  proposal and pCN on the hand-written CUDA kernels (runtime/fused.py; on
+  CPU tensors their plain PyTorch versions).
 
 RNG: step ``j`` of a run draws from ``step_generator(master, j)`` (init is
 ``j = 0``; a resumed run adds ``iteration_offset``), so the draws depend on
@@ -261,17 +262,25 @@ def sample(
 
     if engine == "fused":
         from ..samplers.adapt import StepSizeAdaptation
+        from ..samplers.barker import Barker
         from ..samplers.chees import ChEESHMC
         from ..samplers.emcee import Ensemble
+        from ..samplers.ess import EllipticalSlice
         from ..samplers.hmc import HamiltonianMC
         from ..samplers.hmc_adapt import AdaptiveHMC
         from ..samplers.mala import MALA
         from ..samplers.meads import MEADS
+        from ..samplers.pcn import PreconditionedCrankNicolson
         from ..samplers.ram import RobustAdaptiveMetropolis
+        from ..samplers.slice import SliceSampler
         from .fused import (sample_fused, sample_fused_adapt_rwmh,
-                            sample_fused_adaptive_hmc, sample_fused_chees,
-                            sample_fused_emcee, sample_fused_hmc, sample_fused_mala,
-                            sample_fused_meads, sample_fused_ram)
+                            sample_fused_adaptive_hmc, sample_fused_barker,
+                            sample_fused_chees, sample_fused_emcee, sample_fused_ess,
+                            sample_fused_hmc, sample_fused_mala, sample_fused_meads,
+                            sample_fused_pcn, sample_fused_ram, sample_fused_slice)
+
+        own_start = {Barker: sample_fused_barker, PreconditionedCrankNicolson: sample_fused_pcn,
+                     EllipticalSlice: sample_fused_ess, SliceSampler: sample_fused_slice}
 
         if collect_states:
             raise ValueError(
@@ -282,10 +291,13 @@ def sample(
         if initial_state is not None:
             if isinstance(sampler, RobustAdaptiveMetropolis):
                 initial_params, resume_S = initial_state.x, initial_state.S
-            elif isinstance(sampler, (StepSizeAdaptation, AdaptiveHMC, ChEESHMC, MEADS)):
+            elif isinstance(sampler, (StepSizeAdaptation, AdaptiveHMC, ChEESHMC, MEADS,
+                                      *own_start)):
                 # frozen continuation: the saved per-chain ε̄ (and M⁻¹), the
-                # ChEES statistics or MEADS's persistent (p, u, iteration)
-                # go back into the kernels
+                # ChEES statistics or MEADS's persistent (p, u, iteration) go
+                # back into the kernels; the slice samplers, Barker and pCN
+                # take the state's own lp (and gradient), so that a split run
+                # stays exact
                 resume_adapt = initial_state
             else:
                 initial_params = initial_state.params
@@ -301,7 +313,11 @@ def sample(
         if num_chains is None:
             raise ValueError("engine='fused' requires num_chains")
         warm = dict(num_warmup=schedule.num_warmup, initial_state=resume_adapt)
-        if isinstance(sampler, MEADS):
+        if type(sampler) in own_start:
+            transitions, final_state = own_start[type(sampler)](
+                model, sampler, schedule.n_samples, num_chains=num_chains,
+                initial_state=resume_adapt, **common)
+        elif isinstance(sampler, MEADS):
             transitions, final_state = sample_fused_meads(
                 model, sampler, schedule.n_samples, num_chains=num_chains,
                 initial_state=resume_adapt, **common)

@@ -1,4 +1,5 @@
 from .adapt import StepSizeAdaptation, StepSizeAdaptationState, optimal_rwmh_accept
+from .barker import Barker
 from .base import (
     GradientTransition,
     Sampler,
@@ -10,12 +11,15 @@ from .base import (
 )
 from .chees import ChEESHMC, ChEESHMCState
 from .emcee import Ensemble, StretchProposal, WalkProposal
+from .ess import EllipticalSlice
 from .hmc import HamiltonianMC
 from .hmc_adapt import AdaptiveHMC, AdaptiveHMCState
 from .mala import MALA
 from .meads import MEADS, MEADSState
 from .mh import RWMH, MetropolisHastings, StaticMH
+from .pcn import PreconditionedCrankNicolson
 from .ram import RobustAdaptiveMetropolis, RobustAdaptiveMetropolisState
+from .slice import SliceSampler
 
 __all__ = [
     "Sampler", "Transition", "GradientTransition", "accept_reject",
@@ -24,5 +28,6 @@ __all__ = [
     "RobustAdaptiveMetropolisState", "Ensemble", "StretchProposal",
     "WalkProposal", "HamiltonianMC", "AdaptiveHMC", "AdaptiveHMCState",
     "StepSizeAdaptation", "StepSizeAdaptationState", "optimal_rwmh_accept",
-    "ChEESHMC", "ChEESHMCState", "MEADS", "MEADSState",
+    "ChEESHMC", "ChEESHMCState", "MEADS", "MEADSState", "Barker", "EllipticalSlice",
+    "PreconditionedCrankNicolson", "SliceSampler",
 ]

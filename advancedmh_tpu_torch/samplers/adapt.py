@@ -211,3 +211,15 @@ class StepSizeAdaptation(Sampler):
             lambda eps: HamiltonianMC(step_size=eps, n_leapfrog=n_leapfrog,
                                       inverse_mass=inverse_mass),
             target_accept=target_accept, initial_step_size=initial_step_size, **kw)
+
+    @staticmethod
+    def barker(target_accept: float = 0.57, initial_step_size: float = 0.5,
+               **kw) -> "StepSizeAdaptation":
+        """Barker-proposal family tuned to the Vogrinc-Livingstone-Zanella
+        optimum ≈ 0.57. It runs on the torch engine; the fused engine takes
+        only the ``.rwmh`` family."""
+        from .barker import Barker
+
+        return StepSizeAdaptation(lambda eps: Barker(step_size=eps),
+                                  target_accept=target_accept,
+                                  initial_step_size=initial_step_size, **kw)

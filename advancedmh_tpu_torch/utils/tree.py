@@ -8,6 +8,9 @@ from __future__ import annotations
 
 from typing import Any, Callable, List, Optional, Tuple
 
+import numpy as np
+import torch
+
 
 def _children(x) -> Optional[List[Tuple[Any, Any]]]:
     """(path key, child) pairs of a container, or None for a leaf."""
@@ -26,31 +29,40 @@ def _rebuild(template, children: List[Any]):
     return type(template)(children)
 
 
+def _kids(x, is_leaf):
+    return None if (is_leaf is not None and is_leaf(x)) else _children(x)
+
+
+# The walks below are module-level functions on explicit arguments: a nested
+# function that calls itself is a reference cycle (it sits in its own
+# closure), and the cycle would keep the tensors it collects alive until the
+# cyclic garbage collector runs, which device memory does not trigger.
+
+
+def _walk(x, path, is_leaf, out) -> None:
+    kids = _kids(x, is_leaf)
+    if kids is None:
+        out.append((path, x))
+        return
+    for k, v in kids:
+        _walk(v, path + (k,), is_leaf, out)
+
+
+def _build(x, it, is_leaf):
+    kids = _kids(x, is_leaf)
+    if kids is None:
+        return next(it)
+    return _rebuild(x, [_build(v, it, is_leaf) for _, v in kids])
+
+
 def tree_flatten_with_path(tree, is_leaf: Optional[Callable] = None):
     """Leaves of ``tree`` in order, each with its path of dict keys and
     sequence indices, plus a function that rebuilds the tree from leaves."""
     leaves: List[Tuple[tuple, Any]] = []
-
-    def walk(x, path):
-        kids = None if (is_leaf is not None and is_leaf(x)) else _children(x)
-        if kids is None:
-            leaves.append((path, x))
-            return
-        for k, v in kids:
-            walk(v, path + (k,))
-
-    walk(tree, ())
+    _walk(tree, (), is_leaf, leaves)
 
     def unflatten(new_leaves):
-        it = iter(new_leaves)
-
-        def build(x):
-            kids = None if (is_leaf is not None and is_leaf(x)) else _children(x)
-            if kids is None:
-                return next(it)
-            return _rebuild(x, [build(v) for _, v in kids])
-
-        return build(tree)
+        return _build(tree, iter(new_leaves), is_leaf)
 
     return leaves, unflatten
 
@@ -60,27 +72,44 @@ def tree_flatten(tree, is_leaf: Optional[Callable] = None):
     return [leaf for _, leaf in leaves], unflatten
 
 
+def _walk_up_to(s, t, is_leaf, out) -> None:
+    kids = _kids(s, is_leaf)
+    if kids is None:
+        out.append(t)
+        return
+    t_kids = _children(t)
+    if t_kids is None or len(t_kids) != len(kids):
+        raise ValueError("tree does not match the proposal's structure")
+    if isinstance(s, dict):
+        for k, v in kids:
+            _walk_up_to(v, t[k], is_leaf, out)
+    else:
+        for (_, v), (_, tv) in zip(kids, t_kids):
+            _walk_up_to(v, tv, is_leaf, out)
+
+
 def flatten_up_to(structure, tree, is_leaf: Optional[Callable] = None) -> list:
     """Leaves of ``tree`` at the positions of ``structure``'s leaves (the
     subtrees of ``tree`` below them stay whole)."""
     out: list = []
+    _walk_up_to(structure, tree, is_leaf, out)
+    return out
 
-    def walk(s, t):
-        kids = None if (is_leaf is not None and is_leaf(s)) else _children(s)
-        if kids is None:
-            out.append(t)
-            return
-        t_kids = _children(t)
-        if t_kids is None or len(t_kids) != len(kids):
-            raise ValueError("tree does not match the proposal's structure")
-        if isinstance(s, dict):
-            for k, v in kids:
-                walk(v, t[k])
-        else:
-            for (_, v), (_, tv) in zip(kids, t_kids):
-                walk(v, tv)
 
-    walk(structure, tree)
+def leaves_to_matrix(leaves, batch_shape) -> torch.Tensor:
+    """Chain-batched leaves as one (B, D) matrix: B = the batch's size (1
+    for one chain), each leaf's event entries side by side in leaf order."""
+    B = int(np.prod(batch_shape)) if batch_shape else 1
+    return torch.cat([leaf.reshape(B, -1) for leaf in leaves], dim=1)
+
+
+def matrix_to_leaves(mat, like, batch_shape) -> list:
+    """The inverse of :func:`leaves_to_matrix`, shaped as the leaves ``like``."""
+    out, k = [], 0
+    for leaf in like:
+        n = int(np.prod(leaf.shape[len(batch_shape):]))
+        out.append(mat[:, k:k + n].reshape(leaf.shape))
+        k += n
     return out
 
 

@@ -10,9 +10,12 @@ entry points (``sample(engine="fused")`` + ``Chains.summary()``): RWMH (and
 the ``fused_rwmh`` throughput kernel), Langevin MALA, Robust Adaptive
 Metropolis (per chain and pooled), the emcee ensemble, slice 3: AdaptiveHMC
 and HamiltonianMC on the d = 32 logistic regression at 8192 chains and
-dual-averaging RWMH (``StepSizeAdaptation.rwmh``) on the flagship, and slice 4:
+dual-averaging RWMH (``StepSizeAdaptation.rwmh``) on the flagship, slice 4:
 ChEES-HMC and MEADS on the logistic regression at 8192 chains and MEADS on
-Neal's funnel (d = 10). Each path runs
+Neal's funnel (d = 10), and slice 5: slice sampling on the funnel, elliptical
+slice sampling on the d = 64 GP classification and regression, pCN on the
+regression (8192 chains) and the Barker proposal on the flagship and the
+logistic regression. Each path runs
 with every launch counter set to 0 just before it and read just after. The
 posteriors are checked against a float64 grid quadrature (the flagship),
 the analytic means (emcee), the ``engine="torch"`` run and the
@@ -1435,6 +1438,514 @@ def phase_timing_slice4(models, label, errs, times):
                                  key=KEY + 73, chain_type="chains", param_names=names, **kw), "β0")
 
 
+# ---- slice 5: slice sampling, elliptical slice, Barker and pCN ----------------------------
+
+# The main paths: the funnel slice row (bench.py:496-510), the GP classification
+# of examples/ess_gp.py:26-31, the GP regression of tests/test_ess.py at d = 64,
+# and Barker on the flagship (benchmarks/samplers.py:544-553) and on the logistic
+# regression.
+SLICE = dict(width=3.0, max_stepout=8, max_shrink=24)
+GP_CHAINS = 8192
+PCN_WARM = 2000
+PCN_BETA = 0.2
+BARKER_EPS = 0.05
+N_PLAIN_SLICE5 = 10  # steps of the slice-5 plain versions timed at the main paths' widths
+
+
+def gp_models():
+    """The GP latent fields of slice 5, (model, prior, aux) each: regression
+    (noise 0.3, seed 3) and classification (seed 5) at d = 16 and 64."""
+    from advancedmh_tpu_torch.models import gp_latent_model
+
+    return {f"{kind}{d}": gp_latent_model(d, **kw, device=DEVICE) for d in (16, 64)
+            for kind, kw in (("reg", dict(noise=0.3, seed=3)),
+                             ("class", dict(likelihood="logistic", seed=5)))}
+
+
+def _prior_start(prior, C, seed):
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return prior.sample(gen, (C,)).T.contiguous()
+
+
+def phase_kernels_slice5(models, gps, errs, evals):
+    """The four slice-5 kernels against their plain versions at 64-step
+    cases: slice on the funnel and the correlated Gaussian (2048 chains, one
+    with burn > 0 and thin = 3), ESS and pCN on the GP regression and
+    classification at d = 16 and 64 (1024 chains, the tril and the diagonal
+    prior), Barker on the flagship (2048) and the logistic regression (1024).
+    The plain versions of slice and ESS count the density evaluations a
+    chain-step needs (``evals``)."""
+    from advancedmh_tpu_torch.ops import (barker_sample_reference, ess_sample_reference,
+                                          fused_barker_sample, fused_ess_sample,
+                                          fused_pcn_sample, fused_slice_sample,
+                                          pcn_sample_reference, slice_sample_reference)
+
+    def report(name, tag, got, ref, visible):
+        r = agreement(got[:3], ref[:3])
+        print(f"kernel {name} {tag}: {r}")
+        check_agreement(name, r, SHORT_RUN_CHAINS_MIN, visible_steps=visible)
+        errs[name] = max(errs[name], r["max_abs_err"])
+
+    for key, C, width, burn, thin, n in (("funnel", 2048, 3.0, 0, 1, 64),
+                                         ("corr", 2048, 1.5, 4, 3, 20)):
+        m = models[key]
+        p = _gauss_start(m.dimension, C, 120)
+        args = (m.tile_density, m.cuda_density, p, m.tile_density(p, *m.tile_consts),
+                m.tile_consts, 0x51CE)
+        kw = dict(width=width, max_stepout=8, max_shrink=24, burn=burn, thin=thin,
+                  n_samples=n, iteration_offset=(1 << 32) - 30)
+        st = {}
+        got, ref = fused_slice_sample(*args, **kw), slice_sample_reference(*args, **kw, stats=st)
+        evals[f"slice {key}"] = st["density_evals"] / (C * (burn + n * thin))
+        report("slice", f"{key} C={C} width={width} burn={burn} thin={thin} n={n} "
+               f"(density evaluations a chain-step: {evals[f'slice {key}']:.4f})", got, ref,
+               burn == 0 and thin == 1)
+
+    for name, (m, prior, _) in gps.items():
+        C, d = 1024, m.dimension
+        x = _prior_start(prior, C, 121)
+        lp = m.tile_density(x, *m.tile_consts)
+        for tril in (True, False):
+            scale = prior.scale_tril if tril else torch.linspace(0.5, 1.5, d, device=DEVICE)
+            args = (m.tile_density, m.cuda_density, x, lp, torch.zeros(d, device=DEVICE),
+                    scale, m.tile_consts, 0xE550 + d)
+            kw = dict(burn=0, thin=1, n_samples=64, iteration_offset=7)
+            st = {}
+            got = fused_ess_sample(*args, max_shrink=24, **kw)
+            ref = ess_sample_reference(*args, max_shrink=24, **kw, stats=st)
+            evals[f"ess {name} tril={tril}"] = st["density_evals"] / (C * 64)
+            report("ess", f"{name} tril={tril} C={C} 64 steps (likelihood evaluations a "
+                   f"chain-step: {evals[f'ess {name} tril={tril}']:.4f})", got, ref, True)
+            report("pcn", f"{name} tril={tril} C={C} 64 steps",
+                   fused_pcn_sample(*args, beta=PCN_BETA, **kw),
+                   pcn_sample_reference(*args, beta=PCN_BETA, **kw), True)
+
+    for key, C, eps in (("flagship", 2048, BARKER_EPS), ("logreg", 1024, 0.05)):
+        m = models[key]
+        args = hmc_args(m, _slice3_start(m, C, 122), 0xBA4C)
+        kw = dict(step_size=eps, burn=0, thin=1, n_samples=64, iteration_offset=3)
+        got, ref = fused_barker_sample(*args, **kw), barker_sample_reference(*args, **kw)
+        report("barker", f"{m.cuda_density} C={C} eps={eps} 64 steps", got, ref, True)
+        hold_gradient("barker", got[3], ref[3], got[0], ref[0], got[2], ref[2])
+    sync()
+
+
+def _means_mcse(chains, names):
+    """Per parameter: mean and MCSE from its own bulk ESS."""
+    from advancedmh_tpu_torch import ess_bulk
+
+    out = {}
+    for n in names:
+        x = chains[n]
+        out[n] = (float(x.mean()), float(torch.std(x, correction=0)) / float(ess_bulk(x)) ** 0.5)
+    return out
+
+
+def phase_main_slice5(models, gps, label, launches, ref_summary):
+    """The slice-5 main paths through sample(engine="fused") + summary(),
+    each with its launch counter read: slice on the funnel, ESS on the GP
+    classification and regression at d = 64, pCN on the regression, Barker
+    on the flagship and on the logistic regression. Returns the adapted
+    Barker step size of the logistic regression."""
+    from advancedmh_tpu_torch import (Barker, EllipticalSlice, PreconditionedCrankNicolson,
+                                      SliceSampler, StepSizeAdaptation, ess_bulk, sample)
+
+    def path(name, model, spl, n_warm, kernel, **kw):
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        res = sample(model, spl, N_DRAWS, num_chains=kw.pop("num_chains", GP_CHAINS),
+                     engine="fused", discard_initial=n_warm, **kw)
+        names = kw_names(model)
+        chains = res.to_chains(param_names=names)
+        summary = chains.summary()
+        sync()
+        t = time.perf_counter() - t0
+        got = read_launches()
+        check_launches(f"{name} main path", got, {kernel: 1})
+        launches[kernel] = launches.get(kernel, 0) + got[kernel]
+        check(bool(torch.isfinite(res.transitions.lp).all()), f"{name}: non-finite lp")
+        check(bool(torch.isfinite(chains.values).all()), f"{name}: non-finite draws")
+        acc = float(res.transitions.accepted.float().mean())
+        ess0 = float(ess_bulk(chains[names[0]]))
+        print(f"[{label}] {name} first sample(engine='fused') + summary {t:.4f} s; acceptance "
+              f"{acc:.4f}; max R-hat {max(s['rhat'] for s in summary.values()):.5f}; "
+              f"ess_bulk({names[0]})={ess0:.1f}, ESS/s({names[0]}) incl. summary {ess0 / t:.6e}")
+        return res, chains, summary, acc
+
+    res, chains, summary, acc = path("slice funnel", models["funnel"], SliceSampler(**SLICE),
+                                     N_WARM, "slice", key=KEY + 80,
+                                     initial_params=torch.zeros(10, device=DEVICE))
+    v = res.transitions.params[:, :, 0]
+    p2, p4 = float((v < -2).float().mean()), float((v < -4).float().mean())
+    print(f"slice funnel: P(v < -2) {p2:.4f} (exact 0.2525), P(v < -4) {p4:.4f} (exact 0.0912), "
+          f"mean v {float(v.mean()):.4f}")
+    check(acc >= 0.95, f"slice funnel acceptance {acc}")
+    check(0.22 <= p2 <= 0.28, f"slice funnel P(v < -2) {p2}")
+    check(abs(float(v.mean())) < 0.3, "slice funnel mean v")
+
+    m, prior, aux = gps["class64"]
+    res, chains, summary, acc = path("ess gp classification d=64", m, EllipticalSlice(prior),
+                                     N_WARM, "ess", key=KEY + 81)
+    post = res.transitions.params.mean((0, 1)).double().cpu().numpy()
+    f_true = aux["f_true"]
+    conf = np.abs(f_true) > 0.5
+    agree = float((np.sign(post[conf]) == np.sign(f_true[conf])).mean())
+    corr = float(np.corrcoef(post, f_true)[0, 1])
+    print(f"ess gp classification: sign agreement on |f_true| > 0.5 {agree:.4f}, corr(posterior "
+          f"mean, f_true) {corr:.4f} ({int((aux['y'] > 0).sum())} of 64 labels are +1)")
+    check(agree >= 0.95, "ess gp classification sign agreement")
+    check(acc > 0.995, f"ess gp classification acceptance {acc}")
+    # The labels fix the sign of the posterior mean, not its shape (f_true is
+    # negative on the whole grid at this seed), so the mean is held against an
+    # engine="torch" ESS run of the same model instead of f_true's shape.
+    ref = sample(m, EllipticalSlice(prior), 600, key=KEY + 82, num_chains=512,
+                 discard_initial=N_WARM, chain_type="chains", param_names=kw_names(m))
+    compare_means("ess gp classification", summary, ref.summary(), kw_names(m))
+
+    m, prior, aux = gps["reg64"]
+    res, chains, summary, acc = path("ess gp regression d=64", m, EllipticalSlice(prior), N_WARM,
+                                     "ess", key=KEY + 83)
+    d = res.transitions.params
+    mean, var = d.mean((0, 1)).double().cpu().numpy(), d.var((0, 1)).double().cpu().numpy()
+    m_err = float(np.abs(mean - aux["post_mean"]).max())
+    v_err = float(np.max(np.abs(var - np.diag(aux["post_cov"]))
+                         / (0.01 + 0.15 * np.diag(aux["post_cov"]))))
+    print(f"ess gp regression: max |mean - closed form| {m_err:.5f} (atol 0.03), variance "
+          f"error over its tolerance {v_err:.4f} (rtol 0.15, atol 0.01)")
+    check(m_err < 0.03 and v_err < 1.0, "ess gp regression against the closed form")
+    check(acc > 0.995, f"ess gp regression acceptance {acc}")
+
+    res, chains, summary, acc = path("pcn gp regression d=64", m,
+                                     PreconditionedCrankNicolson(prior, beta=PCN_BETA), PCN_WARM,
+                                     "pcn", key=KEY + 84)
+    mm = _means_mcse(chains, kw_names(m))
+    worst = max(abs(mm[n][0] - aux["post_mean"][i]) / mm[n][1]
+                for i, n in enumerate(kw_names(m)))
+    print(f"pcn gp regression: acceptance {acc:.4f}; largest |mean - closed form| / MCSE "
+          f"{worst:.3f} (limit 5)")
+    check(worst < 5.0, "pcn gp regression means against the closed form")
+
+    flag = models["flagship"]
+    res, chains, summary, acc = path("barker flagship", flag, Barker(BARKER_EPS), N_WARM,
+                                     "barker", num_chains=N_CHAINS, key=KEY + 85,
+                                     initial_params=[0.0, 1.0])
+    mu_q, sig_q = grid_posterior_means(flag.tile_consts[0].cpu().numpy().ravel())
+    # At ε = 0.05 a chain of 4000 draws holds ~50 effective draws, so R̂ of a
+    # stationary run sits near sqrt(1 + 1/50) ≈ 1.01: held at 1.05, as the
+    # logistic regression's path.
+    rhat = max(s["rhat"] for s in summary.values())
+    per_chain = float(ess_bulk(chains["μ"])) / N_CHAINS
+    print(f"barker flagship: means {summary['μ']['mean']:.5f}, {summary['σ']['mean']:.5f} "
+          f"(quadrature {mu_q:.5f}, {sig_q:.5f}); max R-hat {rhat:.5f} with "
+          f"{per_chain:.1f} effective draws a chain")
+    check(abs(summary["μ"]["mean"] - mu_q) < 0.01 and abs(summary["σ"]["mean"] - sig_q) < 0.01,
+          "barker flagship: means vs quadrature")
+    check(rhat < 1.05, f"barker flagship: R-hat {rhat}")
+
+    lr = models["logreg"]
+    t0 = time.perf_counter()
+    warm = sample(lr, StepSizeAdaptation.barker(), 1, num_chains=512, num_warmup=N_WARM,
+                  discard_initial=N_WARM, initial_params=torch.zeros(32, device=DEVICE),
+                  key=KEY + 86)
+    eps = float(torch.exp(warm.final_state.log_eps_bar).median())
+    print(f"[{label}] engine=torch StepSizeAdaptation.barker() warmup 512 x {N_WARM}: "
+          f"{time.perf_counter() - t0:.4f} s, median eps-bar {eps:.6f}")
+    res, chains, summary, acc = path("barker logistic regression", lr, Barker(eps), N_WARM,
+                                     "barker", key=KEY + 87,
+                                     initial_params=torch.zeros(32, device=DEVICE))
+    rhat = max(s["rhat"] for s in summary.values())
+    check(rhat < 1.05, f"barker logistic regression: R-hat {rhat}")
+    compare_means("barker logistic regression", summary, ref_summary, kw_names(lr))
+    return eps
+
+
+def kw_names(model):
+    """The parameter names the paths bundle under."""
+    if model.cuda_density == "gaussian_mean_scale":
+        return ["μ", "σ"]
+    if model.cuda_density == "logistic_regression":
+        return [f"β{j}" for j in range(32)]
+    if model.cuda_density == "neal_funnel":
+        return ["v"] + [f"x{i}" for i in range(1, 10)]
+    return [f"f{i}" for i in range(model.dimension)]
+
+
+def phase_slice5_checks(models, gps):
+    """tests/test_pallas.py's card-only checks of the four samplers at their
+    shapes (the diagonal prior in place of ESS's scalar custom density) and
+    split runs of all four through initial_state + iteration_offset, held
+    bit for bit."""
+    from advancedmh_tpu_torch import (Barker, EllipticalSlice, MvNormal,
+                                      PreconditionedCrankNicolson, SliceSampler, sample)
+
+    sig = np.array([[1.5, 0.35], [0.35, 1.0]])
+    corr, flag = models["corr"], models["flagship"]
+
+    def flat(res, d):
+        return res.transitions.params.reshape(-1, d).double().cpu().numpy()
+
+    res = sample(corr, Barker(step_size=0.9), 4000, key=13, num_chains=N_CHECK, engine="fused",
+                 discard_initial=1000, initial_params=[1.0, 1.0])
+    dr, acc = flat(res, 2), float(res.transitions.accepted.float().mean())
+    x = res.final_state.params.double().cpu().numpy()
+    g_err = np.abs(res.final_state.gradient.double().cpu().numpy()
+                   + (np.linalg.inv(sig) @ x.T).T).max()
+    print(f"barker correlated {N_CHECK}x(1000+4000): acceptance {acc:.4f} mean "
+          f"{dr.mean(0).tolist()} cov {np.cov(dr.T).tolist()} final-gradient |err| {g_err:.3g}")
+    check(np.allclose(dr.mean(0), 0.0, atol=0.05), "barker correlated mean")
+    check(np.allclose(np.cov(dr.T), sig, atol=0.1), "barker correlated covariance")
+    check(0.3 < acc < 0.9, "barker correlated acceptance")
+    check(g_err < 1e-3 * (1 + np.abs(x).max()), "barker correlated final gradient")
+
+    m, prior, aux = gps["reg16"]
+    spl = PreconditionedCrankNicolson(prior, beta=0.2)
+    res = sample(m, spl, 4000, key=11, num_chains=N_CHECK, engine="fused", discard_initial=2000)
+    p = res.transitions.params
+    mean, var = p.mean((0, 1)).double().cpu().numpy(), p.var((0, 1)).double().cpu().numpy()
+    acc = float(res.transitions.accepted.float().mean())
+    res_t = sample(m, spl, 500, key=12, num_chains=1024, engine="fused", discard_initial=1000,
+                   thinning=4)
+    mean_t = res_t.transitions.params.mean((0, 1)).double().cpu().numpy()
+    print(f"pcn gp d=16 {N_CHECK}x(2000+4000): acceptance {acc:.4f}, max |mean - closed form| "
+          f"{np.abs(mean - aux['post_mean']).max():.5f}; thin 4: "
+          f"{np.abs(mean_t - aux['post_mean']).max():.5f}")
+    check(np.allclose(mean, aux["post_mean"], atol=0.03), "pcn gp mean")
+    check(np.allclose(var, np.diag(aux["post_cov"]), rtol=0.2, atol=0.01), "pcn gp variance")
+    check(0.2 < acc < 0.95, "pcn gp acceptance")
+    check(np.allclose(mean_t, aux["post_mean"], atol=0.05), "pcn gp thin 4 mean")
+
+    res = sample(m, EllipticalSlice(prior), 800, key=11, num_chains=N_CHECK, engine="fused",
+                 discard_initial=100)
+    dr, acc = flat(res, 16), float(res.transitions.accepted.float().mean())
+    print(f"ess gp d=16 {N_CHECK}x(100+800): acceptance {acc:.5f}, max |mean - closed form| "
+          f"{np.abs(dr.mean(0) - aux['post_mean']).max():.5f}")
+    check(np.allclose(dr.mean(0), aux["post_mean"], atol=0.03), "ess gp mean")
+    check(np.allclose(dr.var(0), np.diag(aux["post_cov"]), rtol=0.15, atol=0.01),
+          "ess gp variance")
+    check(acc > 0.995, "ess gp acceptance")
+    s2 = 0.3 ** 2
+    diag = EllipticalSlice(MvNormal(torch.zeros(16, device=DEVICE),
+                                    scale_diag=torch.ones(16, device=DEVICE)))
+    res = sample(m, diag, 1000, key=3, num_chains=N_CHECK, engine="fused", discard_initial=600)
+    dr = flat(res, 16)
+    m_err = np.abs(dr.mean(0) - aux["y"] / (1.0 + s2)).max()
+    v_err = np.abs(dr.var(0) / (s2 / (1.0 + s2)) - 1.0).max()
+    print(f"ess diagonal prior d=16 {N_CHECK}x(600+1000): max |mean - y/(1+s2)| {m_err:.5f}, max "
+          f"relative variance error {v_err:.4f}")
+    check(m_err < 0.01 and v_err < 0.05, "ess diagonal prior closed form")
+    mc, prior_c, aux_c = gps["class16"]
+    res = sample(mc, EllipticalSlice(prior_c), 200, key=12, num_chains=1024, engine="fused",
+                 discard_initial=100, thinning=3)
+    conf = np.abs(aux_c["f_true"]) > 0.5
+    agree = (np.sign(flat(res, 16).mean(0)[conf]) == np.sign(aux_c["f_true"][conf])).mean()
+    print(f"ess gp logistic d=16 thin 3: sign agreement {agree:.4f}")
+    check(agree > 0.95 and tuple(res.final_state.params.shape) == (1024, 16),
+          "ess gp logistic thin 3")
+
+    res = sample(flag, SliceSampler(width=0.5), 2000, key=14, num_chains=N_CHECK, engine="fused",
+                 discard_initial=200, initial_params=[0.0, 1.0])
+    dr, acc = flat(res, 2), float(res.transitions.accepted.float().mean())
+    print(f"slice flagship {N_CHECK}x(200+2000): means {dr.mean(0).tolist()} (quadrature "
+          f"0.0268, 1.1810), acceptance {acc:.5f}")
+    check(abs(dr[:, 0].mean() - 0.0268) < 0.03 and abs(dr[:, 1].mean() - 1.1810) < 0.03,
+          "slice flagship means")
+    check(acc > 0.995, "slice flagship acceptance")
+    res = sample(corr, SliceSampler(width=1.5), 1500, key=15, num_chains=N_CHECK, engine="fused",
+                 discard_initial=300, thinning=2, initial_params=[0.0, 0.0])
+    dr = flat(res, 2)
+    print(f"slice correlated thin 2: mean {dr.mean(0).tolist()} cov {np.cov(dr.T).tolist()}")
+    check(np.allclose(dr.mean(0), 0.0, atol=0.05) and np.allclose(np.cov(dr.T), sig, atol=0.1),
+          "slice correlated thin 2")
+
+    # split runs: 2n in one call = n, then n resumed from the final state
+    split = [
+        ("slice", flag, SliceSampler(width=0.5), dict(initial_params=[0.0, 1.0])),
+        ("ess", mc, EllipticalSlice(prior_c), {}),
+        ("barker", flag, Barker(BARKER_EPS), dict(initial_params=[0.0, 1.0])),
+        ("pcn", m, PreconditionedCrankNicolson(prior, beta=0.2), {}),
+    ]
+    for name, mod, spl, init in split:
+        kw = dict(num_chains=N_CHECK, engine="fused", key=KEY + 90, thinning=2)
+        whole = sample(mod, spl, 400, discard_initial=N_WARM, **init, **kw)
+        first = sample(mod, spl, 200, discard_initial=N_WARM, **init, **kw)
+        rest = sample(mod, spl, 200, discard_initial=2, initial_state=first.final_state,
+                      iteration_offset=N_WARM - 2 + 400, **kw)
+        same = all(torch.equal(torch.cat([getattr(first.transitions, f),
+                                          getattr(rest.transitions, f)], 1),
+                               getattr(whole.transitions, f))
+                   for f in ("params", "lp", "accepted"))
+        if name == "barker":
+            same = same and torch.equal(rest.final_state.gradient, whole.final_state.gradient)
+        print(f"{name} split run {N_CHECK} chains, {N_WARM} + 2 x 200 thin 2: bit-exact {same}")
+        check(same, f"{name}: the split run differs from the unsplit one")
+    sync()
+
+
+# float32 operations counted from csrc/{slice,ess,barker,pcn}.cu and the
+# functors, as the earlier bounds (Philox's integer work not counted). A GP
+# regression evaluation is 3d + 3, a classification 10d + 1 (negate-multiply,
+# softplus's max, abs, exp, add, log and add, the sum), the funnel's 2d + 10
+# (_FUNNEL_OPS) and a candidate x + t u (slice) 2d, (mu + (x - mu) cos) + nu sin
+# (ESS) 5d and two of cosf/sinf.
+
+
+def _gp_ops(d: int, regression: bool) -> int:
+    return 3 * d + 3 if regression else 10 * d + 1
+
+
+def _bound(nbytes: float, flops: float):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _io_bytes(C: int, d: int, emitted: int, extra: int = 0) -> int:
+    """x and lp in, the draws (d + 2 floats a chain and draw) out."""
+    return ((d + 1) * C + emitted * (d + 2) * C + extra) * 4
+
+
+def bound_slice(C: int, steps: int, emitted: int, evals: float, d: int = 10):
+    """A slice launch on the funnel: per step the direction (noise, 3d and
+    a sqrt, divide), the slice height and bracket (8), and ``evals``
+    evaluations of a candidate (2d) and the funnel (2d + 10) plus the
+    bracket update (4)."""
+    step = _noise_ops(d) + 3 * d + 2 + 8 + evals * (4 * d + 14)
+    return _bound(_io_bytes(C, d, emitted), step * steps * C)
+
+
+def bound_ess(C: int, steps: int, emitted: int, evals: float, d: int, regression: bool,
+              tril: bool = True):
+    """An ESS launch on the GP: per step the noise, ν − μ (d(d+1) for the
+    factor, d for a diagonal), the slice height and θ₀ (4), and ``evals``
+    trips of a candidate (5d + 2), the likelihood and the bracket (5)."""
+    step = (_noise_ops(d) + (d * (d + 1) if tril else d) + 4
+            + evals * (5 * d + 2 + _gp_ops(d, regression) + 5))
+    consts = d + (2 if regression else 0) + d + (d * d if tril else d)
+    return _bound(_io_bytes(C, d, emitted, consts), step * steps * C)
+
+
+def bound_pcn(C: int, steps: int, emitted: int, d: int, regression: bool):
+    """A pCN launch on the GP: RWMH's step with L z (d(d+1)), the
+    contraction (5d) and the accept (2)."""
+    step = _noise_ops(d) + d * (d + 1) + 5 * d + _gp_ops(d, regression) + 2
+    consts = d + (2 if regression else 0) + d + d * d
+    return _bound(_io_bytes(C, d, emitted, consts), step * steps * C)
+
+
+def bound_barker(C: int, steps: int, emitted: int, d: int, vg_ops: int, n_consts: int):
+    """A Barker launch: per step the noise and σ z (d), the logit sign test
+    (6d), δ and y (2d), one value and gradient, the Hastings sum (two
+    softplus and four more a coordinate, 18d) and the accept (4). In: x,
+    lp, the gradient and the constants; out: the draws and the gradient."""
+    step = _noise_ops(d) + d + 6 * d + 2 * d + vg_ops + 18 * d + 4
+    return _bound(_io_bytes(C, d, emitted, n_consts + 2 * d * C), step * steps * C)
+
+
+def phase_timing_slice5(models, gps, label, errs, times, evals, barker_eps):
+    """The four kernels at their main paths' shapes (best of 3) with their
+    bounds, the plain versions at the paths' widths over N_PLAIN_SLICE5
+    steps, held against the kernel there, and ESS/s of each path including
+    summary()."""
+    from advancedmh_tpu_torch import (Barker, EllipticalSlice, PreconditionedCrankNicolson,
+                                      SliceSampler, sample)
+    from advancedmh_tpu_torch.ops import (barker_sample_reference, ess_sample_reference,
+                                          fused_barker_sample, fused_ess_sample,
+                                          fused_pcn_sample, fused_slice_sample,
+                                          pcn_sample_reference, slice_sample_reference)
+
+    C, steps = GP_CHAINS, N_WARM - 1 + N_DRAWS
+    short = dict(burn=0, n_samples=N_PLAIN_SLICE5)
+
+    def timed(name, fn, plain, args, kw, tag):
+        t_k, out = best_of(lambda: fn(*args, **kw))
+        del out
+        kws = dict(kw, **short)
+        t_ks, out = best_of(lambda: fn(*args, **kws))
+        t_p, ref = best_of(lambda: plain(*args, **kws), PLAIN_REPEATS)
+        print(f"[{label}] {name} {tag}: kernel {t_k * 1e3:.4f} ms; at {args[2].shape[1]} x "
+              f"{N_PLAIN_SLICE5}: kernel {t_ks * 1e3:.4f} ms, plain {t_p * 1e3:.4f} ms")
+        hold(errs, name, f"{args[2].shape[1]} x {N_PLAIN_SLICE5}", out[:3], ref[:3])
+        return t_k, t_p
+
+    fun = models["funnel"]
+    x0 = torch.zeros(10, C, device=DEVICE)
+    args = (fun.tile_density, fun.cuda_density, x0, fun.tile_density(x0), (), KEY)
+    kw = dict(**SLICE, burn=N_WARM - 1, thin=1, n_samples=N_DRAWS)
+    t_k, t_p = timed("slice", fused_slice_sample, slice_sample_reference, args, kw,
+                     f"funnel at {C} x ({N_WARM - 1} + {N_DRAWS})")
+    ev = evals["slice funnel"]
+    times["slice"] = (t_k, t_p, bound_slice(C, steps, N_DRAWS, ev),
+                      f"plain at {C} x {N_PLAIN_SLICE5} steps; bound at {ev:.4f} evaluations a "
+                      "chain-step (the 64-step case's)")
+    print(f"[{label}] slice bound {times['slice'][2][0] * 1e3:.4f} ms ({times['slice'][2][1]})")
+
+    for key, regression in (("class64", False), ("reg64", True)):
+        m, prior, _ = gps[key]
+        x = _prior_start(prior, C, 123)
+        args = (m.tile_density, m.cuda_density, x, m.tile_density(x, *m.tile_consts),
+                torch.zeros(64, device=DEVICE), prior.scale_tril, m.tile_consts, KEY)
+        kw = dict(max_shrink=24, burn=N_WARM - 1, thin=1, n_samples=N_DRAWS)
+        t_k, t_p = timed("ess", fused_ess_sample, ess_sample_reference, args, kw,
+                         f"gp {key} at {C} x ({N_WARM - 1} + {N_DRAWS})")
+        ev = evals[f"ess {key} tril=True"]
+        b = bound_ess(C, steps, N_DRAWS, ev, 64, regression)
+        print(f"[{label}] ess {key} bound {b[0] * 1e3:.4f} ms ({b[1]}, {ev:.4f} evaluations a "
+              f"chain-step)")
+        if key == "class64":
+            times["ess"] = (t_k, t_p, b, f"plain at {C} x {N_PLAIN_SLICE5} steps; bound at "
+                            f"{ev:.4f} likelihood evaluations a chain-step (the 64-step case's)")
+
+    m, prior, _ = gps["reg64"]
+    x = _prior_start(prior, C, 124)
+    args = (m.tile_density, m.cuda_density, x, m.tile_density(x, *m.tile_consts),
+            torch.zeros(64, device=DEVICE), prior.scale_tril, m.tile_consts, KEY)
+    kw = dict(beta=PCN_BETA, burn=PCN_WARM - 1, thin=1, n_samples=N_DRAWS)
+    t_k, t_p = timed("pcn", fused_pcn_sample, pcn_sample_reference, args, kw,
+                     f"gp reg64 at {C} x ({PCN_WARM - 1} + {N_DRAWS})")
+    times["pcn"] = (t_k, t_p, bound_pcn(C, PCN_WARM - 1 + N_DRAWS, N_DRAWS, 64, True),
+                    f"plain at {C} x {N_PLAIN_SLICE5} steps")
+
+    for key, Cb, eps in (("flagship", N_CHAINS, BARKER_EPS), ("logreg", C, barker_eps)):
+        m = models[key]
+        p0 = (torch.tensor([[0.0], [1.0]], device=DEVICE).expand(2, Cb).contiguous()
+              if key == "flagship" else torch.zeros(32, Cb, device=DEVICE))
+        args = hmc_args(m, p0, KEY)
+        kw = dict(step_size=eps, burn=N_WARM - 1, thin=1, n_samples=N_DRAWS)
+        t_k, t_p = timed("barker", fused_barker_sample, barker_sample_reference, args, kw,
+                         f"{key} at {Cb} x ({N_WARM - 1} + {N_DRAWS})")
+        if key == "flagship":
+            b = bound_barker(Cb, steps, N_DRAWS, 2, 8 * _N_OBS + 15, _N_OBS)
+            times["barker"] = (t_k, t_p, b, f"plain at {Cb} x {N_PLAIN_SLICE5} steps")
+        else:
+            b = bound_barker(Cb, steps, N_DRAWS, 32, logreg_vg_ops(32, 256), 256 * 33 + 1)
+        print(f"[{label}] barker {key} bound {b[0] * 1e3:.4f} ms ({b[1]})")
+
+    zeros10 = torch.zeros(10, device=DEVICE)
+    paths = [
+        ("slice funnel", models["funnel"], SliceSampler(**SLICE), N_WARM, "v",
+         dict(initial_params=zeros10)),
+        ("ess gp classification d=64", gps["class64"][0], EllipticalSlice(gps["class64"][1]),
+         N_WARM, "f0", {}),
+        ("ess gp regression d=64", gps["reg64"][0], EllipticalSlice(gps["reg64"][1]), N_WARM,
+         "f0", {}),
+        ("pcn gp regression d=64", gps["reg64"][0],
+         PreconditionedCrankNicolson(gps["reg64"][1], beta=PCN_BETA), PCN_WARM, "f0", {}),
+        ("barker logistic regression", models["logreg"], Barker(barker_eps), N_WARM, "β0",
+         dict(initial_params=torch.zeros(32, device=DEVICE))),
+    ]
+    for name, m, spl, n_warm, param, kw in paths:
+        time_path(label, f"{name} sample(engine='fused') {C} x ({n_warm} + {N_DRAWS})",
+                  lambda: sample(m, spl, N_DRAWS, num_chains=C, engine="fused",
+                                 discard_initial=n_warm, key=KEY + 91, chain_type="chains",
+                                 param_names=kw_names(m), **kw), param)
+    time_path(label, f"barker flagship sample(engine='fused') {N_CHAINS} x ({N_WARM} + "
+              f"{N_DRAWS})",
+              lambda: sample(models["flagship"], Barker(BARKER_EPS), N_DRAWS,
+                             num_chains=N_CHAINS, engine="fused", discard_initial=N_WARM,
+                             initial_params=[0.0, 1.0], key=KEY + 92, chain_type="chains",
+                             param_names=["μ", "σ"]), "μ")
+
+
 # ---- timing ------------------------------------------------------------------------
 
 
@@ -1500,12 +2011,16 @@ def time_path(label, name, run, param):
     """sample(...) + Chains.summary(), best of 3, and ESS/s on ``param``."""
     from advancedmh_tpu_torch import ess_bulk
 
+    torch.cuda.reset_peak_memory_stats()
     t_sample, chains = best_of(run)
     ess_p = float(ess_bulk(chains[param]))
+    del chains  # the draws of a d = 64 path take 8.4 GB
     t_summary, _ = best_of(lambda: run().summary())
     print(f"[{label}] {name}: sample {t_sample:.4f} s, sample + Chains.summary() "
           f"{t_summary:.4f} s (best of 3), ess_bulk({param})={ess_p:.1f}, "
-          f"ESS/s({param})={ess_p / t_sample:.6e}, incl. summary {ess_p / t_summary:.6e}")
+          f"ESS/s({param})={ess_p / t_sample:.6e}, incl. summary {ess_p / t_summary:.6e}; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held after")
 
 
 def phase_timing_new(models, label, errs, times):
@@ -1718,7 +2233,8 @@ def ptxas_summary(report: str):
         if m:
             mangled = m.group(1)
             dens = re.findall(r"(GaussianMeanScale|EmceeDemo|CorrelatedGaussianILi\d+E"
-                              r"|LogisticRegressionILi\d+E|NealFunnelILi\d+E)", mangled)
+                              r"|LogisticRegressionILi\d+E|NealFunnelILi\d+E"
+                              r"|GPRegressionILi\d+E|GPClassificationILi\d+E)", mangled)
             flags = re.findall(r"Lb([01])E", mangled)
             kernel = re.match(r"_ZN3amh\d+([a-z_]+)", mangled).group(1)
             density = re.sub(r"ILi(\d+)E", r"<\1>", dens[0]) if dens else "?"
@@ -1745,6 +2261,10 @@ REPLACES = {
     "chees_warmup": ("advancedmh_tpu/ops/pallas_chees.py:306", "chees.cu"),
     "chees_frozen": ("advancedmh_tpu/ops/pallas_chees.py:73", "chees.cu"),
     "meads": ("advancedmh_tpu/ops/pallas_meads.py:68", "meads.cu"),
+    "slice": ("advancedmh_tpu/ops/pallas_slice.py:35", "slice.cu"),
+    "ess": ("advancedmh_tpu/ops/pallas_ess.py:51", "ess.cu"),
+    "barker": ("advancedmh_tpu/ops/pallas_barker.py:36", "barker.cu"),
+    "pcn": ("advancedmh_tpu/ops/pallas_pcn.py:27", "pcn.cu"),
 }
 
 
@@ -1778,6 +2298,9 @@ def main() -> None:
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True).stdout.strip().splitlines()
     print(f"build: {path.name} in {build_s:.2f} s ({nvcc[-1] if nvcc else 'nvcc'})")
+    for line in report.splitlines():
+        if line.startswith("amh build:"):
+            print(f"  {line}")
     for line in ptxas_summary(report):
         print(f"  ptxas: {line}")
     lib = _build.library()
@@ -1796,11 +2319,14 @@ def main() -> None:
         "diag9": correlated_gaussian_model(np.diag([9.0, 1.0]), device=DEVICE),
         "funnel": neal_funnel_model(10, device=DEVICE),
     }
+    gps = gp_models()
     errs = {name: 0.0 for name in REPLACES}
+    evals = {}
     phase_kernels_rwmh(models["flagship"], errs)
     phase_kernels_new(models, errs)
     phase_kernels_slice3(models, errs)
     phase_kernels_slice4(models, errs)
+    phase_kernels_slice5(models, gps, errs, evals)
     print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
 
     launches = {}
@@ -1814,6 +2340,8 @@ def main() -> None:
     phase_slice3_checks(models)
     phase_main_chees_meads(models, label, launches, ref_summary)
     phase_slice4_checks(models)
+    barker_eps = phase_main_slice5(models, gps, label, launches, ref_summary)
+    phase_slice5_checks(models, gps)
     print(f"main paths done at {time.perf_counter() - t_start:.1f} s")
 
     times = {}
@@ -1821,6 +2349,7 @@ def main() -> None:
     phase_timing_new(models, label, errs, times)
     phase_timing_slice3(models, label, errs, times, med_eps, minv_med)
     phase_timing_slice4(models, label, errs, times)
+    phase_timing_slice5(models, gps, label, errs, times, evals, barker_eps)
     print(f"[{label}] chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     kernels = []

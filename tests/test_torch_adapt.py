@@ -2,7 +2,7 @@
 update after a fixed accept sequence against the JAX sampler's
 ``step_warmup_batched`` (1e-6), the kernel's ``exp(−κ log t)`` form against
 ``t^−κ``, ``optimal_rwmh_accept``, tests/test_adapt.py's tests at small sizes
-(the Barker family waits for the port's Barker sampler), the fused engine's
+(the Barker family included), the fused engine's
 family and schedule errors (tests/test_pallas.py, tests/test_fused_runtime.py)
 and the fused dual-averaging engine on its plain version, a split run
 included (bit for bit).
@@ -182,6 +182,15 @@ class TestMALAFamily:
                      initial_params=torch.zeros(2))
         draws = res.transitions.params.reshape(-1, 2).numpy()
         assert np.abs(np.cov(draws.T) - SIG_).max() < 0.2
+
+
+class TestBarkerFamily:
+    def test_acceptance_hits_barker_target(self):
+        model, _ = _quadratic_model()
+        spl = StepSizeAdaptation.barker(initial_step_size=5.0)
+        res = sample(model, spl, 800, key=4, num_chains=64, num_warmup=1200,
+                     initial_params=torch.zeros(2))
+        assert abs(float(res.transitions.accepted.float().mean()) - 0.57) < 0.1
 
 
 class TestPerChainAdaptation:

@@ -85,13 +85,13 @@ def test_kernel_sources_ship_with_the_package():
 
 
 def test_every_wrapper_on_cpu_launches_nothing():
-    """All five kernel wrappers: the main paths on CPU tensors run the plain
+    """The kernel wrappers: the main paths on CPU tensors run the plain
     versions, and no library is built or loaded."""
     import numpy as np
 
     import advancedmh_tpu_torch as port
     from advancedmh_tpu_torch.models import (correlated_gaussian_model, emcee_demo_model,
-                                             gaussian_mean_scale_model)
+                                             gaussian_mean_scale_model, gp_latent_model)
     from advancedmh_tpu_torch.ops import KERNEL_WRAPPERS, _build
 
     for w in KERNEL_WRAPPERS.values():
@@ -107,6 +107,11 @@ def test_every_wrapper_on_cpu_launches_nothing():
                 port.Ensemble(16, port.StretchProposal([port.InverseGamma(2.0, 3.0),
                                                         port.Normal(0.0, 1.0)])),
                 5, engine="fused")
+    port.sample(flag, port.SliceSampler(), 5, engine="fused", discard_initial=2, **kw)
+    port.sample(flag, port.Barker(0.1), 5, engine="fused", discard_initial=2, **kw)
+    gp, prior, _ = gp_latent_model(8, device="cpu")
+    for spl in (port.EllipticalSlice(prior), port.PreconditionedCrankNicolson(prior)):
+        port.sample(gp, spl, 5, engine="fused", num_chains=8)
     assert all(w.launches == 0 for w in KERNEL_WRAPPERS.values())
     assert _build.library.cache_info().currsize == 0
 
@@ -125,7 +130,8 @@ class _FakeLibrary:
         return b"an error"
 
 
-@pytest.mark.parametrize("kernel", ["rwmh", "mala", "ram", "emcee"])
+@pytest.mark.parametrize("kernel", ["rwmh", "mala", "ram", "emcee", "slice", "ess", "barker",
+                                    "pcn"])
 def test_check_is_the_one_error_for_missing_pairs(kernel):
     """No kernel for the (tag, d) pair -- an unknown tag, no tag, or a d the
     library lacks -- is one ValueError naming the pairs the library has; any
@@ -154,7 +160,7 @@ def test_model_tags_name_cuda_functors():
     import numpy as np
 
     from advancedmh_tpu_torch.models import (correlated_gaussian_model, emcee_demo_model,
-                                             gaussian_mean_scale_model,
+                                             gaussian_mean_scale_model, gp_latent_model,
                                              logistic_regression_model, neal_funnel_model)
 
     names = set(re.findall(r'kName = "(\w+)"', (PKG / "csrc" / "common.cuh").read_text()))
@@ -162,7 +168,9 @@ def test_model_tags_name_cuda_functors():
                                      correlated_gaussian_model(np.eye(2), device="cpu"),
                                      emcee_demo_model(device="cpu"),
                                      logistic_regression_model(16, 2, device="cpu"),
-                                     neal_funnel_model(device="cpu"))}
+                                     neal_funnel_model(device="cpu"),
+                                     gp_latent_model(8, device="cpu")[0],
+                                     gp_latent_model(8, "logistic", device="cpu")[0])}
     assert tags == names
     for path in PKG.rglob("*.py"):
         assert "CUDA_DENSITIES" not in path.read_text(), path

@@ -546,3 +546,119 @@ def test_slice4_wrappers_raise_for_what_has_no_kernel(model):
     for kernel in ("chees", "meads"):
         pairs = _build.kernel_pairs(_build.library(), kernel)
         assert {("logistic_regression", 32), ("neal_funnel", 10)} <= pairs
+
+
+# ---- slice 5: slice sampling, elliptical slice, Barker, pCN ------------------------
+
+
+def _gp(d, lik):
+    from advancedmh_tpu_torch.models import gp_latent_model
+
+    return gp_latent_model(d, likelihood=lik, seed=5, device="cuda")
+
+
+@pytest.mark.parametrize("target,width", [("flagship", 0.5), ("corr2", 1.5), ("funnel", 3.0)])
+@pytest.mark.parametrize("C,burn,thin,n,offset", [
+    (2048, 0, 1, 32, 0), (2001, 5, 3, 11, (1 << 32) - 20),
+])
+def test_slice_kernel_matches_plain(model, target, width, C, burn, thin, n, offset):
+    from advancedmh_tpu_torch.ops import fused_slice_sample, slice_sample_reference
+
+    m = _slice4_model(model, target)
+    p = _slice4_start(m, C, seed=C)
+    lp = m.tile_density(p, *m.tile_consts)
+    args = (m.tile_density, m.cuda_density, p, lp, m.tile_consts, 91)
+    kw = dict(width=width, max_stepout=8, max_shrink=24, burn=burn, thin=thin, n_samples=n,
+              iteration_offset=offset)
+    before = fused_slice_sample.launches
+    got = fused_slice_sample(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_slice_sample.launches == before + 1
+    dec, chains = _agree(got, slice_sample_reference(*args, **kw))
+    assert dec >= 0.999 and chains >= 0.999
+
+
+@pytest.mark.parametrize("lik", ["gaussian", "logistic"])
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("tril", [True, False])
+@pytest.mark.parametrize("kernel", ["ess", "pcn"])
+def test_prior_kernels_match_plain(lik, d, tril, kernel):
+    from advancedmh_tpu_torch.ops import (ess_sample_reference, fused_ess_sample,
+                                          fused_pcn_sample, pcn_sample_reference)
+
+    m, prior, _ = _gp(d, lik)
+    C = 1024
+    x = (prior.scale_tril @ torch.randn(d, C, device="cuda",
+                                        generator=torch.Generator("cuda").manual_seed(d)))
+    lp = m.tile_density(x, *m.tile_consts)
+    scale = prior.scale_tril if tril else torch.linspace(0.5, 1.5, d, device="cuda")
+    args = (m.tile_density, m.cuda_density, x.contiguous(), lp, torch.zeros(d, device="cuda"),
+            scale, m.tile_consts, 93)
+    common = dict(burn=3, thin=2, n_samples=16, iteration_offset=(1 << 32) - 7)
+    if kernel == "ess":
+        fused, plain, kw = fused_ess_sample, ess_sample_reference, dict(max_shrink=24, **common)
+    else:
+        fused, plain, kw = fused_pcn_sample, pcn_sample_reference, dict(beta=0.2, **common)
+    before = fused.launches
+    got = fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused.launches == before + 1
+    dec, chains = _agree(got, plain(*args, **kw))
+    assert dec >= 0.999 and chains >= 0.999
+
+
+@pytest.mark.parametrize("target,eps", [("flagship", 0.05), ("corr2", 0.9), ("logreg", 0.05)])
+def test_barker_kernel_matches_plain(model, target, eps):
+    from advancedmh_tpu_torch.ops import barker_sample_reference, fused_barker_sample
+
+    m = _slice3_model(model, target)
+    C = 8192 if target == "logreg" else 4000
+    p = _slice3_start(m, C, seed=9)
+    lp, g = m.tile_value_and_grad(p, *m.tile_consts)
+    args = (m.tile_value_and_grad, m.cuda_density, p, lp, g, m.tile_consts, 95)
+    kw = dict(step_size=eps, burn=2, thin=2, n_samples=16, iteration_offset=11)
+    before = fused_barker_sample.launches
+    got = fused_barker_sample(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_barker_sample.launches == before + 1
+    ref = barker_sample_reference(*args, **kw)
+    dec, chains = _agree(got, ref)
+    assert dec >= 0.999 and chains >= 0.999
+    assert float(_bits_or_close(got[3], ref[3]).float().mean()) >= 0.999
+
+
+def test_slice5_wrappers_raise_for_what_has_no_kernel(model):
+    """An unknown tag, a missing tag, or a (tag, d) the library lacks raises
+    _build.check's ValueError for the four slice-5 kernels."""
+    from advancedmh_tpu_torch.ops import (fused_barker_sample, fused_ess_sample,
+                                          fused_pcn_sample, fused_slice_sample)
+
+    p, lp = _start(model, 64, seed=1)
+    consts = model.tile_consts
+    p3 = torch.zeros(3, 64, device="cuda")
+    z = lambda x: torch.zeros(x.shape[0], device="cuda")
+    o = lambda x: torch.ones(x.shape[0], device="cuda")
+    calls = {
+        "slice": lambda tag, x: fused_slice_sample(
+            model.tile_density, tag, x, lp, consts, 1, width=1.0, max_stepout=4, max_shrink=4,
+            burn=0, thin=1, n_samples=2),
+        "ess": lambda tag, x: fused_ess_sample(
+            model.tile_density, tag, x, lp, z(x), o(x), consts, 1, max_shrink=4, burn=0,
+            thin=1, n_samples=2),
+        "barker": lambda tag, x: fused_barker_sample(
+            model.tile_value_and_grad, tag, x, lp, torch.zeros_like(x), consts, 1,
+            step_size=0.1, burn=0, thin=1, n_samples=2),
+        "pcn": lambda tag, x: fused_pcn_sample(
+            model.tile_density, tag, x, lp, z(x), o(x), consts, 1, beta=0.2, burn=0, thin=1,
+            n_samples=2),
+    }
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match="CUDA density tag"):
+            call(None, p)
+        with pytest.raises(ValueError, match="'banana'"):
+            call("banana", p)
+        with pytest.raises(ValueError, match="instantiates only"):
+            call(model.cuda_density if name in ("slice", "barker") else "gp_regression", p3)
+    pairs = {k: _build.kernel_pairs(_build.library(), k) for k in ("slice", "ess", "barker", "pcn")}
+    assert ("neal_funnel", 10) in pairs["slice"] and ("logistic_regression", 32) in pairs["barker"]
+    assert {("gp_regression", 64), ("gp_classification", 16)} <= pairs["ess"] & pairs["pcn"]

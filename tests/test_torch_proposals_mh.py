@@ -144,3 +144,26 @@ def test_step_single_chain_and_setparams():
     np.testing.assert_allclose(
         float(moved.lp), float(pm.logdensity_fn(torch.tensor([0.1, 1.1]))))
     assert torch.equal(port.getparams(moved), torch.tensor([0.1, 1.1]))
+
+
+def test_tree_walks_hold_no_reference_cycle():
+    """Flattening, rebuilding and matching a tree keep nothing alive once
+    their results are dropped, without the cyclic garbage collector (a
+    self-calling nested walk would keep the leaves it collected, e.g. a
+    fused run's draws, until a collection)."""
+    import gc
+    import weakref
+
+    from advancedmh_tpu_torch.utils.tree import flatten_up_to, tree_flatten
+
+    t = torch.zeros(4)
+    alive = weakref.ref(t)
+    gc.disable()
+    try:
+        leaves, unflatten = tree_flatten({"a": t, "b": [t, (t,)]})
+        assert unflatten([1, 2, 3]) == {"a": 1, "b": [2, (3,)]}
+        assert len(flatten_up_to({"a": 0, "b": 0}, {"a": t, "b": [t]})) == 2
+        del leaves, unflatten, t
+        assert alive() is None
+    finally:
+        gc.enable()
