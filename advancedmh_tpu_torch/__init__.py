@@ -5,7 +5,8 @@ It carries the reference sampler surface end to end: distributions,
 models, proposal trees, the MH sampler (RWMH), MALA, Robust Adaptive
 Metropolis, the emcee ensemble, HMC, AdaptiveHMC, dual-averaging step-size
 adaptation, ChEES-HMC, MEADS, slice sampling, elliptical slice sampling,
-the Barker proposal and preconditioned Crank-Nicolson, ``sample`` with a
+the Barker proposal, preconditioned Crank-Nicolson, Adaptive Metropolis,
+delayed rejection and DRAM, ``sample`` with a
 batched tensor engine (``engine="torch"``) and the hand-written CUDA kernels
 of the fused engine (``engine="fused"``, ``csrc/``), ``Chains`` and the
 ESS / R̂ / MCSE diagnostics. Public names match ``advancedmh_tpu``'s. Models live on the
@@ -49,13 +50,17 @@ from .proposals import (
     q,
 )
 from .samplers import (
+    DRAM,
     MALA,
     RWMH,
     AdaptiveHMC,
     AdaptiveHMCState,
+    AdaptiveMetropolis,
+    AdaptiveMetropolisState,
     Barker,
     ChEESHMC,
     ChEESHMCState,
+    DelayedRejection,
     EllipticalSlice,
     Ensemble,
     GradientTransition,
@@ -108,7 +113,8 @@ __all__ = [
     "WalkProposal", "HamiltonianMC", "AdaptiveHMC", "AdaptiveHMCState",
     "StepSizeAdaptation", "StepSizeAdaptationState", "ChEESHMC", "ChEESHMCState",
     "MEADS", "MEADSState", "SliceSampler", "EllipticalSlice", "Barker",
-    "PreconditionedCrankNicolson", "getparams", "setparams",
+    "PreconditionedCrankNicolson", "AdaptiveMetropolis", "AdaptiveMetropolisState",
+    "DelayedRejection", "DRAM", "getparams", "setparams",
     # runtime
     "sample", "Schedule", "SamplingResult",
     "MCMCSerial", "MCMCThreads", "MCMCDistributed",

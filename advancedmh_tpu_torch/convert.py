@@ -4,8 +4,9 @@ Functions here take numpy arrays (never JAX objects) and return the port's
 objects on a given device (the card unless the caller asks for another),
 so one set of inputs can be handed to both packages: model data (the GP
 latent field's with its prior), proposal scales, and the states of RWMH, MALA, RAM, the ensemble sampler,
-StepSizeAdaptation, AdaptiveHMC, ChEES-HMC and MEADS for ``initial_params``
-/ ``initial_state``.
+StepSizeAdaptation, AdaptiveHMC, ChEES-HMC, MEADS and Adaptive Metropolis
+(DRAM's too) for ``initial_params`` / ``initial_state``. Delayed rejection's
+state is a Transition (:func:`transition_from_numpy`).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from .models.targets import (TileDensityModel, _gp_model, correlated_gaussian_mo
                              emcee_demo_model, gaussian_mean_scale_model,
                              logistic_regression_model)
 from .samplers.adapt import StepSizeAdaptationState
+from .samplers.am import AdaptiveMetropolisState
 from .samplers.base import GradientTransition, Transition
 from .samplers.chees import ChEESHMCState
 from .samplers.hmc_adapt import AdaptiveHMCState
@@ -27,11 +29,11 @@ from .samplers.ram import RobustAdaptiveMetropolisState
 
 
 def _f32(a, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a, np.float32), device=device)
+    return torch.as_tensor(np.array(a, np.float32), device=device)
 
 
 def _bool(a, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a, bool), device=device)
+    return torch.as_tensor(np.array(a, bool), device=device)
 
 
 def gaussian_mean_scale_from_numpy(data: np.ndarray, device="cuda") -> TileDensityModel:
@@ -176,3 +178,16 @@ def meads_state_from_numpy(
     f = lambda a: _f32(a, device)
     return MEADSState(x=f(x), lp=f(lp), grad=f(grad), p=f(p), u=f(u),
                       iteration=_i32(iteration, device), isaccept=_bool(isaccept, device))
+
+
+def am_state_from_numpy(
+    x: np.ndarray, logprob: np.ndarray, mean: np.ndarray, L: np.ndarray,
+    iteration: np.ndarray, isaccept: np.ndarray, device="cuda",
+) -> AdaptiveMetropolisState:
+    """An Adaptive Metropolis (or DRAM) state: x and mean ``(C, d)``, the
+    lower factor L ``(C, d, d)``, logprob, iteration and isaccept ``(C,)``
+    (or one chain without the leading axis), as the JAX state holds them."""
+    f = lambda a: _f32(a, device)
+    return AdaptiveMetropolisState(x=f(x), logprob=f(logprob), mean=f(mean), L=f(L),
+                                   iteration=_i32(iteration, device),
+                                   isaccept=_bool(isaccept, device))

@@ -22,6 +22,7 @@
 
 #include <cuda_runtime.h>
 
+#include <cfloat>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
@@ -137,15 +138,15 @@ struct StepWords {
   __device__ __forceinline__ float uniform(int i) { return uniform_from_bits(word(i)); }
 };
 
-// The D normals of a step from words 0 .. 2P-1 (P = ceil(D/2) Box-Muller
-// pairs), as step_noise draws them.
+// The D normals of a step from words w0 .. w0+2P-1 (P = ceil(D/2)
+// Box-Muller pairs), as step_noise draws them from words 0 .. 2P-1.
 template <int D>
-__device__ __forceinline__ void step_normals(StepWords& s, float (&z)[D]) {
+__device__ __forceinline__ void step_normals(StepWords& s, float (&z)[D], int w0 = 0) {
   constexpr int P = (D + 1) / 2;
 #pragma unroll
   for (int p = 0; p < P; ++p) {
-    const float u1 = s.uniform(2 * p);
-    const float u2 = s.uniform(2 * p + 1);
+    const float u1 = s.uniform(w0 + 2 * p);
+    const float u2 = s.uniform(w0 + 2 * p + 1);
     const float r = sqrtf(-2.0f * logf(u1));
     float sn, cs;
     sincosf(kTwoPi * u2, &sn, &cs);
@@ -169,6 +170,79 @@ inline cudaError_t allow_shared(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
+}
+
+// log(1 - e^a) for a < 0, floored at -1e30; -1e30 for a >= 0 and for NaN
+// (≙ advancedmh_tpu/samplers/dr.py::_log1m_exp, Mächler 2012's two branches,
+// where the TPU kernels have 1 - expf because Mosaic lacks expm1). The floor
+// keeps a masked stage-2 ratio from meeting inf - inf.
+__device__ __forceinline__ float log1m_exp(float a) {
+  if (!(a < 0.0f)) return -1e30f;
+  const float out = a > -0.693f ? logf(-expm1f(a)) : log1pf(-expf(a));
+  return nan_max(out, -1e30f);
+}
+
+// Entry (i, k), k <= i, of a lower-triangular D x D factor kept by rows as
+// its D (D + 1) / 2 entries on and below the diagonal.
+__host__ __device__ constexpr int tri(int i, int k) { return i * (i + 1) / 2 + k; }
+
+template <int D>
+constexpr int kTri = D * (D + 1) / 2;
+
+// y = L z for a packed lower-triangular L: row i sums k = 0..i in order,
+// the bits of tril_matvec's full rows (the entries above the diagonal are
+// zeros there, and adding +-0 changes no sum).
+template <int D>
+__device__ __forceinline__ void tri_matvec(const float (&L)[kTri<D>], const float (&z)[D],
+                                           float (&y)[D]) {
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    float acc = L[tri(i, 0)] * z[0];
+#pragma unroll
+    for (int k = 1; k <= i; ++k) acc = acc + L[tri(i, k)] * z[k];
+    y[i] = acc;
+  }
+}
+
+// The exact Welford advance of a chain's running moments with its state x
+// (≙ advancedmh_tpu/ops/pallas_am.py::_welford_advance), n the count before
+// x, L the packed lower Cholesky factor of the running covariance:
+//   inv = 1/(n+1),  delta = x - mean,  mean += delta inv,
+//   L <- rank1_update(sqrt(n inv) L, (sqrt(n) inv) delta),  n += 1,
+// the update by ram.cu's Givens sweep with sign +1 (r = sqrt(max(r2, tiny))
+// with NaN kept, as ops/cholesky.py's torch.maximum, c = r/Lkk, s = vk/Lkk,
+// then the rows below). An update never loses positive-definiteness.
+template <int D>
+__device__ __forceinline__ void welford_chol_advance(const float (&x)[D], float (&mean)[D],
+                                                     float (&L)[kTri<D>], float& n) {
+  const float inv = 1.0f / (n + 1.0f);
+  const float shrink = sqrtf(n * inv);
+  const float coeff = sqrtf(n) * inv;
+  float v[D];
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    const float delta = x[i] - mean[i];
+    mean[i] = mean[i] + delta * inv;
+    v[i] = coeff * delta;
+  }
+#pragma unroll
+  for (int e = 0; e < kTri<D>; ++e) L[e] = shrink * L[e];
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    const float Lkk = L[tri(k, k)];
+    const float vk = v[k];
+    const float r = sqrtf(nan_max(Lkk * Lkk + vk * vk, FLT_MIN));
+    const float cc = r / Lkk;
+    const float s = vk / Lkk;
+    L[tri(k, k)] = r;
+#pragma unroll
+    for (int row = k + 1; row < D; ++row) {
+      const float Lik = (L[tri(row, k)] + s * v[row]) / cc;
+      v[row] = cc * v[row] - s * Lik;
+      L[tri(row, k)] = Lik;
+    }
+  }
+  n = n + 1.0f;
 }
 
 // HG14 dual averaging of log step sizes on the accept indicator
@@ -393,6 +467,39 @@ struct NealFunnel {
   __device__ static float value_and_grad(const float* x, const float*, int,
                                          float* g) {
     return eval<true>(x, g);
+  }
+};
+
+// models/targets.py::banana_tile_value_and_grad: the Haario banana, x =
+// (x1, x2); consts = b, s2 = sigma1^2, b s2 and the log normalising
+// constant, each rounded once from float64. As the JAX model (which divides
+// by s2):
+//   y2 = (x2 + (b x1) x1) - b s2,  lp = ((-0.5 x1) x1)/s2 - (0.5 y2) y2 + const,
+//   d/dx1 = (-x1)/s2 - ((y2 2) b) x1,  d/dx2 = -y2.
+struct Banana {
+  static constexpr const char* kName = "banana";
+  static constexpr int kDim = 2;
+
+  template <bool kGrad>
+  __device__ __forceinline__ static float eval(const float* x, const float* c, float* g) {
+    const float x1 = x[0];
+    const float b = c[0];
+    const float s2 = c[1];
+    const float y2 = (x[1] + b * x1 * x1) - c[2];
+    const float lp = (-0.5f * x1) * x1 / s2 - (0.5f * y2) * y2 + c[3];
+    if (kGrad) {
+      g[0] = (-x1) / s2 - y2 * 2.0f * b * x1;
+      g[1] = -y2;
+    }
+    return lp;
+  }
+
+  __device__ static float logp(const float* x, const float* c, int) {
+    return eval<false>(x, c, nullptr);
+  }
+
+  __device__ static float value_and_grad(const float* x, const float* c, int, float* g) {
+    return eval<true>(x, c, g);
   }
 };
 

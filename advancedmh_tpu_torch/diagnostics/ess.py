@@ -37,11 +37,12 @@ def ess(x: torch.Tensor) -> torch.Tensor:
         var_plus = var_plus + torch.var(torch.mean(x, dim=0), correction=1)
     rho = 1.0 - (mean_var - torch.mean(acov, dim=1)) / var_plus
     # Geyer: paired sums, monotone by running min; the first non-positive
-    # pair truncates everything after it.
+    # pair truncates everything after it. A NaN pair sum (draws constant in
+    # every chain) counts as 0, as in JAX, so τ takes its floor.
     n_pairs = n // 2
     pair_sums = rho[0 : 2 * n_pairs : 2] + rho[1 : 2 * n_pairs : 2]
     pair_sums = torch.cummin(pair_sums, dim=0).values
-    tau = 2.0 * torch.sum(torch.clamp(pair_sums, min=0.0)) - 1.0
+    tau = 2.0 * torch.sum(torch.where(pair_sums > 0, pair_sums, 0.0)) - 1.0
     tau = torch.clamp(tau, min=1e-6)
     return n * c / tau
 
@@ -78,11 +79,13 @@ def _quantile(x: torch.Tensor, prob: float) -> torch.Tensor:
 
 def _rank_normalize(x: torch.Tensor) -> torch.Tensor:
     """Pooled ranks → standard-normal quantiles, x: (N, C). Blom offset
-    (r − 3/8)/(S + 1/4)."""
+    (r − 3/8)/(S + 1/4). Tied draws (an MH chain repeats its state on every
+    rejection) take their ranks in order of position, as JAX's stable
+    argsort gives them."""
     n, c = x.shape
     s = n * c
     flat = x.reshape(-1)
-    order = torch.argsort(flat)
+    order = torch.argsort(flat, stable=True)
     ranks = torch.empty_like(flat).scatter_(
         0, order, torch.arange(1, s + 1, dtype=x.dtype, device=x.device)
     )

@@ -1,7 +1,7 @@
 """Prebuilt target models (≙ advancedmh_tpu/models/targets.py): the README
 flagship, the correlated Gaussian of the RAM and MALA tests, the Bayesian
-logistic regression, Neal's funnel, the GP latent field and the emcee test
-model.
+logistic regression, Neal's funnel, the Haario banana, the GP latent field
+and the emcee test model.
 
 A model that the fused engine can run carries, besides its per-chain
 density, a *tile* density over the transposed chain block ``(d, C) ->
@@ -416,6 +416,74 @@ def neal_funnel_model(d: int = 10, device="cuda") -> TileDensityModel:
         tile_value_and_grad=neal_funnel_tile_value_and_grad,
         tile_consts=(),
         cuda_density="neal_funnel",
+    )
+
+
+# ---- the Haario banana -------------------------------------------------------
+
+
+def _banana_value_and_grad(x1, x2, c, grad: bool = True):
+    """The banana's value (and gradient) at coordinates ``x1``, ``x2`` of any
+    shape, ``c`` = (b, σ₁², b·σ₁², const) indexed on its first axis:
+
+        y₂ = (x₂ + (b·x₁)·x₁) − b·σ₁²,  lp = ((−½x₁)·x₁)/σ₁² − (½y₂)·y₂ + const,
+        ∂x₁ = (−x₁)/σ₁² − ((y₂·2)·b)·x₁,  ∂x₂ = −y₂,
+
+    the JAX model's operations in its order (it divides by σ₁²). ``Banana``
+    in csrc/common.cuh does the same."""
+    b, s2, bs2, cst = c[0], c[1], c[2], c[3]
+    y2 = (x2 + b * x1 * x1) - bs2
+    lp = (-0.5 * x1) * x1 / s2 - (0.5 * y2) * y2 + cst
+    if not grad:
+        return lp, None
+    return lp, ((-x1) / s2 - y2 * 2.0 * b * x1, -y2)
+
+
+def banana_tile_value_and_grad(x: torch.Tensor, c: torch.Tensor, grad: bool = True):
+    """Tile value ``(1, C)`` and gradient ``(2, C)`` of the banana at ``x``
+    (2, C); ``c`` the (4, 1) constants (see :func:`_banana_value_and_grad`)."""
+    lp, g = _banana_value_and_grad(x[0:1], x[1:2], c, grad)
+    return lp, (None if g is None else torch.cat(g))
+
+
+def banana_tile(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Tile density of the banana (see :func:`banana_tile_value_and_grad`)."""
+    return banana_tile_value_and_grad(x, c, grad=False)[0]
+
+
+def banana_model(b: float = 0.03, sigma1: float = 10.0, device="cuda") -> TileDensityModel:
+    """Haario banana (≙ the JAX package's ``banana_model``; Haario, Saksman
+    and Tamminen 1999): y₁ ~ N(0, σ₁²), y₂ ~ N(0, 1) pushed through the twist
+    x = (y₁, y₂ − b·y₁² + b·σ₁²), a curved ridge. The twist preserves volume,
+    so E[x] = 0, Var[x₁] = σ₁², Var[x₂] = 1 + 2b²σ₁⁴ (19 at the defaults).
+
+    The constants b, σ₁², b·σ₁² and const = −½·log(2πσ₁²) − ½·log 2π are
+    each rounded once from float64 to float32, as the JAX model's Python
+    floats are; every form (per chain, batched, tile) runs the same
+    operations in the same order."""
+    s1_sq = float(sigma1) ** 2
+    const = -0.5 * math.log(2.0 * math.pi * s1_sq) - _HALF_LOG_2PI
+    c = torch.tensor([[b], [s1_sq], [b * s1_sq], [const]], dtype=torch.float32,
+                     device=device)
+    flat = c.reshape(-1)
+
+    def logdensity(x):
+        return _banana_value_and_grad(x[..., 0], x[..., 1], flat, grad=False)[0]
+
+    def ldg(x):
+        lp, (g0, g1) = _banana_value_and_grad(x[0], x[1], flat)
+        return lp, torch.stack([g0, g1])
+
+    return TileDensityModel(
+        logdensity_fn=logdensity,
+        logdensity_and_gradient_fn=ldg,
+        dimension=2,
+        logdensity_batched_fn=logdensity,
+        device=device,
+        tile_density=banana_tile,
+        tile_value_and_grad=banana_tile_value_and_grad,
+        tile_consts=(c,),
+        cuda_density="banana",
     )
 
 

@@ -1,8 +1,11 @@
 from .adapt import adapt_rwmh_reference, fused_adapt_rwmh_sample
+from .am import AmParams, am_sample_reference, am_step, fused_am_sample, welford_advance
 from .barker import barker_sample_reference, barker_step, fused_barker_sample
 from .chees import (CheesParams, chees_frozen_reference, chees_warmup_reference,
                     fused_chees_frozen_sample, fused_chees_warmup_block, halton_trips, vdc)
 from .cholesky import chol_rank1_update, chol_rank1_update_batched
+from .dr import dr_sample_reference, dr_step, fused_dr_sample, log1m_exp
+from .dram import DramParams, dram_sample_reference, dram_step, fused_dram_sample
 from .emcee import emcee_sample_reference, fused_emcee_sample
 from .ess import ess_sample_reference, ess_trips, fused_ess_sample
 from .hmc import fused_hmc_sample, hmc_sample_reference, minv_column
@@ -42,9 +45,15 @@ KERNEL_WRAPPERS = {
     "ess": fused_ess_sample,
     "barker": fused_barker_sample,
     "pcn": fused_pcn_sample,
+    "am": fused_am_sample,
+    "dr": fused_dr_sample,
+    "dram": fused_dram_sample,
 }
 
 __all__ = [
+    "AmParams", "DramParams", "am_sample_reference", "am_step", "dr_sample_reference",
+    "dr_step", "dram_sample_reference", "dram_step", "fused_am_sample", "fused_dr_sample",
+    "fused_dram_sample", "log1m_exp", "welford_advance",
     "barker_sample_reference", "barker_step", "box_muller", "ess_sample_reference",
     "ess_trips", "fused_barker_sample", "fused_ess_sample", "fused_pcn_sample",
     "fused_slice_sample", "pcn_constants", "pcn_sample_reference", "pcn_step",

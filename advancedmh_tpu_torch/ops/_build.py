@@ -45,7 +45,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 # each csrc/<name>.cu exports amh_pairs_<name>
 KERNELS = ("rwmh", "mala", "ram", "emcee", "adapt", "hmc", "hmc_adapt", "chees", "meads",
-           "slice", "ess", "barker", "pcn")
+           "slice", "ess", "barker", "pcn", "am", "dr", "dram")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v", "--split-compile=0",
@@ -136,6 +136,20 @@ _SIGNATURES = {
     # seed, burn, thin, n_samples, offset, C, samples, lps, accs, stream
     "amh_pcn_sample": [_S, _I32, _I32, _P, _P, _P, _P, _P, _I32, _F, _F, _U64, _I64, _I64,
                        _I64, _U64, _I64, _P, _P, _P, _P],
+    # density, d, x, lp, mean, L, n, consts, n_consts, beta, fs, os,
+    # adapt_start, seed, burn, thin, n_samples, offset, C, samples, lps, accs,
+    # mean_out, L_out, n_out, stream
+    "amh_am_sample": [_S, _I32, _P, _P, _P, _P, _P, _P, _I32, _F, _F, _F, _F, _U64, _I64,
+                      _I64, _I64, _U64, _I64, _P, _P, _P, _P, _P, _P, _P],
+    # density, d, params_t, lp, s1, s2, consts, n_consts, seed, burn, thin,
+    # n_samples, offset, C, samples, lps, accs, stream
+    "amh_dr_sample": [_S, _I32, _P, _P, _P, _P, _P, _I32, _U64, _I64, _I64, _I64, _U64, _I64,
+                      _P, _P, _P, _P],
+    # density, d, x, lp, mean, L, n, consts, n_consts, os, gs, gm, seed, burn,
+    # thin, n_samples, offset, C, samples, lps, accs, mean_out, L_out, n_out,
+    # stream
+    "amh_dram_sample": [_S, _I32, _P, _P, _P, _P, _P, _P, _I32, _F, _F, _F, _U64, _I64, _I64,
+                        _I64, _U64, _I64, _P, _P, _P, _P, _P, _P, _P],
 }
 
 # An H100 block may use at most 227 KB of shared memory; the density's

@@ -17,7 +17,10 @@ ported (on CPU tensors each kernel's plain PyTorch version runs instead):
 - ``SliceSampler`` (``ops/slice.py``), ``EllipticalSlice`` (``ops/ess.py``),
   ``Barker`` (``ops/barker.py``) and ``PreconditionedCrankNicolson``
   (``ops/pcn.py``); the prior of the last two and of ``EllipticalSlice`` is
-  one Normal or MvNormal leaf.
+  one Normal or MvNormal leaf;
+- ``AdaptiveMetropolis`` and ``DRAM``, per chain, d <= 8 (``ops/am.py``,
+  ``ops/dram.py``), and ``DelayedRejection`` with scalar or diagonal
+  Gaussian random-walk stages (``ops/dr.py``).
 
 The model must name a CUDA density (``model.cuda_density``, with its plain
 ``tile_density``, ``tile_value_and_grad`` for MALA, and ``tile_consts``; see
@@ -29,7 +32,9 @@ standard schedule when ``discard_initial >= thinning`` (the init state is
 never emitted); for RAM and the two adaptive samplers, ``burn`` is the
 ``num_warmup`` adaptive steps, so sample k is the state after
 ``num_warmup + (k+1)*thinning`` steps (a one-draw offset from the standard
-schedule, as in the JAX package's fused engines). Step
+schedule, as in the JAX package's fused engines). AM and DRAM adapt on
+every step and never freeze, so they take the standard schedule and resume
+with their moments. Step
 t of the run is absolute iteration ``iteration_offset + t``, and its noise
 depends only on (seed, iteration, chain or walker), so a run split at any
 point and resumed with ``initial_state`` and ``iteration_offset`` gives the
@@ -45,9 +50,12 @@ import torch
 
 from ..distributions import MvNormal, Normal
 from ..ops.adapt import fused_adapt_rwmh_sample
+from ..ops.am import AmParams, fused_am_sample
 from ..ops.barker import fused_barker_sample
 from ..ops.chees import (CheesParams, fused_chees_frozen_sample, fused_chees_warmup_block,
                          halton_trips, vdc)
+from ..ops.dr import fused_dr_sample
+from ..ops.dram import DramParams, fused_dram_sample
 from ..ops.emcee import check_walkers, fused_emcee_sample
 from ..ops.ess import fused_ess_sample
 from ..ops.hmc import fused_hmc_sample, minv_column
@@ -60,8 +68,11 @@ from ..ops.rwmh import fused_rwmh_sample
 from ..ops.slice import fused_slice_sample
 from ..proposals import RandomWalkProposal, is_proposal
 from ..samplers.adapt import StepSizeAdaptationState
+from ..samplers.am import AdaptiveMetropolisState
 from ..samplers.base import GradientTransition, Transition
 from ..samplers.chees import ChEESHMCState
+from ..samplers.dr import DelayedRejection
+from ..samplers.dram import DRAM
 from ..samplers.emcee import StretchProposal
 from ..samplers.hmc_adapt import AdaptiveHMCState
 from ..samplers.meads import MEADSState
@@ -75,7 +86,8 @@ _NOT_PORTED = (
     "zero-mean Gaussian RandomWalkProposal (RWMH), MALA.langevin, "
     "RobustAdaptiveMetropolis, Ensemble with a StretchProposal, "
     "StepSizeAdaptation.rwmh, HamiltonianMC, AdaptiveHMC, ChEESHMC, MEADS, "
-    "SliceSampler, EllipticalSlice, Barker and PreconditionedCrankNicolson; "
+    "SliceSampler, EllipticalSlice, Barker, PreconditionedCrankNicolson, "
+    "AdaptiveMetropolis, DRAM and DelayedRejection; "
     "{what}. "
     "The fused kernels of the other samplers are listed in ROADMAP.md, "
     "'Queue 2 — TPU kernels to port'; use engine='torch' meanwhile."
@@ -135,7 +147,8 @@ def _chain_block(model, initial_params, num_chains: int):
     """Initial params as the kernels' (d, C) block on the model's device:
     one point broadcast to every chain, or one row per chain."""
     if initial_params is None:
-        raise ValueError("engine='fused' requires initial_params")
+        raise ValueError("engine='fused' requires initial_params: please specify initial "
+                         "parameters")
     init = torch.as_tensor(initial_params, dtype=torch.float32).to(model.device)
     d = model.dimension if model.dimension is not None else int(init.shape[-1])
     if init.ndim == 1:
@@ -159,25 +172,34 @@ def sample_fused(
     initial_params,
     discard_initial: int,
     thinning: int,
+    initial_state=None,
     iteration_offset: int = 0,
 ):
-    """Run the fused RWMH kernel; returns (transitions, final_state) in
-    the standard (chains, samples, ...) layout."""
+    """Run the fused RWMH kernel, or for ``DelayedRejection`` the fused DR
+    kernel (≙ the JAX ``sample_fused``'s DR branch: the stages' scales from
+    their single Gaussian random-walk leaves, scalar or diagonal); returns
+    (transitions, final_state) in the standard (chains, samples, ...)
+    layout. ``initial_state`` (a final ``Transition``) resumes with its own
+    lp, so that a split run stays exact."""
     tile_fn, consts = _tile(model)
-    params_t = _chain_block(model, initial_params, num_chains)
+    params_t, lp0 = _start_block(model, num_chains, initial_params, initial_state, tile_fn,
+                                 consts)
     d = params_t.shape[0]
-    scale = torch.as_tensor(np.ascontiguousarray(_extract_rw_scale(sampler, d)),
-                            dtype=torch.float32, device=model.device)
-    burn = max(discard_initial - thinning, 0)
-    lp0 = tile_fn(params_t, *consts)
-    samples, lps, accs = fused_rwmh_sample(
-        tile_fn, model.cuda_density, params_t, lp0, scale, consts,
-        fused_seed(key), burn=burn, thin=thinning, n_samples=n_samples,
-        iteration_offset=iteration_offset,
-    )
-    params, lp, accepted = _chains_layout(samples, lps, accs)
-    final_state = Transition(params[:, -1, :], lp[:, -1], accepted[:, -1])
-    return Transition(params, lp, accepted), final_state
+    common = dict(burn=max(discard_initial - thinning, 0), thin=thinning, n_samples=n_samples,
+                  iteration_offset=iteration_offset)
+    if isinstance(sampler, DelayedRejection):
+        # a full-covariance stage raises in ops/dr.py::stage_scales
+        s1, s2 = (torch.as_tensor(np.array(_rw_leaf_scale(p, d), np.float32),
+                                  device=model.device) for p in (sampler.first, sampler.second))
+        samples, lps, accs = fused_dr_sample(
+            tile_fn, model.cuda_density, params_t, lp0, s1, s2, consts, fused_seed(key),
+            **common)
+    else:
+        scale = torch.as_tensor(np.ascontiguousarray(_extract_rw_scale(sampler, d)),
+                                dtype=torch.float32, device=model.device)
+        samples, lps, accs = fused_rwmh_sample(
+            tile_fn, model.cuda_density, params_t, lp0, scale, consts, fused_seed(key), **common)
+    return _finish_plain(samples, lps, accs)
 
 
 def sample_fused_mala(
@@ -363,6 +385,76 @@ def sample_fused_emcee(
     lp, accepted = lps[:, 0, :], accs[:, 0, :] > 0.5
     return (Transition(params, lp, accepted),
             Transition(params[-1], lp[-1], accepted[-1]))
+
+
+def sample_fused_am(
+    model,
+    sampler,
+    n_samples: int,
+    *,
+    key: int,
+    num_chains: int,
+    initial_params,
+    discard_initial: int,
+    thinning: int,
+    initial_state=None,
+    iteration_offset: int = 0,
+):
+    """Fused Adaptive Metropolis, and DRAM on its own kernel (≙ the JAX
+    ``sample_fused_am``): adaptation runs on every step, burn-in and
+    emission alike, so a resumed ``initial_state`` (an
+    ``AdaptiveMetropolisState``) carries x, its own logprob, mean, L and
+    iteration straight back into the kernel. A fresh start has mean₀ = x₀,
+    L₀ = (fixed_scale/√d)·I and n₀ = 1. The final state's ``iteration`` is
+    the kernel's count, 1 + burn + n_samples·thinning for a fresh run.
+
+    ``pooled=True`` raises, as in JAX: the shared covariance keeps adapting
+    on every step, so there is no frozen stage to put on a per-chain kernel;
+    the torch engine runs the pooled merge exactly."""
+    if sampler.pooled:
+        raise ValueError(
+            "engine='fused' does not support pooled "
+            f"{type(sampler).__name__}: pooled AM/DRAM keep adapting the "
+            "ONE shared covariance on every post-warmup step (the AM "
+            "ergodicity contract), and that cross-chain Welford merge "
+            "spans kernel tiles - there is no frozen stage to stage "
+            "(unlike pooled RAM, whose S freezes after warmup). Use "
+            "engine='torch', which runs the pooled merge exactly."
+        )
+    tile_fn, consts = _tile(model)
+    dev = model.device
+    if initial_state is not None:
+        st = initial_state
+        x_t = st.x.to(dev).T.contiguous()
+        d, C = x_t.shape
+        lp0 = st.logprob.to(dev).reshape(1, C).contiguous()
+        mean0 = st.mean.to(dev).T.contiguous()
+        L0 = st.L.to(dev).permute(1, 2, 0).reshape(d * d, C).contiguous()
+        n0 = st.iteration.to(dev).to(torch.float32).reshape(1, C).contiguous()
+    else:
+        x_t = _chain_block(model, initial_params, num_chains)
+        d, C = x_t.shape
+        lp0 = tile_fn(x_t, *consts)
+        mean0 = x_t.clone()
+        L0 = ((sampler.fixed_scale / math.sqrt(d)) * torch.eye(d, device=dev)).reshape(d * d, 1)
+        L0 = L0.expand(d * d, C).contiguous()
+        n0 = torch.ones((1, C), dtype=torch.float32, device=dev)
+    args = (tile_fn, model.cuda_density, x_t, lp0, mean0, L0, n0, consts, fused_seed(key))
+    kw = dict(burn=max(discard_initial - thinning, 0), thin=thinning, n_samples=n_samples,
+              iteration_offset=iteration_offset)
+    if isinstance(sampler, DRAM):
+        out = fused_dram_sample(*args, params=DramParams(sampler.opt_scale, sampler.gamma), **kw)
+    else:
+        out = fused_am_sample(*args, params=AmParams(sampler.beta, sampler.fixed_scale,
+                                                     sampler.opt_scale, sampler.adapt_start),
+                              **kw)
+    samples, lps, accs, mean_f, L_f, n_f = out
+    params, lp, accepted = _chains_layout(samples, lps, accs)
+    final_state = AdaptiveMetropolisState(
+        x=params[:, -1, :], logprob=lp[:, -1], mean=mean_f.T,
+        L=L_f.reshape(d, d, C).permute(2, 0, 1), iteration=n_f[0].to(torch.int32),
+        isaccept=accepted[:, -1])
+    return Transition(params, lp, accepted), final_state
 
 
 # ---- the HMC family and dual-averaging RWMH ---------------------------------
@@ -976,9 +1068,7 @@ def _start_block(model, num_chains: int, initial_params, initial_state, tile_fn,
     if initial_state is not None:
         return (initial_state.params.to(dev).T.contiguous(),
                 initial_state.lp.to(dev).reshape(1, -1).contiguous())
-    if initial_params is None:
-        if prior_start is None:
-            raise ValueError("please specify initial parameters")
+    if initial_params is None and prior_start is not None:
         params_t = prior_start().T.contiguous()
     else:
         params_t = _chain_block(model, initial_params, num_chains)

@@ -8,8 +8,9 @@ Two engines:
 - ``engine="fused"``: RWMH, Langevin MALA, RAM, the emcee stretch move,
   dual-averaging RWMH (``StepSizeAdaptation.rwmh``), HMC, AdaptiveHMC,
   ChEES-HMC, MEADS, slice sampling, elliptical slice sampling, the Barker
-  proposal and pCN on the hand-written CUDA kernels (runtime/fused.py; on
-  CPU tensors their plain PyTorch versions).
+  proposal, pCN, Adaptive Metropolis, delayed rejection and DRAM on the
+  hand-written CUDA kernels (runtime/fused.py; on CPU tensors their plain
+  PyTorch versions).
 
 RNG: step ``j`` of a run draws from ``step_generator(master, j)`` (init is
 ``j = 0``; a resumed run adds ``iteration_offset``), so the draws depend on
@@ -262,8 +263,11 @@ def sample(
 
     if engine == "fused":
         from ..samplers.adapt import StepSizeAdaptation
+        from ..samplers.am import AdaptiveMetropolis
         from ..samplers.barker import Barker
         from ..samplers.chees import ChEESHMC
+        from ..samplers.dr import DelayedRejection
+        from ..samplers.dram import DRAM
         from ..samplers.emcee import Ensemble
         from ..samplers.ess import EllipticalSlice
         from ..samplers.hmc import HamiltonianMC
@@ -274,13 +278,17 @@ def sample(
         from ..samplers.ram import RobustAdaptiveMetropolis
         from ..samplers.slice import SliceSampler
         from .fused import (sample_fused, sample_fused_adapt_rwmh,
-                            sample_fused_adaptive_hmc, sample_fused_barker,
+                            sample_fused_adaptive_hmc, sample_fused_am, sample_fused_barker,
                             sample_fused_chees, sample_fused_emcee, sample_fused_ess,
                             sample_fused_hmc, sample_fused_mala, sample_fused_meads,
                             sample_fused_pcn, sample_fused_ram, sample_fused_slice)
 
+        # samplers that resume from their own state (its lp, and what else
+        # the kernel carries) through initial_state
         own_start = {Barker: sample_fused_barker, PreconditionedCrankNicolson: sample_fused_pcn,
-                     EllipticalSlice: sample_fused_ess, SliceSampler: sample_fused_slice}
+                     EllipticalSlice: sample_fused_ess, SliceSampler: sample_fused_slice,
+                     AdaptiveMetropolis: sample_fused_am, DRAM: sample_fused_am,
+                     DelayedRejection: sample_fused}
 
         if collect_states:
             raise ValueError(
@@ -295,9 +303,9 @@ def sample(
                                       *own_start)):
                 # frozen continuation: the saved per-chain ε̄ (and M⁻¹), the
                 # ChEES statistics or MEADS's persistent (p, u, iteration) go
-                # back into the kernels; the slice samplers, Barker and pCN
-                # take the state's own lp (and gradient), so that a split run
-                # stays exact
+                # back into the kernels; the slice samplers, Barker, pCN and
+                # DR take the state's own lp (and gradient), and AM and DRAM
+                # their live moments too, so that a split run stays exact
                 resume_adapt = initial_state
             else:
                 initial_params = initial_state.params

@@ -1,4 +1,5 @@
 from .adapt import StepSizeAdaptation, StepSizeAdaptationState, optimal_rwmh_accept
+from .am import AdaptiveMetropolis, AdaptiveMetropolisState
 from .barker import Barker
 from .base import (
     GradientTransition,
@@ -10,6 +11,8 @@ from .base import (
     setparams,
 )
 from .chees import ChEESHMC, ChEESHMCState
+from .dr import DelayedRejection
+from .dram import DRAM
 from .emcee import Ensemble, StretchProposal, WalkProposal
 from .ess import EllipticalSlice
 from .hmc import HamiltonianMC
@@ -29,5 +32,6 @@ __all__ = [
     "WalkProposal", "HamiltonianMC", "AdaptiveHMC", "AdaptiveHMCState",
     "StepSizeAdaptation", "StepSizeAdaptationState", "optimal_rwmh_accept",
     "ChEESHMC", "ChEESHMCState", "MEADS", "MEADSState", "Barker", "EllipticalSlice",
-    "PreconditionedCrankNicolson", "SliceSampler",
+    "PreconditionedCrankNicolson", "SliceSampler", "AdaptiveMetropolis",
+    "AdaptiveMetropolisState", "DelayedRejection", "DRAM",
 ]

@@ -15,7 +15,9 @@ ChEES-HMC and MEADS on the logistic regression at 8192 chains and MEADS on
 Neal's funnel (d = 10), and slice 5: slice sampling on the funnel, elliptical
 slice sampling on the d = 64 GP classification and regression, pCN on the
 regression (8192 chains) and the Barker proposal on the flagship and the
-logistic regression. Each path runs
+logistic regression, and slice 6: Adaptive Metropolis and DRAM on correlated
+Gaussians and delayed rejection on the flagship (16384 chains), with DRAM on
+the Haario banana among the card-only checks. Each path runs
 with every launch counter set to 0 just before it and read just after. The
 posteriors are checked against a float64 grid quadrature (the flagship),
 the analytic means (emcee), the ``engine="torch"`` run and the
@@ -1550,28 +1552,9 @@ def phase_main_slice5(models, gps, label, launches, ref_summary):
     from advancedmh_tpu_torch import (Barker, EllipticalSlice, PreconditionedCrankNicolson,
                                       SliceSampler, StepSizeAdaptation, ess_bulk, sample)
 
-    def path(name, model, spl, n_warm, kernel, **kw):
-        reset_launches()
-        sync()
-        t0 = time.perf_counter()
-        res = sample(model, spl, N_DRAWS, num_chains=kw.pop("num_chains", GP_CHAINS),
-                     engine="fused", discard_initial=n_warm, **kw)
-        names = kw_names(model)
-        chains = res.to_chains(param_names=names)
-        summary = chains.summary()
-        sync()
-        t = time.perf_counter() - t0
-        got = read_launches()
-        check_launches(f"{name} main path", got, {kernel: 1})
-        launches[kernel] = launches.get(kernel, 0) + got[kernel]
-        check(bool(torch.isfinite(res.transitions.lp).all()), f"{name}: non-finite lp")
-        check(bool(torch.isfinite(chains.values).all()), f"{name}: non-finite draws")
-        acc = float(res.transitions.accepted.float().mean())
-        ess0 = float(ess_bulk(chains[names[0]]))
-        print(f"[{label}] {name} first sample(engine='fused') + summary {t:.4f} s; acceptance "
-              f"{acc:.4f}; max R-hat {max(s['rhat'] for s in summary.values()):.5f}; "
-              f"ess_bulk({names[0]})={ess0:.1f}, ESS/s({names[0]}) incl. summary {ess0 / t:.6e}")
-        return res, chains, summary, acc
+    def path(name, model, spl, n_warm, kernel, num_chains=GP_CHAINS, **kw):
+        return _fused_path(name, model, spl, N_DRAWS, n_warm, kernel, launches, label,
+                           num_chains, **kw)
 
     res, chains, summary, acc = path("slice funnel", models["funnel"], SliceSampler(**SLICE),
                                      N_WARM, "slice", key=KEY + 80,
@@ -1668,6 +1651,8 @@ def kw_names(model):
         return [f"β{j}" for j in range(32)]
     if model.cuda_density == "neal_funnel":
         return ["v"] + [f"x{i}" for i in range(1, 10)]
+    if model.cuda_density in ("correlated_gaussian", "banana"):
+        return [f"x{i}" for i in range(model.dimension)]
     return [f"f{i}" for i in range(model.dimension)]
 
 
@@ -1944,6 +1929,407 @@ def phase_timing_slice5(models, gps, label, errs, times, evals, barker_eps):
                              num_chains=N_CHAINS, engine="fused", discard_initial=N_WARM,
                              initial_params=[0.0, 1.0], key=KEY + 92, chain_type="chains",
                              param_names=["μ", "σ"]), "μ")
+
+
+# ---- slice 6: Adaptive Metropolis, delayed rejection and DRAM ---------------------------
+
+# The main paths: AM on the correlated Gaussian of benchmarks/samplers.py:567-595
+# and DRAM on that of :314-339, both 16384 x (2000 + 2000) from zeros, and DR on
+# the flagship with stage scales 0.5 and 0.1 (:272-292) at 16384 x (500 + 4000).
+AM_WARM = 2000
+AM_DRAWS = 2000
+DR_SCALES = (0.5, 0.1)
+N_PLAIN_SLICE6 = 10  # steps of the slice-6 plain versions timed at the main paths' widths
+
+
+def _am_block(m, C, seed, resumed=False):
+    """The AM and DRAM kernels' inputs at C chains: x ~ N(0, 1) (the banana's
+    x1 ~ N(0, 100)), its lp, and fresh moments (mean x, L = (0.1/√d) I, n = 1)
+    or resumed ones (mean ~ N(0, 0.1²), a random lower factor with its
+    diagonal in [0.5, 1.5], n = 5000)."""
+    d = m.dimension
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(d, C))
+    if m.cuda_density == "banana":
+        x[0] *= 10.0
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=DEVICE).contiguous()
+    if resumed:
+        L = np.tril(rng.normal(0.0, 0.3, (C, d, d)), -1)
+        L[:, np.arange(d), np.arange(d)] = rng.uniform(0.5, 1.5, (C, d))
+        mean, L, n = rng.normal(0.0, 0.1, (d, C)), L.reshape(C, d * d).T, np.full((1, C), 5000.0)
+    else:
+        L = np.broadcast_to((np.float32(0.1 / np.sqrt(d)) * np.eye(d)).reshape(d * d, 1),
+                            (d * d, C))
+        mean, n = x, np.ones((1, C))
+    x = f32(x)
+    return x, m.tile_density(x, *m.tile_consts), f32(mean), f32(L), f32(n)
+
+
+def phase_kernels_slice6(models, errs):
+    """The three slice-6 kernels against their plain versions at 64-step
+    cases, 2048 chains: AM and DRAM on the correlated Gaussian at d = 2, 4, 8
+    and the banana (fresh starts whose adapt_start falls inside the run, a
+    resumed (mean, L, n) at n = 5000, one case with burn > 0 and thin = 3),
+    states, lp, decisions and the final (mean, L, n) compared; DR on the
+    flagship at 30 observations (starts outside the support among them) and
+    300, and on the banana."""
+    from advancedmh_tpu_torch.ops import (AmParams, DramParams, am_sample_reference,
+                                          dr_sample_reference, dram_sample_reference,
+                                          fused_am_sample, fused_dr_sample, fused_dram_sample)
+
+    def report(name, tag, got, ref, visible):
+        r = agreement(got, ref)
+        print(f"kernel {name} {tag}: {r}")
+        check_agreement(name, r, SHORT_RUN_CHAINS_MIN, visible_steps=visible)
+        errs[name] = max(errs[name], r["max_abs_err"])
+
+    C = 2048
+    cases = [  # (model, burn, thin, n, offset, resumed, adapt_start)
+        ("corr_ram", 0, 1, 64, 0, False, None),
+        ("corr4", 0, 1, 64, (1 << 32) - 30, False, 40),
+        ("corr8", 5, 3, 19, 7, False, None),
+        ("banana", 0, 1, 64, 11, False, None),
+        ("corr8", 0, 1, 64, 3, True, None),
+        ("banana", 4, 1, 60, 0, True, None),
+    ]
+    for i, (key, burn, thin, n, off, resumed, start) in enumerate(cases):
+        m = models[key]
+        block = _am_block(m, C, 130 + i, resumed)
+        args = (m.tile_density, m.cuda_density, *block, m.tile_consts, 0xA3A0 + i)
+        kw = dict(burn=burn, thin=thin, n_samples=n, iteration_offset=off)
+        tag = (f"{m.cuda_density} d={m.dimension} C={C} burn={burn} thin={thin} n={n} "
+               f"offset={off} {'resumed n=5000' if resumed else 'fresh'}")
+        am = dict(params=AmParams(adapt_start=start))
+        report("am", f"{tag} adapt_start={start}", fused_am_sample(*args, **kw, **am),
+               am_sample_reference(*args, **kw, **am), burn == 0 and thin == 1)
+        dram = dict(params=DramParams())
+        report("dram", tag, fused_dram_sample(*args, **kw, **dram),
+               dram_sample_reference(*args, **kw, **dram), burn == 0 and thin == 1)
+
+    dr_cases = [  # (model, scale1, scale2, burn, thin, n, offset)
+        ("flagship", 0.5, 0.1, 0, 1, 64, 0),
+        ("flag300", 8.0, 0.15, 3, 3, 20, (1 << 32) - 20),
+        ("banana", [3.0, 1.0], [0.6, 0.2], 0, 1, 64, 5),
+    ]
+    for i, (key, s1, s2, burn, thin, n, off) in enumerate(dr_cases):
+        m = models[key]
+        p = (_start(C, 140 + i) if m.cuda_density == "gaussian_mean_scale"
+             else _am_block(m, C, 140 + i)[0])
+        args = (m.tile_density, m.cuda_density, p, m.tile_density(p, *m.tile_consts),
+                torch.tensor(s1, device=DEVICE), torch.tensor(s2, device=DEVICE),
+                m.tile_consts, 0xD400 + i)
+        kw = dict(burn=burn, thin=thin, n_samples=n, iteration_offset=off)
+        report("dr", f"{key} C={C} scales {s1}, {s2} burn={burn} thin={thin} n={n} "
+               f"offset={off}", fused_dr_sample(*args, **kw), dr_sample_reference(*args, **kw),
+               burn == 0 and thin == 1)
+    sync()
+
+
+def _fused_path(name, model, spl, n_draws, n_warm, kernel, launches, label, num_chains, **kw):
+    """One main path: sample(engine="fused") + summary() with every launch
+    counter set to 0 just before it and read just after; returns the result,
+    its Chains, their summary and the acceptance."""
+    from advancedmh_tpu_torch import ess_bulk, sample
+
+    names = kw_names(model)
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    res = sample(model, spl, n_draws, num_chains=num_chains, engine="fused",
+                 discard_initial=n_warm, **kw)
+    chains = res.to_chains(param_names=names)
+    summary = chains.summary()
+    sync()
+    t = time.perf_counter() - t0
+    got = read_launches()
+    check_launches(f"{name} main path", got, {kernel: 1})
+    launches[kernel] = launches.get(kernel, 0) + got[kernel]
+    check(bool(torch.isfinite(res.transitions.lp).all()), f"{name}: non-finite lp")
+    check(bool(torch.isfinite(chains.values).all()), f"{name}: non-finite draws")
+    acc = float(res.transitions.accepted.float().mean())
+    ess0 = float(ess_bulk(chains[names[0]]))
+    print(f"[{label}] {name} first sample(engine='fused') + summary {t:.4f} s; acceptance "
+          f"{acc:.4f}; max R-hat {max(s['rhat'] for s in summary.values()):.5f}; "
+          f"ess_bulk({names[0]})={ess0:.1f}, ESS/s({names[0]}) incl. summary {ess0 / t:.6e}")
+    return res, chains, summary, acc
+
+
+def _learned_corr(L):
+    """The correlation of the chain mean of L Lᵀ over final states (C, d, d)."""
+    LL = torch.einsum("cij,ckj->cik", L.double(), L.double()).mean(0).cpu().numpy()
+    return LL[0, 1] / np.sqrt(LL[0, 0] * LL[1, 1])
+
+
+def _cov_ok(draws, sig, rtol=0.1, atol=0.05):
+    return np.allclose(np.cov(draws.T), np.asarray(sig), rtol=rtol, atol=atol)
+
+
+def phase_main_slice6(models, label, launches):
+    """AM on Σ = [[1, .5], [.5, 1]] and DRAM on Σ = [[1.5, .35], [.35, 1]] at
+    16384 x (2000 + 2000) from zeros, DR on the flagship (scales 0.5, 0.1) at
+    16384 x (500 + 4000) from (0, 1), each through sample(engine="fused") +
+    summary() with its launch counter read."""
+    from advancedmh_tpu_torch import (DRAM, AdaptiveMetropolis, DelayedRejection, MvNormal,
+                                      RandomWalkProposal)
+
+    def path(name, model, spl, n_draws, n_warm, kernel, **kw):
+        res, _, summary, acc = _fused_path(name, model, spl, n_draws, n_warm, kernel, launches,
+                                           label, N_CHAINS, **kw)
+        rhat = max(s["rhat"] for s in summary.values())
+        check(rhat < 1.01, f"{name}: R-hat {rhat}")
+        return res, summary, acc
+
+    zeros = torch.zeros(2, device=DEVICE)
+    res, summary, acc = path("am correlated", models["corr_ram"], AdaptiveMetropolis(), AM_DRAWS,
+                             AM_WARM, "am", key=KEY + 100, initial_params=zeros)
+    draws = res.transitions.params.reshape(-1, 2).double().cpu().numpy()
+    corr = _learned_corr(res.final_state.L)
+    it = res.final_state.iteration
+    print(f"am correlated: cov {np.cov(draws.T).tolist()}, corr of mean L L' {corr:.4f}, "
+          f"final iteration {int(it.min())}..{int(it.max())}")
+    check(_cov_ok(draws, [[1.0, 0.5], [0.5, 1.0]]), "am correlated covariance")
+    check(abs(corr - 0.5) < 0.1, f"am correlated: learned correlation {corr}")
+    check(bool((it == 1 + (AM_WARM - 1) + AM_DRAWS).all()), "am: final iteration count")
+
+    res, summary, acc = path("dram correlated", models["corr"], DRAM(), AM_DRAWS, AM_WARM, "dram",
+                             key=KEY + 101, initial_params=zeros)
+    draws = res.transitions.params.reshape(-1, 2).double().cpu().numpy()
+    print(f"dram correlated: cov {np.cov(draws.T).tolist()}")
+    check(_cov_ok(draws, [[1.5, 0.35], [0.35, 1.0]]), "dram correlated covariance")
+    check(0.2 < acc < 0.9, f"dram correlated acceptance {acc}")
+
+    flag = models["flagship"]
+    rw = lambda s: RandomWalkProposal(MvNormal(zeros, scale=s), symmetric=True)
+    res, summary, acc = path("dr flagship", flag,
+                             DelayedRejection(rw(DR_SCALES[0]), rw(DR_SCALES[1])), N_DRAWS,
+                             N_WARM, "dr", key=KEY + 102, initial_params=[0.0, 1.0])
+    mu_q, sig_q = grid_posterior_means(flag.tile_consts[0].cpu().numpy().ravel())
+    print(f"dr flagship: means {summary['μ']['mean']:.5f}, {summary['σ']['mean']:.5f} "
+          f"(quadrature {mu_q:.5f}, {sig_q:.5f})")
+    posterior_check("dr flagship", summary, mu_q, sig_q)
+
+
+def phase_slice6_checks(models):
+    """tests/test_pallas.py's card-only AM, DRAM and DR checks at their
+    shapes, the AM split across two calls (count 6000), DRAM on the banana
+    (tests/test_geometry.py), split runs of all three bit for bit, and the
+    errors for pooled AM/DRAM, a full-covariance DR stage and d > 8."""
+    from advancedmh_tpu_torch import (DRAM, AdaptiveMetropolis, DelayedRejection, MvNormal,
+                                      RandomWalkProposal, sample)
+    from advancedmh_tpu_torch.models import correlated_gaussian_model
+
+    sig = [[1.0, 0.5], [0.5, 1.0]]
+    corr, zeros = models["corr_ram"], torch.zeros(2, device=DEVICE)
+
+    def flat(res):
+        return res.transitions.params.reshape(-1, 2).double().cpu().numpy()
+
+    for spl in (AdaptiveMetropolis(), DRAM()):
+        name = type(spl).__name__
+        res = sample(corr, spl, 4000, key=9, num_chains=N_CHECK, engine="fused",
+                     discard_initial=4000, initial_params=zeros)
+        dr, lc = flat(res), _learned_corr(res.final_state.L)
+        acc = float(res.transitions.accepted.float().mean())
+        n_final = res.final_state.iteration
+        print(f"{name} correlated {N_CHECK}x(4000+4000): cov {np.cov(dr.T).tolist()}, learned "
+              f"corr {lc:.4f}, acceptance {acc:.4f}, final count {int(n_final[0])}")
+        check(_cov_ok(dr, sig), f"{name} correlated covariance")
+        check(abs(lc - 0.5) < 0.1, f"{name} learned correlation")
+        check(bool((n_final == 1 + 3999 + 4000).all()), f"{name} final count")
+        if isinstance(spl, DRAM):
+            check(0.2 < acc < 0.9, "DRAM correlated acceptance")
+
+    # AM across two calls: 2000 + 2000 draws after 1999 burn-in steps
+    kw = dict(key=9, num_chains=N_CHECK, engine="fused")
+    whole = sample(corr, AdaptiveMetropolis(), 4000, discard_initial=2000, initial_params=zeros,
+                   **kw)
+    first = sample(corr, AdaptiveMetropolis(), 2000, discard_initial=2000, initial_params=zeros,
+                   **kw)
+    rest = sample(corr, AdaptiveMetropolis(), 2000, discard_initial=1,
+                  initial_state=first.final_state, iteration_offset=1999 + 2000, **kw)
+    same = all(torch.equal(torch.cat([getattr(first.transitions, f),
+                                      getattr(rest.transitions, f)], 1),
+                           getattr(whole.transitions, f)) for f in ("params", "lp", "accepted"))
+    same = same and all(torch.equal(getattr(rest.final_state, f), getattr(whole.final_state, f))
+                        for f in ("mean", "L", "iteration"))
+    n_final = rest.final_state.iteration
+    print(f"AM resumed across a split {N_CHECK}x(2000 + 2 x 2000): bit-exact {same}, final "
+          f"count {int(n_final[0])}, cov {np.cov(flat(whole).T).tolist()}")
+    check(same, "AM: the split run differs from the unsplit one")
+    check(bool((n_final == 6000).all()), "AM: final count across the split")
+    check(_cov_ok(flat(whole), sig, rtol=0.15), "AM split covariance")
+
+    flag300 = models["flag300"]
+    rw = lambda s: RandomWalkProposal(MvNormal(zeros, scale=s), symmetric=True)
+    spl = DelayedRejection(rw(8.0), rw(0.15))
+    res = sample(flag300, spl, 1500, key=0, num_chains=N_CHECK, engine="fused",
+                 initial_params=[0.0, 1.0], discard_initial=500)
+    dr, acc = flat(res), float(res.transitions.accepted.float().mean())
+    res_t = sample(flag300, spl, 300, key=1, num_chains=1024, engine="fused",
+                   initial_params=[0.0, 1.0], discard_initial=300, thinning=3)
+    dr_t = flat(res_t)
+    print(f"DR flagship 300 obs scales 8, 0.15 {N_CHECK}x(500+1500): means {dr.mean(0).tolist()}, "
+          f"acceptance {acc:.4f}; thin 3: means {dr_t.mean(0).tolist()}")
+    check(abs(dr[:, 0].mean()) < 0.1 and abs(dr[:, 1].mean() - 1.0) < 0.1, "DR means")
+    check(acc > 0.1, f"DR acceptance {acc}")
+    check(abs(dr_t[:, 0].mean()) < 0.12 and abs(dr_t[:, 1].mean() - 1.0) < 0.12, "DR thin 3")
+
+    res = sample(models["banana"], DRAM(), 4000, key=0, num_chains=512, engine="fused",
+                 initial_params=zeros, num_warmup=800, discard_initial=800)
+    v, mu = flat(res).var(0), flat(res).mean(0)
+    print(f"DRAM banana 512x(800+4000): var {v.tolist()} (exact 100, 19), mean {mu.tolist()}")
+    check(80.0 < v[0] < 115.0 and 12.0 < v[1] < 26.0 and abs(mu[1]) < 0.6, "DRAM banana bands")
+
+    # split runs: 2n in one call = n, then n resumed from the final state
+    for name, mod, spl, init in (("am", corr, AdaptiveMetropolis(), zeros),
+                                 ("dram", models["banana"], DRAM(), zeros),
+                                 ("dr", models["flagship"], DelayedRejection(rw(0.5), rw(0.1)),
+                                  [0.0, 1.0])):
+        kw = dict(num_chains=N_CHECK, engine="fused", key=KEY + 103, thinning=2)
+        whole = sample(mod, spl, 400, discard_initial=N_WARM, initial_params=init, **kw)
+        first = sample(mod, spl, 200, discard_initial=N_WARM, initial_params=init, **kw)
+        rest = sample(mod, spl, 200, discard_initial=2, initial_state=first.final_state,
+                      iteration_offset=N_WARM - 2 + 400, **kw)
+        same = all(torch.equal(torch.cat([getattr(first.transitions, f),
+                                          getattr(rest.transitions, f)], 1),
+                               getattr(whole.transitions, f))
+                   for f in ("params", "lp", "accepted"))
+        print(f"{name} split run {N_CHECK} chains, {N_WARM} + 2 x 200 thin 2: bit-exact {same}")
+        check(same, f"{name}: the split run differs from the unsplit one")
+
+    for bad, what in ((lambda: sample(corr, AdaptiveMetropolis(pooled=True), 10, num_chains=64,
+                                      engine="fused", key=0, initial_params=zeros), "pooled"),
+                      (lambda: sample(corr, DRAM(pooled=True), 10, num_chains=64,
+                                      engine="fused", key=0, initial_params=zeros), "pooled"),
+                      (lambda: sample(models["flagship"], DelayedRejection(
+                          RandomWalkProposal(MvNormal(zeros, scale_tril=torch.eye(
+                              2, device=DEVICE)), symmetric=True), rw(0.1)), 10, num_chains=64,
+                          engine="fused", key=0, initial_params=[0.0, 1.0]), "full-covariance"),
+                      (lambda: sample(correlated_gaussian_model(np.eye(9), device=DEVICE),
+                                      AdaptiveMetropolis(), 10, num_chains=64, engine="fused",
+                                      key=0, initial_params=torch.zeros(9, device=DEVICE)),
+                       "d <= 8")):
+        try:
+            bad()
+        except ValueError as e:
+            check(what in str(e), f"the {what} error says {e}")
+        else:
+            fail(f"the fused engine took what it must refuse ({what})")
+    print("slice 6 errors: pooled AM and DRAM, a full-covariance DR stage and d = 9 raise")
+    sync()
+
+
+# float32 operations counted from csrc/{am,dr,dram}.cu, csrc/am.cuh and the
+# functors, as the earlier bounds (Philox's integer work not counted): the
+# correlated Gaussian's density is 2d² + d + 2, the banana's 11, the
+# flagship's 5n + 7; a log1m_exp 5; the Welford advance 7 + 11d + d(d+1)/2
+# (the shrink of the packed factor) + 3d(d−1) (the sweep's rows below the
+# diagonal), 7 + 11d counting the sweep's diagonal and the mean.
+
+
+def _welford_ops(d: int) -> int:
+    return 7 + 11 * d + d * (d + 1) // 2 + 3 * d * (d - 1)
+
+
+def bound_am(C: int, steps: int, emitted: int, d: int, dens_ops: int, n_consts: int,
+             beta: float = 0.05):
+    """An AM launch: per step the d normals (12 a pair), the mixture test
+    (2), the proposal (2d fixed, d² + 2d adapted, weighted β : 1 − β), the
+    density, the accept (5) and the Welford advance. In: x, lp, mean, L, n
+    and the constants; out: the draws and the final mean, L and n."""
+    prop = beta * 2 * d + (1.0 - beta) * (d * d + 2 * d)
+    step = 12 * ((d + 1) // 2) + 2 + prop + dens_ops + 5 + _welford_ops(d)
+    nbytes = ((2 * d + d * d + 2) * C * 2 + n_consts + emitted * (d + 2) * C) * 4
+    return _bound(nbytes, step * steps * C)
+
+
+def bound_dram(C: int, steps: int, emitted: int, d: int, dens_ops: int, n_consts: int):
+    """A DRAM launch: per step two sets of d normals, the z-space q₁ term
+    (7d), two proposals L z (d² + 2d each), two densities, the stage-1 test
+    (3), the stage-2 ratio with its two log1m_exp (14) and test (2), and the
+    Welford advance; bytes as AM's."""
+    step = 24 * ((d + 1) // 2) + 7 * d + 2 * (d * d + 2 * d) + 2 * dens_ops + 3 + 14 + 2
+    step += _welford_ops(d)
+    nbytes = ((2 * d + d * d + 2) * C * 2 + n_consts + emitted * (d + 2) * C) * 4
+    return _bound(nbytes, step * steps * C)
+
+
+def bound_dr(C: int, steps: int, emitted: int, d: int, dens_ops: int, n_consts: int):
+    """A DR launch: per step two sets of d normals, the two candidates (4d),
+    two densities, the stage-1 test (3), the two scaled squared distances
+    (6d + 2), the stage-2 ratio (14) and test (2). In: x, lp, the two scales
+    and the constants; out: the draws."""
+    step = 24 * ((d + 1) // 2) + 4 * d + 2 * dens_ops + 3 + 6 * d + 2 + 14 + 2
+    return _bound(_io_bytes(C, d, emitted, n_consts + 2 * d), step * steps * C)
+
+
+def phase_timing_slice6(models, label, errs, times):
+    """The three kernels at their main paths' shapes (best of 3) with their
+    bounds, the plain versions at the paths' widths over N_PLAIN_SLICE6
+    steps, held against the kernel there, and ESS/s of each path including
+    summary()."""
+    from advancedmh_tpu_torch import (DRAM, AdaptiveMetropolis, DelayedRejection, MvNormal,
+                                      RandomWalkProposal, sample)
+    from advancedmh_tpu_torch.ops import (AmParams, DramParams, am_sample_reference,
+                                          dr_sample_reference, dram_sample_reference,
+                                          fused_am_sample, fused_dr_sample, fused_dram_sample)
+
+    C = N_CHAINS
+    short = dict(burn=0, n_samples=N_PLAIN_SLICE6)
+
+    def timed(name, fn, plain, args, kw, tag):
+        t_k, out = best_of(lambda: fn(*args, **kw))
+        del out
+        kws = dict(kw, **short)
+        t_ks, out = best_of(lambda: fn(*args, **kws))
+        t_p, ref = best_of(lambda: plain(*args, **kws), PLAIN_REPEATS)
+        print(f"[{label}] {name} {tag}: kernel {t_k * 1e3:.4f} ms; at {C} x {N_PLAIN_SLICE6}: "
+              f"kernel {t_ks * 1e3:.4f} ms, plain {t_p * 1e3:.4f} ms")
+        hold(errs, name, f"{C} x {N_PLAIN_SLICE6}", out, ref)
+        return t_k, t_p
+
+    steps = AM_WARM - 1 + AM_DRAWS
+    corr_ops = 2 * 2 * 2 + 2 + 2
+    for name, fn, plain, key, params, bound_fn in (
+            ("am", fused_am_sample, am_sample_reference, "corr_ram", AmParams(), bound_am),
+            ("dram", fused_dram_sample, dram_sample_reference, "corr", DramParams(),
+             bound_dram)):
+        m = models[key]
+        x0 = torch.zeros(2, C, device=DEVICE)
+        L0 = (torch.eye(2, device=DEVICE) * float(np.float32(0.1 / np.sqrt(2)))).reshape(4, 1)
+        args = (m.tile_density, m.cuda_density, x0, m.tile_density(x0, *m.tile_consts),
+                x0.clone(), L0.expand(4, C).contiguous(), torch.ones(1, C, device=DEVICE),
+                m.tile_consts, KEY)
+        kw = dict(burn=AM_WARM - 1, thin=1, n_samples=AM_DRAWS, params=params)
+        t_k, t_p = timed(name, fn, plain, args, kw, f"{key} at {C} x ({AM_WARM - 1} + {AM_DRAWS})")
+        times[name] = (t_k, t_p, bound_fn(C, steps, AM_DRAWS, 2, corr_ops, 5),
+                       f"plain at {C} x {N_PLAIN_SLICE6} steps")
+        print(f"[{label}] {name} bound {times[name][2][0] * 1e3:.4f} ms ({times[name][2][1]})")
+
+    flag = models["flagship"]
+    p0 = torch.tensor([[0.0], [1.0]], device=DEVICE).expand(2, C).contiguous()
+    args = (flag.tile_density, flag.cuda_density, p0, flag.tile_density(p0, *flag.tile_consts),
+            torch.full((2,), DR_SCALES[0], device=DEVICE),
+            torch.full((2,), DR_SCALES[1], device=DEVICE), flag.tile_consts, KEY)
+    kw = dict(burn=N_WARM - 1, thin=1, n_samples=N_DRAWS)
+    t_k, t_p = timed("dr", fused_dr_sample, dr_sample_reference, args, kw,
+                     f"flagship at {C} x ({N_WARM - 1} + {N_DRAWS})")
+    times["dr"] = (t_k, t_p, bound_dr(C, N_WARM - 1 + N_DRAWS, N_DRAWS, 2, 5 * _N_OBS + 7,
+                                      _N_OBS), f"plain at {C} x {N_PLAIN_SLICE6} steps")
+    print(f"[{label}] dr bound {times['dr'][2][0] * 1e3:.4f} ms ({times['dr'][2][1]})")
+
+    zeros = torch.zeros(2, device=DEVICE)
+    rw = lambda s: RandomWalkProposal(MvNormal(zeros, scale=s), symmetric=True)
+    for name, m, spl, n_draws, n_warm, init, param in (
+            ("am correlated", models["corr_ram"], AdaptiveMetropolis(), AM_DRAWS, AM_WARM, zeros,
+             "x0"),
+            ("dram correlated", models["corr"], DRAM(), AM_DRAWS, AM_WARM, zeros, "x0"),
+            ("dr flagship", flag, DelayedRejection(rw(DR_SCALES[0]), rw(DR_SCALES[1])), N_DRAWS,
+             N_WARM, [0.0, 1.0], "μ")):
+        time_path(label, f"{name} sample(engine='fused') {C} x ({n_warm} + {n_draws})",
+                  lambda: sample(m, spl, n_draws, num_chains=C, engine="fused",
+                                 discard_initial=n_warm, initial_params=init, key=KEY + 104,
+                                 chain_type="chains", param_names=kw_names(m)), param)
 
 
 # ---- timing ------------------------------------------------------------------------
@@ -2234,7 +2620,7 @@ def ptxas_summary(report: str):
             mangled = m.group(1)
             dens = re.findall(r"(GaussianMeanScale|EmceeDemo|CorrelatedGaussianILi\d+E"
                               r"|LogisticRegressionILi\d+E|NealFunnelILi\d+E"
-                              r"|GPRegressionILi\d+E|GPClassificationILi\d+E)", mangled)
+                              r"|GPRegressionILi\d+E|GPClassificationILi\d+E|Banana)", mangled)
             flags = re.findall(r"Lb([01])E", mangled)
             kernel = re.match(r"_ZN3amh\d+([a-z_]+)", mangled).group(1)
             density = re.sub(r"ILi(\d+)E", r"<\1>", dens[0]) if dens else "?"
@@ -2265,6 +2651,9 @@ REPLACES = {
     "ess": ("advancedmh_tpu/ops/pallas_ess.py:51", "ess.cu"),
     "barker": ("advancedmh_tpu/ops/pallas_barker.py:36", "barker.cu"),
     "pcn": ("advancedmh_tpu/ops/pallas_pcn.py:27", "pcn.cu"),
+    "am": ("advancedmh_tpu/ops/pallas_am.py:90", "am.cu"),
+    "dram": ("advancedmh_tpu/ops/pallas_dram.py:29", "dram.cu"),
+    "dr": ("advancedmh_tpu/ops/pallas_dr.py:46", "dr.cu"),
 }
 
 
@@ -2276,6 +2665,7 @@ def main() -> None:
         from advancedmh_tpu_torch.models import (correlated_gaussian_model,
                                                  emcee_demo_model,
                                                  gaussian_mean_scale_model,
+                                                 banana_model,
                                                  logistic_regression_model,
                                                  neal_funnel_model)
         from advancedmh_tpu_torch.ops import _build
@@ -2318,6 +2708,10 @@ def main() -> None:
         "aniso": correlated_gaussian_model(np.diag([25.0, 1.0]), device=DEVICE),
         "diag9": correlated_gaussian_model(np.diag([9.0, 1.0]), device=DEVICE),
         "funnel": neal_funnel_model(10, device=DEVICE),
+        "corr8": correlated_gaussian_model(0.5 * np.ones((8, 8)) + 0.5 * np.eye(8),
+                                           device=DEVICE),
+        "banana": banana_model(device=DEVICE),
+        "flag300": gaussian_mean_scale_model(n_obs=300, device=DEVICE),
     }
     gps = gp_models()
     errs = {name: 0.0 for name in REPLACES}
@@ -2327,6 +2721,7 @@ def main() -> None:
     phase_kernels_slice3(models, errs)
     phase_kernels_slice4(models, errs)
     phase_kernels_slice5(models, gps, errs, evals)
+    phase_kernels_slice6(models, errs)
     print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
 
     launches = {}
@@ -2342,6 +2737,8 @@ def main() -> None:
     phase_slice4_checks(models)
     barker_eps = phase_main_slice5(models, gps, label, launches, ref_summary)
     phase_slice5_checks(models, gps)
+    phase_main_slice6(models, label, launches)
+    phase_slice6_checks(models)
     print(f"main paths done at {time.perf_counter() - t_start:.1f} s")
 
     times = {}
@@ -2350,6 +2747,7 @@ def main() -> None:
     phase_timing_slice3(models, label, errs, times, med_eps, minv_med)
     phase_timing_slice4(models, label, errs, times)
     phase_timing_slice5(models, gps, label, errs, times, evals, barker_eps)
+    phase_timing_slice6(models, label, errs, times)
     print(f"[{label}] chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     kernels = []

@@ -112,6 +112,12 @@ def test_every_wrapper_on_cpu_launches_nothing():
     gp, prior, _ = gp_latent_model(8, device="cpu")
     for spl in (port.EllipticalSlice(prior), port.PreconditionedCrankNicolson(prior)):
         port.sample(gp, spl, 5, engine="fused", num_chains=8)
+    for spl in (port.AdaptiveMetropolis(), port.DRAM()):
+        port.sample(correlated_gaussian_model(np.eye(2), device="cpu"), spl, 5, engine="fused",
+                    discard_initial=2, num_chains=8, initial_params=[0.0, 0.0])
+    rw = lambda s: port.RandomWalkProposal(port.MvNormal(torch.zeros(2), scale=s), symmetric=True)
+    port.sample(flag, port.DelayedRejection(rw(0.5), rw(0.1)), 5, engine="fused",
+                discard_initial=2, **kw)
     assert all(w.launches == 0 for w in KERNEL_WRAPPERS.values())
     assert _build.library.cache_info().currsize == 0
 
@@ -131,7 +137,7 @@ class _FakeLibrary:
 
 
 @pytest.mark.parametrize("kernel", ["rwmh", "mala", "ram", "emcee", "slice", "ess", "barker",
-                                    "pcn"])
+                                    "pcn", "am", "dr", "dram"])
 def test_check_is_the_one_error_for_missing_pairs(kernel):
     """No kernel for the (tag, d) pair -- an unknown tag, no tag, or a d the
     library lacks -- is one ValueError naming the pairs the library has; any
@@ -141,8 +147,8 @@ def test_check_is_the_one_error_for_missing_pairs(kernel):
     lib = _FakeLibrary()
     assert _build.kernel_pairs(lib, kernel) == {("gaussian_mean_scale", 2),
                                                 ("correlated_gaussian", 4)}
-    with pytest.raises(ValueError, match="'banana'.*instantiates only"):
-        _build.check(lib, _build.NO_KERNEL, kernel, "banana", 2)
+    with pytest.raises(ValueError, match="'rosenbrock'.*instantiates only"):
+        _build.check(lib, _build.NO_KERNEL, kernel, "rosenbrock", 2)
     with pytest.raises(ValueError, match="CUDA density tag"):
         _build.check(lib, _build.NO_KERNEL, kernel, None, 2)
     with pytest.raises(ValueError, match="d=3"):
@@ -159,9 +165,10 @@ def test_model_tags_name_cuda_functors():
 
     import numpy as np
 
-    from advancedmh_tpu_torch.models import (correlated_gaussian_model, emcee_demo_model,
-                                             gaussian_mean_scale_model, gp_latent_model,
-                                             logistic_regression_model, neal_funnel_model)
+    from advancedmh_tpu_torch.models import (banana_model, correlated_gaussian_model,
+                                             emcee_demo_model, gaussian_mean_scale_model,
+                                             gp_latent_model, logistic_regression_model,
+                                             neal_funnel_model)
 
     names = set(re.findall(r'kName = "(\w+)"', (PKG / "csrc" / "common.cuh").read_text()))
     tags = {m.cuda_density for m in (gaussian_mean_scale_model(device="cpu"),
@@ -170,7 +177,8 @@ def test_model_tags_name_cuda_functors():
                                      logistic_regression_model(16, 2, device="cpu"),
                                      neal_funnel_model(device="cpu"),
                                      gp_latent_model(8, device="cpu")[0],
-                                     gp_latent_model(8, "logistic", device="cpu")[0])}
+                                     gp_latent_model(8, "logistic", device="cpu")[0],
+                                     banana_model(device="cpu"))}
     assert tags == names
     for path in PKG.rglob("*.py"):
         assert "CUDA_DENSITIES" not in path.read_text(), path

@@ -35,6 +35,16 @@ FIELDS = ("log_eps", "log_eps_bar", "h_bar", "log_traj", "log_traj_bar", "adam_m
           "t", "mean", "m2", "n", "inverse_mass")
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the tests run in several worker processes at
+    once, and torch's threads in each would contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.as_tensor(np.asarray(a, np.float32))
 

@@ -662,3 +662,127 @@ def test_slice5_wrappers_raise_for_what_has_no_kernel(model):
     pairs = {k: _build.kernel_pairs(_build.library(), k) for k in ("slice", "ess", "barker", "pcn")}
     assert ("neal_funnel", 10) in pairs["slice"] and ("logistic_regression", 32) in pairs["barker"]
     assert {("gp_regression", 64), ("gp_classification", 16)} <= pairs["ess"] & pairs["pcn"]
+
+
+# ---- slice 6: Adaptive Metropolis, delayed rejection, DRAM ---------------------------
+
+
+def _slice6_model(model, target):
+    from advancedmh_tpu_torch.models import banana_model
+
+    if target == "banana":
+        return banana_model(device="cuda")
+    if target in ("corr4", "corr8"):
+        d = int(target[-1])
+        return correlated_gaussian_model(0.5 * np.ones((d, d)) + 0.5 * np.eye(d), device="cuda")
+    if target == "flag300":
+        return gaussian_mean_scale_model(n_obs=300, device="cuda")
+    return _slice3_model(model, target)
+
+
+def _am_inputs(m, C, seed, resumed):
+    """x, lp and the moments (mean, L, n): fresh (mean x, L = (0.1/√d) I,
+    n = 1) or resumed (a random lower factor, n = 5000)."""
+    d = m.dimension
+    rng = np.random.default_rng(seed)
+    x = _slice3_start(m, C, seed)
+    if resumed:
+        L = np.tril(rng.normal(0.0, 0.3, (C, d, d)), -1)
+        L[:, np.arange(d), np.arange(d)] = rng.uniform(0.5, 1.5, (C, d))
+        L = torch.tensor(L.reshape(C, d * d).T, dtype=torch.float32, device="cuda").contiguous()
+        mean = torch.tensor(rng.normal(0.0, 0.1, (d, C)), dtype=torch.float32, device="cuda")
+        n = torch.full((1, C), 5000.0, device="cuda")
+    else:
+        L = (0.1 / np.sqrt(d) * torch.eye(d, device="cuda")).reshape(d * d, 1).expand(d * d, C)
+        mean, n = x.clone(), torch.ones(1, C, device="cuda")
+    return x, m.tile_density(x, *m.tile_consts), mean, L.contiguous(), n
+
+
+@pytest.mark.parametrize("kernel", ["am", "dram"])
+@pytest.mark.parametrize("target,resumed", [
+    ("corr2", False), ("corr4", True), ("corr8", False), ("corr8", True), ("banana", False),
+])
+@pytest.mark.parametrize("C,burn,thin,n,offset", [
+    (2048, 0, 1, 32, 0), (2001, 5, 3, 11, (1 << 32) - 20),
+])
+def test_am_family_kernels_match_plain(model, kernel, target, resumed, C, burn, thin, n, offset):
+    """AM and DRAM: states, lp, decisions and the final (mean, L, n)."""
+    from advancedmh_tpu_torch.ops import (am_sample_reference, dram_sample_reference,
+                                          fused_am_sample, fused_dram_sample)
+
+    fused, plain = ((fused_am_sample, am_sample_reference) if kernel == "am"
+                    else (fused_dram_sample, dram_sample_reference))
+    m = _slice6_model(model, target)
+    args = (m.tile_density, m.cuda_density, *_am_inputs(m, C, C + 6, resumed), m.tile_consts, 96)
+    kw = dict(burn=burn, thin=thin, n_samples=n, iteration_offset=offset)
+    before = fused.launches
+    got = fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused.launches == before + 1
+    ref = plain(*args, **kw)
+    dec, chains = _agree(got, ref)
+    assert dec >= 0.999 and chains >= 0.999
+    for f, f_r in zip(got[3:], ref[3:]):
+        assert float(_bits_or_close(f, f_r).float().mean()) >= 0.999
+    assert bool((got[5] == 1 + burn + n * thin).all()) or resumed
+
+
+@pytest.mark.parametrize("target,s1,s2", [
+    ("flagship", 0.5, 0.1), ("flag300", 8.0, 0.15), ("banana", [3.0, 1.0], [0.6, 0.2]),
+])
+@pytest.mark.parametrize("C,burn,thin,n,offset", [
+    (2048, 0, 1, 32, 0), (2001, 5, 3, 11, (1 << 32) - 20),
+])
+def test_dr_kernel_matches_plain(model, target, s1, s2, C, burn, thin, n, offset):
+    from advancedmh_tpu_torch.ops import dr_sample_reference, fused_dr_sample
+
+    m = _slice6_model(model, target)
+    p = _slice3_start(m, C, seed=C + 7)
+    args = (m.tile_density, m.cuda_density, p, m.tile_density(p, *m.tile_consts),
+            torch.tensor(s1, device="cuda"), torch.tensor(s2, device="cuda"), m.tile_consts, 97)
+    kw = dict(burn=burn, thin=thin, n_samples=n, iteration_offset=offset)
+    before = fused_dr_sample.launches
+    got = fused_dr_sample(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_dr_sample.launches == before + 1
+    dec, chains = _agree(got, dr_sample_reference(*args, **kw))
+    assert dec >= 0.999 and chains >= 0.999
+
+
+def test_slice6_wrappers_raise_for_what_has_no_kernel(model):
+    """An unknown tag, a missing tag, or a (tag, d) the library lacks raises
+    _build.check's ValueError for the three slice-6 kernels; d > 8 for AM and
+    DRAM raises before any launch."""
+    from advancedmh_tpu_torch.ops import fused_am_sample, fused_dr_sample, fused_dram_sample
+
+    def am_call(fn):
+        def call(tag, x):
+            d, C = x.shape
+            L = torch.eye(d, device="cuda").reshape(d * d, 1).expand(d * d, C).contiguous()
+            return fn(model.tile_density, tag, x, torch.zeros(1, C, device="cuda"), x.clone(), L,
+                      torch.ones(1, C, device="cuda"), model.tile_consts, 1, burn=0, thin=1,
+                      n_samples=2)
+        return call
+
+    calls = {
+        "am": am_call(fused_am_sample),
+        "dram": am_call(fused_dram_sample),
+        "dr": lambda tag, x: fused_dr_sample(
+            model.tile_density, tag, x, torch.zeros(1, x.shape[1], device="cuda"),
+            torch.ones(x.shape[0], device="cuda"), torch.ones(x.shape[0], device="cuda"),
+            model.tile_consts, 1, burn=0, thin=1, n_samples=2),
+    }
+    p = torch.zeros(2, 64, device="cuda")
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match="CUDA density tag"):
+            call(None, p)
+        with pytest.raises(ValueError, match="'emcee_demo'"):
+            call("emcee_demo", p)
+        with pytest.raises(ValueError, match="instantiates only"):
+            call("correlated_gaussian", torch.zeros(3, 64, device="cuda"))
+        pairs = _build.kernel_pairs(_build.library(), name)
+        assert {("banana", 2), ("gaussian_mean_scale", 2), ("correlated_gaussian", 2)} <= pairs
+    for name in ("am", "dram"):
+        with pytest.raises(ValueError, match="d <= 8"):
+            calls[name]("correlated_gaussian", torch.zeros(9, 64, device="cuda"))
+        assert ("correlated_gaussian", 8) in _build.kernel_pairs(_build.library(), name)

@@ -55,6 +55,41 @@ def test_single_chain_vector(fn):
     np.testing.assert_allclose(got, want, rtol=RTOL)
 
 
+def _repeated(n, c, p_repeat, seed):
+    """MH-like draws: each step repeats the chain's last value with
+    probability ``p_repeat`` (a rejection), so many draws tie."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, c)).astype(np.float32)
+    for t in range(1, n):
+        stay = rng.uniform(size=c) < p_repeat
+        x[t] = np.where(stay, x[t - 1], x[t])
+    return x
+
+
+@pytest.mark.parametrize("fn", ["ess_bulk", "rhat_rank"])
+def test_rank_diagnostics_on_tied_draws_match_jax(fn):
+    """Tied draws rank in order of position (a stable sort) in both
+    packages; an unstable sort moved ess_bulk by 1.5e-3 relative here."""
+    x = _repeated(256, 4, 0.7, 0)
+    assert len(np.unique(x)) < 0.4 * x.size
+    got = float(getattr(port, fn)(torch.as_tensor(x)))
+    want = float(jax.jit(getattr(ref, fn))(jnp.asarray(x)))
+    np.testing.assert_allclose(got, want, rtol=RTOL)
+
+
+def test_constant_draws_give_jax_floor_not_nan():
+    """Zero variance in every chain: the NaN pair sums count as 0, τ takes
+    its 1e-6 floor, ESS reads N·C/1e-6 = 4e8 as in JAX, and MCSE is 0.
+    (JAX eagerly: under jit XLA rewrites the 0/0 of ρ and gives 2.57.)"""
+    x = np.full((100, 4), 1.25, np.float32)
+    got = float(port.ess(torch.as_tensor(x)))
+    want = float(ref.ess(jnp.asarray(x)))
+    np.testing.assert_allclose(got, want, rtol=RTOL)
+    np.testing.assert_allclose(got, 4e8, rtol=1e-6)
+    assert np.isfinite(float(port.mcse(torch.as_tensor(x))))
+    assert np.isfinite(float(port.ess_tail(torch.as_tensor(x))))
+
+
 def test_rank_clip_keeps_big_batches_finite():
     """More than 2²⁴ draws: the f32 clip keeps Φ⁻¹ finite (ess.py:103-110)."""
     from advancedmh_tpu_torch.diagnostics.ess import _rank_normalize

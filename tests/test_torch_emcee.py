@@ -30,6 +30,16 @@ M_TRUE = 7.0 / 6.0
 PRIOR = [InverseGamma(2.0, 3.0), Normal(0.0, 1.0)]
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the tests run in several worker processes at
+    once, and torch's threads in each would contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _logprob_untransformed(theta):
     s, m = theta[0], theta[1]
     safe_s = torch.clamp(s, min=1e-6)

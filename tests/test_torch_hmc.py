@@ -30,6 +30,16 @@ MODEL = gaussian_mean_scale_from_numpy(np.random.default_rng(1234).normal(size=3
                                        device="cpu")
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the tests run in several worker processes at
+    once, and torch's threads in each would contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.as_tensor(np.asarray(a, np.float32))
 

@@ -28,6 +28,16 @@ COV = np.asarray([[1.5, 0.35], [0.35, 1.0]], np.float32)
 ANISO = np.diag([25.0, 1.0]).astype(np.float32)
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the tests run in several worker processes at
+    once, and torch's threads in each would contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.as_tensor(np.asarray(a, np.float32))
 

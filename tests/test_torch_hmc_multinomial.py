@@ -9,6 +9,16 @@ import torch
 from advancedmh_tpu_torch import DensityModel, HamiltonianMC, sample
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the tests run in several worker processes at
+    once, and torch's threads in each would contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class TestMultinomialTrajectory:
     def _model(self):
         var = torch.tensor([4.0, 0.25])

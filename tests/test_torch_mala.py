@@ -40,6 +40,16 @@ SIG = np.array([[1.5, 0.35], [0.35, 1.0]], dtype=np.float32)
 A = np.linalg.inv(SIG).astype(np.float32)
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the tests run in several worker processes at
+    once, and torch's threads in each would contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _quadratic_model():
     At = torch.as_tensor(A)
     return DensityModel(lambda x: -x @ At @ x / 2.0,
