@@ -6,7 +6,8 @@ models, proposal trees, the MH sampler (RWMH), MALA, Robust Adaptive
 Metropolis, the emcee ensemble, HMC, AdaptiveHMC, dual-averaging step-size
 adaptation, ChEES-HMC, MEADS, slice sampling, elliptical slice sampling,
 the Barker proposal, preconditioned Crank-Nicolson, Adaptive Metropolis,
-delayed rejection and DRAM, ``sample`` with a
+delayed rejection, DRAM, Multiple-Try Metropolis, replica exchange and
+differential-evolution MCMC, ``sample`` with a
 batched tensor engine (``engine="torch"``) and the hand-written CUDA kernels
 of the fused engine (``engine="fused"``, ``csrc/``), ``Chains`` and the
 ESS / R̂ / MCSE diagnostics. Public names match ``advancedmh_tpu``'s. Models live on the
@@ -61,6 +62,7 @@ from .samplers import (
     ChEESHMC,
     ChEESHMCState,
     DelayedRejection,
+    DifferentialEvolution,
     EllipticalSlice,
     Ensemble,
     GradientTransition,
@@ -68,7 +70,10 @@ from .samplers import (
     MEADS,
     MEADSState,
     MetropolisHastings,
+    MultipleTryMetropolis,
     PreconditionedCrankNicolson,
+    ReplicaExchange,
+    ReplicaExchangeState,
     RobustAdaptiveMetropolis,
     RobustAdaptiveMetropolisState,
     SliceSampler,
@@ -80,6 +85,8 @@ from .samplers import (
     WalkProposal,
     getparams,
     setparams,
+    swap_rates,
+    tune_betas,
 )
 from .runtime import (
     MCMCDistributed,
@@ -114,7 +121,9 @@ __all__ = [
     "StepSizeAdaptation", "StepSizeAdaptationState", "ChEESHMC", "ChEESHMCState",
     "MEADS", "MEADSState", "SliceSampler", "EllipticalSlice", "Barker",
     "PreconditionedCrankNicolson", "AdaptiveMetropolis", "AdaptiveMetropolisState",
-    "DelayedRejection", "DRAM", "getparams", "setparams",
+    "DelayedRejection", "DRAM", "MultipleTryMetropolis", "ReplicaExchange",
+    "ReplicaExchangeState", "swap_rates", "tune_betas", "DifferentialEvolution",
+    "getparams", "setparams",
     # runtime
     "sample", "Schedule", "SamplingResult",
     "MCMCSerial", "MCMCThreads", "MCMCDistributed",

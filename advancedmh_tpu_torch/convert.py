@@ -5,8 +5,9 @@ objects on a given device (the card unless the caller asks for another),
 so one set of inputs can be handed to both packages: model data (the GP
 latent field's with its prior), proposal scales, and the states of RWMH, MALA, RAM, the ensemble sampler,
 StepSizeAdaptation, AdaptiveHMC, ChEES-HMC, MEADS and Adaptive Metropolis
-(DRAM's too) for ``initial_params`` / ``initial_state``. Delayed rejection's
-state is a Transition (:func:`transition_from_numpy`).
+(DRAM's too) and replica exchange for ``initial_params`` /
+``initial_state``. The states of delayed rejection, Multiple-Try Metropolis
+and DE-MC are Transitions (:func:`transition_from_numpy`).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from .samplers.chees import ChEESHMCState
 from .samplers.hmc_adapt import AdaptiveHMCState
 from .samplers.meads import MEADSState
 from .samplers.ram import RobustAdaptiveMetropolisState
+from .samplers.tempering import ReplicaExchangeState
 
 
 def _f32(a, device) -> torch.Tensor:
@@ -191,3 +193,14 @@ def am_state_from_numpy(
     return AdaptiveMetropolisState(x=f(x), logprob=f(logprob), mean=f(mean), L=f(L),
                                    iteration=_i32(iteration, device),
                                    isaccept=_bool(isaccept, device))
+
+
+def replica_exchange_state_from_numpy(inner, swap_accept_count: np.ndarray,
+                                      swap_proposal_count: np.ndarray,
+                                      device="cuda") -> ReplicaExchangeState:
+    """A replica-exchange state around ``inner``, the stacked inner states
+    already carried across (e.g. :func:`transition_from_numpy` of leaves
+    ``(C, K, ...)``, lp the tempered β·ℓ), and the swap counts ``(C, K−1)``
+    (or ``(K−1,)`` for one chain), as the JAX state holds them."""
+    return ReplicaExchangeState(inner=inner, swap_accept_count=_f32(swap_accept_count, device),
+                                swap_proposal_count=_f32(swap_proposal_count, device))

@@ -566,6 +566,27 @@ struct EmceeDemo {
   }
 };
 
+// models/targets.py::bimodal_mixture_tile: the 1-d check target of the
+// tempering kernel, the equal mixture of N(-5, 1) and N(+5, 1) (the JAX
+// card test's model, tests/test_pallas.py::TestFusedTempering). With
+// a = -0.5 (x + 5)^2, b = -0.5 (x - 5)^2 and m = max(a, b) (NaN kept):
+//   lp = (m + log(exp(a - m) + exp(b - m))) - (log 2 + log(2 pi)/2),
+// the constant rounded once from float64.
+struct BimodalMixture {
+  static constexpr const char* kName = "bimodal_mixture";
+  static constexpr int kDim = 1;
+
+  __device__ static float logp(const float* x, const float*, int) {
+    constexpr float kConst = (float)(0.69314718055994531 + kHalfLog2Pi);
+    const float ta = x[0] + 5.0f;
+    const float tb = x[0] - 5.0f;
+    const float a = -0.5f * (ta * ta);
+    const float b = -0.5f * (tb * tb);
+    const float m = nan_max(a, b);
+    return (m + logf(expf(a - m) + expf(b - m))) - kConst;
+  }
+};
+
 // ---- registry -----------------------------------------------------------
 
 template <class T>

@@ -1,7 +1,8 @@
 """Prebuilt target models (≙ advancedmh_tpu/models/targets.py): the README
 flagship, the correlated Gaussian of the RAM and MALA tests, the Bayesian
-logistic regression, Neal's funnel, the Haario banana, the GP latent field
-and the emcee test model.
+logistic regression, Neal's funnel, the Haario banana, the GP latent field,
+the emcee test model and the two-mode mixture that checks the tempering
+kernel.
 
 A model that the fused engine can run carries, besides its per-chain
 density, a *tile* density over the transposed chain block ``(d, C) ->
@@ -644,3 +645,36 @@ def emcee_demo_model(transformed: bool = False, device="cuda") -> TileDensityMod
 
     return TileDensityModel(logdensity_fn=logprob, dimension=2, device=device,
                             tile_density=emcee_demo_tile, cuda_density="emcee_demo")
+
+
+# ---- the two-mode mixture (a check target of the tempering kernel) ----------
+
+_BIMODAL_CONST = math.log(2.0) + _HALF_LOG_2PI
+
+
+def bimodal_mixture_tile(x: torch.Tensor) -> torch.Tensor:
+    """Tile density of ½N(−5, 1) + ½N(5, 1), x (1, C): with
+    a = −½(x + 5)², b = −½(x − 5)² and m = max(a, b) (NaN kept),
+    ``(m + log(exp(a − m) + exp(b − m))) − (log 2 + ½log 2π)`` (the constant
+    rounded once), the JAX card test's manual logsumexp;
+    ``BimodalMixture`` in csrc/common.cuh does the same."""
+    ta, tb = x + 5.0, x - 5.0
+    a, b = -0.5 * (ta * ta), -0.5 * (tb * tb)
+    m = torch.maximum(a, b)
+    return (m + torch.log(torch.exp(a - m) + torch.exp(b - m))) - _BIMODAL_CONST
+
+
+def bimodal_mixture_model(device="cuda") -> TileDensityModel:
+    """The equal mixture of N(−5, 1) and N(+5, 1) in one dimension, modes 8σ
+    apart (≙ tests/test_pallas.py::TestFusedTempering._bimodal_model of the
+    JAX package): the target on which a random walk stays in its starting
+    mode and replica exchange hops between them. Params are a scalar or a
+    length-1 vector; the batched density takes (C,) or (C, 1)."""
+
+    def batched(x):
+        return bimodal_mixture_tile(x.reshape(1, -1))[0]
+
+    return TileDensityModel(
+        logdensity_fn=lambda x: batched(x.reshape(1))[0], dimension=1,
+        logdensity_batched_fn=batched, device=device, tile_density=bimodal_mixture_tile,
+        cuda_density="bimodal_mixture")

@@ -11,7 +11,11 @@ from .ess import ess_sample_reference, ess_trips, fused_ess_sample
 from .hmc import fused_hmc_sample, hmc_sample_reference, minv_column
 from .hmc_adapt import DualAveraging, adaptive_hmc_reference, fused_adaptive_hmc_sample
 from .mala import fused_mala_sample, mala_sample_reference
+from .demc import (DemcParams, demc_half_move, demc_indices, demc_move, demc_sample_reference,
+                   fused_demc_sample)
 from .meads import MeadsParams, fused_meads_sample, max_eig_cols, meads_reference
+from .mtm import (fused_mtm, fused_mtm_sample, mtm_reference, mtm_sample_reference, mtm_step,
+                  streaming_logsumexp)
 from .pcn import fused_pcn_sample, pcn_constants, pcn_sample_reference, pcn_step
 from .ram import RamParams, fused_ram_sample, ram_sample_reference
 from .rwmh import (
@@ -27,6 +31,8 @@ from .rwmh import (
     uniform_from_bits,
 )
 from .slice import fused_slice_sample, slice_sample_reference, slice_trips, unit_direction
+from .tempering import (fused_tempering_sample, ladder_constants, tempering_sample_reference,
+                        tempering_step)
 
 # Every kernel wrapper, by its name in chip_smoke.py's report.
 KERNEL_WRAPPERS = {
@@ -48,9 +54,17 @@ KERNEL_WRAPPERS = {
     "am": fused_am_sample,
     "dr": fused_dr_sample,
     "dram": fused_dram_sample,
+    "mtm_sample": fused_mtm_sample,
+    "mtm": fused_mtm,
+    "tempering": fused_tempering_sample,
+    "demc": fused_demc_sample,
 }
 
 __all__ = [
+    "DemcParams", "demc_half_move", "demc_indices", "demc_move", "demc_sample_reference", "fused_demc_sample", "fused_mtm",
+    "fused_mtm_sample", "fused_tempering_sample", "ladder_constants", "mtm_reference",
+    "mtm_sample_reference", "mtm_step", "streaming_logsumexp", "tempering_sample_reference",
+    "tempering_step",
     "AmParams", "DramParams", "am_sample_reference", "am_step", "dr_sample_reference",
     "dr_step", "dram_sample_reference", "dram_step", "fused_am_sample", "fused_dr_sample",
     "fused_dram_sample", "log1m_exp", "welford_advance",

@@ -45,7 +45,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 # each csrc/<name>.cu exports amh_pairs_<name>
 KERNELS = ("rwmh", "mala", "ram", "emcee", "adapt", "hmc", "hmc_adapt", "chees", "meads",
-           "slice", "ess", "barker", "pcn", "am", "dr", "dram")
+           "slice", "ess", "barker", "pcn", "am", "dr", "dram", "mtm", "tempering", "demc")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v", "--split-compile=0",
@@ -150,6 +150,24 @@ _SIGNATURES = {
     # stream
     "amh_dram_sample": [_S, _I32, _P, _P, _P, _P, _P, _P, _I32, _F, _F, _F, _U64, _I64, _I64,
                         _I64, _U64, _I64, _P, _P, _P, _P, _P, _P, _P],
+    # density, d, tril, params_t, lp, scale, consts, n_consts, k, seed, burn,
+    # thin, n_samples, offset, C, samples, lps, accs, stream
+    "amh_mtm_sample": [_S, _I32, _I32, _P, _P, _P, _P, _I32, _I32, _U64, _I64, _I64, _I64,
+                       _U64, _I64, _P, _P, _P, _P],
+    # density, d, tril, params_t, lp, scale, consts, n_consts, k, seed,
+    # n_steps, offset, C, out_params, out_lp, out_acc, stream
+    "amh_mtm": [_S, _I32, _I32, _P, _P, _P, _P, _I32, _I32, _U64, _I64, _U64, _I64, _P, _P,
+                _P, _P],
+    # density, d, x, ell, betas, dbetas, scales, consts, n_consts, K, seed,
+    # burn, thin, n_samples, offset, C, samples, lps, accs, x_out, ell_out,
+    # sw_out, stream
+    "amh_tempering_sample": [_S, _I32, _P, _P, _P, _P, _P, _P, _I32, _I32, _U64, _I64, _I64,
+                             _I64, _U64, _I64, _P, _P, _P, _P, _P, _P, _P],
+    # density, d, x_state, lp_state, consts, n_consts, gamma, noise, p_jump,
+    # p_snooker, snooker_gamma, (d-1)/2, M, seed, burn, thin, n_samples,
+    # offset, samples, lps, accs, stream
+    "amh_demc_sample": [_S, _I32, _P, _P, _P, _I32, _F, _F, _F, _F, _F, _F, _I64, _U64, _I64,
+                        _I64, _I64, _U64, _P, _P, _P, _P],
 }
 
 # An H100 block may use at most 227 KB of shared memory; the density's

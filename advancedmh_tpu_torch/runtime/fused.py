@@ -20,7 +20,12 @@ ported (on CPU tensors each kernel's plain PyTorch version runs instead):
   one Normal or MvNormal leaf;
 - ``AdaptiveMetropolis`` and ``DRAM``, per chain, d <= 8 (``ops/am.py``,
   ``ops/dram.py``), and ``DelayedRejection`` with scalar or diagonal
-  Gaussian random-walk stages (``ops/dr.py``).
+  Gaussian random-walk stages (``ops/dr.py``);
+- ``MultipleTryMetropolis`` with one zero-mean Gaussian random-walk leaf
+  (``ops/mtm.py``), ``ReplicaExchange`` around such an RWMH with a scalar or
+  diagonal scale, K·d <= 64 (``ops/tempering.py``), and
+  ``DifferentialEvolution`` on one population of any even M >= 6
+  (``ops/demc.py``).
 
 The model must name a CUDA density (``model.cuda_density``, with its plain
 ``tile_density``, ``tile_value_and_grad`` for MALA, and ``tile_consts``; see
@@ -55,6 +60,7 @@ from ..ops.barker import fused_barker_sample
 from ..ops.chees import (CheesParams, fused_chees_frozen_sample, fused_chees_warmup_block,
                          halton_trips, vdc)
 from ..ops.dr import fused_dr_sample
+from ..ops.demc import DemcParams, check_members, fused_demc_sample
 from ..ops.dram import DramParams, fused_dram_sample
 from ..ops.emcee import check_walkers, fused_emcee_sample
 from ..ops.ess import fused_ess_sample
@@ -62,10 +68,12 @@ from ..ops.hmc import fused_hmc_sample, minv_column
 from ..ops.hmc_adapt import DualAveraging, fused_adaptive_hmc_sample
 from ..ops.mala import fused_mala_sample
 from ..ops.meads import MeadsParams, fused_meads_sample
+from ..ops.mtm import fused_mtm_sample
 from ..ops.pcn import fused_pcn_sample
 from ..ops.ram import RamParams, fused_ram_sample
 from ..ops.rwmh import fused_rwmh_sample
 from ..ops.slice import fused_slice_sample
+from ..ops.tempering import fused_tempering_sample
 from ..proposals import RandomWalkProposal, is_proposal
 from ..samplers.adapt import StepSizeAdaptationState
 from ..samplers.am import AdaptiveMetropolisState
@@ -77,7 +85,9 @@ from ..samplers.emcee import StretchProposal
 from ..samplers.hmc_adapt import AdaptiveHMCState
 from ..samplers.meads import MEADSState
 from ..samplers.mh import MetropolisHastings
+from ..samplers.mtm import MultipleTryMetropolis
 from ..samplers.ram import RobustAdaptiveMetropolisState
+from ..samplers.tempering import ReplicaExchangeState
 from ..utils.keys import fold_in, splitmix64, step_generator
 from ..utils.tree import tree_flatten
 
@@ -87,7 +97,8 @@ _NOT_PORTED = (
     "RobustAdaptiveMetropolis, Ensemble with a StretchProposal, "
     "StepSizeAdaptation.rwmh, HamiltonianMC, AdaptiveHMC, ChEESHMC, MEADS, "
     "SliceSampler, EllipticalSlice, Barker, PreconditionedCrankNicolson, "
-    "AdaptiveMetropolis, DRAM and DelayedRejection; "
+    "AdaptiveMetropolis, DRAM, DelayedRejection, MultipleTryMetropolis, "
+    "ReplicaExchange around RWMH and DifferentialEvolution; "
     "{what}. "
     "The fused kernels of the other samplers are listed in ROADMAP.md, "
     "'Queue 2 — TPU kernels to port'; use engine='torch' meanwhile."
@@ -175,9 +186,10 @@ def sample_fused(
     initial_state=None,
     iteration_offset: int = 0,
 ):
-    """Run the fused RWMH kernel, or for ``DelayedRejection`` the fused DR
+    """Run the fused RWMH kernel, for ``DelayedRejection`` the fused DR
     kernel (≙ the JAX ``sample_fused``'s DR branch: the stages' scales from
-    their single Gaussian random-walk leaves, scalar or diagonal); returns
+    their single Gaussian random-walk leaves, scalar or diagonal), or for
+    ``MultipleTryMetropolis`` the fused MTM kernel with its k; returns
     (transitions, final_state) in the standard (chains, samples, ...)
     layout. ``initial_state`` (a final ``Transition``) resumes with its own
     lp, so that a split run stays exact."""
@@ -194,6 +206,12 @@ def sample_fused(
         samples, lps, accs = fused_dr_sample(
             tile_fn, model.cuda_density, params_t, lp0, s1, s2, consts, fused_seed(key),
             **common)
+    elif isinstance(sampler, MultipleTryMetropolis):  # before RWMH: an MTM is an MH
+        scale = torch.as_tensor(np.ascontiguousarray(_extract_rw_scale(sampler, d)),
+                                dtype=torch.float32, device=model.device)
+        samples, lps, accs = fused_mtm_sample(
+            tile_fn, model.cuda_density, params_t, lp0, scale, consts, fused_seed(key),
+            k=int(sampler.k), **common)
     else:
         scale = torch.as_tensor(np.ascontiguousarray(_extract_rw_scale(sampler, d)),
                                 dtype=torch.float32, device=model.device)
@@ -1230,3 +1248,130 @@ def sample_fused_barker(
     params, lp, accepted = _chains_layout(samples, lps, accs)
     final_state = GradientTransition(params[:, -1, :], lp[:, -1], g_last.T, accepted[:, -1])
     return Transition(params, lp, accepted), final_state
+
+
+# ---- replica exchange and DE-MC ------------------------------------------------------
+
+
+def sample_fused_tempering(
+    model,
+    sampler,
+    n_samples: int,
+    *,
+    key: int,
+    num_chains: int,
+    initial_params,
+    discard_initial: int,
+    thinning: int,
+    initial_state=None,
+    iteration_offset: int = 0,
+):
+    """Fused replica exchange (≙ runtime/fused.py::sample_fused_tempering):
+    the whole ladder, K tempered RWMH replicas and the even-odd swaps, in
+    one launch. The inner sampler is a symmetric Gaussian random-walk
+    ``MetropolisHastings`` with a scalar or diagonal scale; emissions are
+    the cold replica. The final ``ReplicaExchangeState`` holds the ladder
+    ``(C, K, d)``, the tempered lp β·ℓ ``(C, K)``, the cold replica's last
+    move decision, the swap counts ``(C, K−1)`` (proposals: the previous
+    count plus one per step) and the raw ℓ the kernel carried. A resumed
+    ``initial_state`` gives the kernel that ℓ back (a state without it, from
+    the torch engine or the JAX package, has its ℓ recomputed from the
+    ladder with the model's tile density), so that a split run stays
+    exact."""
+    if initial_params is None and initial_state is None:
+        raise ValueError("engine='fused' requires initial_params")
+    K = len(sampler.betas)
+    tile_fn, consts = _tile(model)
+    dev = model.device
+    if initial_state is not None:
+        xs = initial_state.inner.params.to(dev, torch.float32)
+        xs = xs.reshape(xs.shape[0], K, -1)  # (C, K, d); scalar params are d = 1
+        C, d = xs.shape[0], xs.shape[2]
+        x_t = xs.permute(1, 2, 0).reshape(K * d, C).contiguous()
+        if initial_state.raw_lp is not None:
+            ell0 = initial_state.raw_lp.to(dev).T.contiguous()
+        else:
+            ell0 = torch.cat([tile_fn(x_t[k * d:(k + 1) * d], *consts) for k in range(K)])
+        sw_acc0 = initial_state.swap_accept_count.to(dev)
+        sw_prop0 = initial_state.swap_proposal_count.to(dev)
+    else:
+        one = _chain_block(model, initial_params, num_chains)  # (d, C)
+        d, C = one.shape
+        x_t = one.repeat(K, 1).contiguous()
+        ell0 = tile_fn(one, *consts).expand(K, C).contiguous()
+        sw_acc0 = torch.zeros((C, K - 1), dtype=torch.float32, device=dev)
+        sw_prop0 = torch.zeros_like(sw_acc0)
+    scale = _extract_rw_scale(sampler.sampler, d)
+    if scale.ndim == 2:
+        raise ValueError(
+            "engine='fused' tempering supports scalar/diagonal proposal scales "
+            "(scale_tril ladders: use engine='torch').")
+    burn = max(discard_initial - thinning, 0)
+    samples, lps, accs, x_f, ell_f, sw = fused_tempering_sample(
+        tile_fn, model.cuda_density, x_t, ell0, consts, fused_seed(key),
+        betas=sampler.betas, scale=np.array(scale, np.float32),
+        replica_scales=sampler.replica_scales, burn=burn, thin=thinning, n_samples=n_samples,
+        iteration_offset=iteration_offset)
+    params, lp, accepted = _chains_layout(samples, lps, accs)
+    betas = torch.tensor(sampler.betas, dtype=torch.float32, device=dev)
+    inner_acc = torch.zeros((C, K), dtype=torch.bool, device=dev)
+    inner_acc[:, 0] = accepted[:, -1]
+    final_state = ReplicaExchangeState(
+        inner=Transition(x_f.reshape(K, d, C).permute(2, 0, 1), (ell_f * betas[:, None]).T,
+                         inner_acc),
+        swap_accept_count=sw_acc0 + sw.T,
+        swap_proposal_count=sw_prop0 + float(burn + n_samples * thinning),
+        raw_lp=ell_f.T)
+    return Transition(params, lp, accepted), final_state
+
+
+def sample_fused_demc(
+    model,
+    sampler,
+    n_samples: int,
+    *,
+    key: int,
+    initial_params,
+    discard_initial: int,
+    thinning: int,
+    initial_state=None,
+    iteration_offset: int = 0,
+):
+    """Fused DE-MC (≙ runtime/fused.py::sample_fused_demc) on one
+    population of all M members (any even M >= 6; the JAX engine's
+    multiple-of-256 rule and tiles of independent populations are TPU lane
+    facts). Without ``initial_params`` every member starts at a payload
+    draw, as ``sample(engine="torch")`` draws it; a resumed ``initial_state``
+    (a final ``Transition``) carries its own lp, so that a split run stays
+    exact. Returns member-layout transitions: params (N, M, d), lp and
+    accepted (N, M)."""
+    M = sampler.n_members
+    check_members(M)
+    tile_fn, consts = _tile(model)
+    dev = model.device
+    if initial_state is not None:
+        x = initial_state.params.to(dev, torch.float32)
+        lp0 = initial_state.lp.to(dev).reshape(1, -1).contiguous()
+    else:
+        if initial_params is None:
+            init_tr, _ = sampler.init(step_generator(key, 0, dev), model)
+            initial_params = init_tr.params
+        x = torch.as_tensor(initial_params, dtype=torch.float32).to(dev)
+        lp0 = None
+    if x.shape[0] != M:
+        raise ValueError(f"initial_params carries {x.shape[0]} members but the sampler was "
+                         f"built with n_members={M}")
+    params_t = x.reshape(M, -1).T.contiguous()
+    if lp0 is None:
+        lp0 = tile_fn(params_t, *consts)
+    d = params_t.shape[0]
+    samples, lps, accs = fused_demc_sample(
+        tile_fn, model.cuda_density, params_t, lp0, consts, fused_seed(key),
+        params=DemcParams(sampler._gamma(d), sampler.noise_scale, sampler.jump_probability,
+                          sampler.snooker_probability, sampler.snooker_gamma),
+        burn=max(discard_initial - thinning, 0), thin=thinning, n_samples=n_samples,
+        iteration_offset=iteration_offset)
+    params = samples.permute(0, 2, 1)  # (N, M, d)
+    lp, accepted = lps[:, 0, :], accs[:, 0, :] > 0.5
+    return (Transition(params, lp, accepted),
+            Transition(params[-1], lp[-1], accepted[-1]))

@@ -8,8 +8,9 @@ Two engines:
 - ``engine="fused"``: RWMH, Langevin MALA, RAM, the emcee stretch move,
   dual-averaging RWMH (``StepSizeAdaptation.rwmh``), HMC, AdaptiveHMC,
   ChEES-HMC, MEADS, slice sampling, elliptical slice sampling, the Barker
-  proposal, pCN, Adaptive Metropolis, delayed rejection and DRAM on the
-  hand-written CUDA kernels (runtime/fused.py; on CPU tensors their plain
+  proposal, pCN, Adaptive Metropolis, delayed rejection, DRAM,
+  Multiple-Try Metropolis, replica exchange and DE-MC on the hand-written
+  CUDA kernels (runtime/fused.py; on CPU tensors their plain
   PyTorch versions).
 
 RNG: step ``j`` of a run draws from ``step_generator(master, j)`` (init is
@@ -77,6 +78,8 @@ def _resolve_chain_method(method: ChainMethod) -> str:
 def _stack(items: list, dim: int):
     """Stack a list of equal-structure transitions / trees along ``dim``."""
     first = items[0]
+    if first is None:  # an optional state field left empty
+        return None
     if dataclasses.is_dataclass(first):
         return type(first)(**{
             f.name: _stack([getattr(i, f.name) for i in items], dim)
@@ -91,6 +94,8 @@ def _stack(items: list, dim: int):
 
 def _index(obj, c: int):
     """Chain ``c`` of a chain-batched transition / tree."""
+    if obj is None:
+        return None
     if dataclasses.is_dataclass(obj):
         return type(obj)(**{
             f.name: _index(getattr(obj, f.name), c) for f in dataclasses.fields(obj)
@@ -266,6 +271,7 @@ def sample(
         from ..samplers.am import AdaptiveMetropolis
         from ..samplers.barker import Barker
         from ..samplers.chees import ChEESHMC
+        from ..samplers.demc import DifferentialEvolution
         from ..samplers.dr import DelayedRejection
         from ..samplers.dram import DRAM
         from ..samplers.emcee import Ensemble
@@ -274,21 +280,25 @@ def sample(
         from ..samplers.hmc_adapt import AdaptiveHMC
         from ..samplers.mala import MALA
         from ..samplers.meads import MEADS
+        from ..samplers.mtm import MultipleTryMetropolis
         from ..samplers.pcn import PreconditionedCrankNicolson
         from ..samplers.ram import RobustAdaptiveMetropolis
         from ..samplers.slice import SliceSampler
+        from ..samplers.tempering import ReplicaExchange
         from .fused import (sample_fused, sample_fused_adapt_rwmh,
                             sample_fused_adaptive_hmc, sample_fused_am, sample_fused_barker,
-                            sample_fused_chees, sample_fused_emcee, sample_fused_ess,
-                            sample_fused_hmc, sample_fused_mala, sample_fused_meads,
-                            sample_fused_pcn, sample_fused_ram, sample_fused_slice)
+                            sample_fused_chees, sample_fused_demc, sample_fused_emcee,
+                            sample_fused_ess, sample_fused_hmc, sample_fused_mala,
+                            sample_fused_meads, sample_fused_pcn, sample_fused_ram,
+                            sample_fused_slice, sample_fused_tempering)
 
         # samplers that resume from their own state (its lp, and what else
         # the kernel carries) through initial_state
         own_start = {Barker: sample_fused_barker, PreconditionedCrankNicolson: sample_fused_pcn,
                      EllipticalSlice: sample_fused_ess, SliceSampler: sample_fused_slice,
                      AdaptiveMetropolis: sample_fused_am, DRAM: sample_fused_am,
-                     DelayedRejection: sample_fused}
+                     DelayedRejection: sample_fused, MultipleTryMetropolis: sample_fused,
+                     ReplicaExchange: sample_fused_tempering}
 
         if collect_states:
             raise ValueError(
@@ -304,9 +314,12 @@ def sample(
                 # frozen continuation: the saved per-chain ε̄ (and M⁻¹), the
                 # ChEES statistics or MEADS's persistent (p, u, iteration) go
                 # back into the kernels; the slice samplers, Barker, pCN and
-                # DR take the state's own lp (and gradient), and AM and DRAM
-                # their live moments too, so that a split run stays exact
+                # DR and MTM take the state's own lp (and gradient), AM and
+                # DRAM their live moments too and replica exchange its whole
+                # ladder, so that a split run stays exact
                 resume_adapt = initial_state
+            elif isinstance(sampler, DifferentialEvolution):
+                resume_adapt = initial_state  # the population and its own lp
             else:
                 initial_params = initial_state.params
         common = dict(key=master, initial_params=initial_params,
@@ -316,6 +329,11 @@ def sample(
         if isinstance(sampler, Ensemble):  # the walkers are the batch axis
             transitions, final_state = sample_fused_emcee(
                 model, sampler, schedule.n_samples, **common)
+            return _finish(transitions, final_state, schedule, None, False,
+                           sampler, chain_type, param_names)
+        if isinstance(sampler, DifferentialEvolution):  # the members are the batch axis
+            transitions, final_state = sample_fused_demc(
+                model, sampler, schedule.n_samples, initial_state=resume_adapt, **common)
             return _finish(transitions, final_state, schedule, None, False,
                            sampler, chain_type, param_names)
         if num_chains is None:

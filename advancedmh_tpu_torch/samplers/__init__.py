@@ -11,6 +11,7 @@ from .base import (
     setparams,
 )
 from .chees import ChEESHMC, ChEESHMCState
+from .demc import DifferentialEvolution
 from .dr import DelayedRejection
 from .dram import DRAM
 from .emcee import Ensemble, StretchProposal, WalkProposal
@@ -20,9 +21,11 @@ from .hmc_adapt import AdaptiveHMC, AdaptiveHMCState
 from .mala import MALA
 from .meads import MEADS, MEADSState
 from .mh import RWMH, MetropolisHastings, StaticMH
+from .mtm import MultipleTryMetropolis
 from .pcn import PreconditionedCrankNicolson
 from .ram import RobustAdaptiveMetropolis, RobustAdaptiveMetropolisState
 from .slice import SliceSampler
+from .tempering import ReplicaExchange, ReplicaExchangeState, swap_rates, tune_betas
 
 __all__ = [
     "Sampler", "Transition", "GradientTransition", "accept_reject",
@@ -33,5 +36,7 @@ __all__ = [
     "StepSizeAdaptation", "StepSizeAdaptationState", "optimal_rwmh_accept",
     "ChEESHMC", "ChEESHMCState", "MEADS", "MEADSState", "Barker", "EllipticalSlice",
     "PreconditionedCrankNicolson", "SliceSampler", "AdaptiveMetropolis",
-    "AdaptiveMetropolisState", "DelayedRejection", "DRAM",
+    "AdaptiveMetropolisState", "DelayedRejection", "DRAM", "MultipleTryMetropolis",
+    "ReplicaExchange", "ReplicaExchangeState", "swap_rates", "tune_betas",
+    "DifferentialEvolution",
 ]

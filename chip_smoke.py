@@ -17,15 +17,19 @@ slice sampling on the d = 64 GP classification and regression, pCN on the
 regression (8192 chains) and the Barker proposal on the flagship and the
 logistic regression, and slice 6: Adaptive Metropolis and DRAM on correlated
 Gaussians and delayed rejection on the flagship (16384 chains), with DRAM on
-the Haario banana among the card-only checks. Each path runs
+the Haario banana among the card-only checks, and slice 7: Multiple-Try
+Metropolis (k = 4, and its ``fused_mtm`` throughput kernel) and replica
+exchange (K = 5) on the flagship at 16384 chains and DE-MC on the emcee model
+with one population of 16384 members, with the bimodal mixture among the
+card-only checks. Each path runs
 with every launch counter set to 0 just before it and read just after. The
 posteriors are checked against a float64 grid quadrature (the flagship),
 the analytic means (emcee), the ``engine="torch"`` run and the
 correlated-Gaussian checks of the JAX package's tests. Then it times each
 kernel at its main path's shape against its plain version, and the whole
 call with ESS/s. The timed kernel outputs are held against the plain
-versions' (emcee: its decisions over the whole run, its first 64 draws
-element-wise, and its means). Every phase that fails exits non-zero. The last
+versions' (emcee and DE-MC: their decisions over the whole run, their first
+64 draws element-wise, and their means). Every phase that fails exits non-zero. The last
 line of stdout is one JSON object: ``{"ok": true, "device": {...}}``; the
 line before it lists the kernels with their launch counts, errors, times
 and bounds.
@@ -2332,6 +2336,485 @@ def phase_timing_slice6(models, label, errs, times):
                                  chain_type="chains", param_names=kw_names(m)), param)
 
 
+# ---- slice 7: Multiple-Try Metropolis, replica exchange and DE-MC ------------------------
+
+MTM_K = 4  # benchmarks/samplers.py:182-205: MTM(scale 0.2), k = 4 on the flagship
+MTM_SCALE = 0.2
+MTM_THROUGHPUT_STEPS = 2000
+PT_BETAS = tuple(float(b) for b in np.geomspace(1.0, 0.05, 5))  # benchmarks/samplers.py:598-622
+PT_SCALE = 0.1
+N_PLAIN_SLICE7 = 10  # steps of the slice-7 plain versions timed at the main paths' widths
+
+
+def mtm_sampler(k=MTM_K, scale=MTM_SCALE):
+    from advancedmh_tpu_torch import MultipleTryMetropolis, MvNormal, RandomWalkProposal
+
+    return MultipleTryMetropolis(
+        RandomWalkProposal(MvNormal(torch.zeros(2, device=DEVICE), scale=scale)), k=k)
+
+
+def pt_sampler():
+    from advancedmh_tpu_torch import RWMH, MvNormal, ReplicaExchange
+
+    return ReplicaExchange(RWMH(MvNormal(torch.zeros(2, device=DEVICE), scale=PT_SCALE)),
+                           betas=PT_BETAS)
+
+
+def demc_sampler(M=None, **kw):
+    """The DE-MC path's population (N_CHAINS members unless ``M``)."""
+    from advancedmh_tpu_torch import DifferentialEvolution, InverseGamma, Normal
+
+    return DifferentialEvolution(N_CHAINS if M is None else M,
+                                 [InverseGamma(2.0, 3.0), Normal(0.0, 1.0)], **kw)
+
+
+def _ladder(m, K, C, seed):
+    """A ladder of K replicas: each from _start (the flagship: σ ~ U(-0.5, 2),
+    some replicas outside the support with ℓ = -inf), N(0, 16) (the bimodal
+    target) or N(0, 1), and its raw ℓ."""
+    rng = np.random.default_rng(seed)
+    if m.cuda_density == "gaussian_mean_scale":
+        x = torch.cat([_start(C, seed + k) for k in range(K)])
+    else:
+        d = m.dimension
+        sd = 4.0 if m.cuda_density == "bimodal_mixture" else 1.0
+        x = torch.tensor(rng.normal(0.0, sd, (K * d, C)), dtype=torch.float32, device=DEVICE)
+    d = x.shape[0] // K
+    ell = torch.cat([m.tile_density(x[k * d:(k + 1) * d], *m.tile_consts) for k in range(K)])
+    return x, ell
+
+
+def _demc_start(M, seed):
+    """Members s ~ 1 + Gamma(2), m ~ N(0, 1) (benchmarks/samplers.py:398-430)."""
+    rng = np.random.default_rng(seed)
+    return torch.tensor(np.stack([1.0 + rng.gamma(2.0, size=M), rng.normal(size=M)]),
+                        dtype=torch.float32, device=DEVICE)
+
+
+def hold_population(errs, name, tag, got, ref):
+    """A population kernel's outputs against its plain version's: members
+    read each other, so one flipped decision spreads; the whole run is held
+    to 99.9% of equal decisions and its first 64 draws element-wise (as
+    emcee's), the means besides."""
+    same = float((got[2] == ref[2]).float().mean())
+    r = agreement(tuple(o[:64] for o in got), tuple(o[:64] for o in ref))
+    means = [tuple(float(o[0][:, i].mean()) for i in range(o[0].shape[1])) for o in (got, ref)]
+    print(f"kernel {name} {tag}: equal decisions {same:.6f}, means {means[0]} / {means[1]}; "
+          f"first 64 draws: {r}")
+    check(same >= 0.999, f"{name} {tag}: decisions agree {same:.6f} < 0.999")
+    check_agreement(f"{name} {tag}, first 64 draws", r, SHORT_RUN_CHAINS_MIN,
+                    visible_steps=False)
+    check(all(abs(a - b) < 0.05 for a, b in zip(*means)), f"{name} {tag}: means differ")
+    errs[name] = max(errs.get(name, 0.0), r["max_abs_err"])
+
+
+def phase_kernels_slice7(models, errs):
+    """The four slice-7 kernels against their plain versions at 64-step
+    cases, 2048 chains: MTM sampling on the flagship (diagonal and
+    triangular scales, starts outside the support among them) and the
+    correlated Gaussians at d = 2, 4 with k = 1, 4, 8, and its throughput
+    kernel; tempering on the flagship (K = 5, replicas outside the support),
+    the bimodal mixture (K = 5) and a correlated Gaussian with replica
+    scales, the final ladder, its ℓ and the swap counts compared; DE-MC on
+    the emcee model and a correlated Gaussian, with and without snooker
+    moves, one population of 2048 (and 6) members."""
+    from advancedmh_tpu_torch.ops import (DemcParams, demc_sample_reference, fused_demc_sample,
+                                          fused_mtm, fused_mtm_sample, fused_tempering_sample,
+                                          mtm_reference, mtm_sample_reference,
+                                          tempering_sample_reference)
+
+    def report(name, tag, got, ref, visible):
+        r = agreement(got, ref)
+        print(f"kernel {name} {tag}: {r}")
+        check_agreement(name, r, SHORT_RUN_CHAINS_MIN, visible_steps=visible)
+        errs[name] = max(errs[name], r["max_abs_err"])
+
+    C = 2048
+    tril = [[0.2, 0.0], [0.05, 0.15]]
+    cases = [  # (model, scale, k, burn, thin, n, offset)
+        ("flagship", 0.2, 4, 0, 1, 64, 0),
+        ("flagship", tril, 4, 0, 1, 64, (1 << 32) - 30),
+        ("flagship", 0.2, 1, 0, 1, 64, 5),
+        ("corr", [0.8, 0.6], 8, 5, 3, 19, 7),
+        ("corr4", 0.5, 4, 0, 1, 64, 11),
+    ]
+    for i, (key, scale, k, burn, thin, n, off) in enumerate(cases):
+        m = models[key]
+        p = _start(C, 150 + i) if key == "flagship" else _gauss_start(m.dimension, C, 150 + i)
+        args = (m.tile_density, m.cuda_density, p, m.tile_density(p, *m.tile_consts),
+                torch.tensor(scale, device=DEVICE), m.tile_consts, 0x3770 + i)
+        kw = dict(k=k, burn=burn, thin=thin, n_samples=n, iteration_offset=off)
+        report("mtm_sample", f"{key} C={C} scale {scale} k={k} burn={burn} thin={thin} n={n} "
+               f"offset={off}", fused_mtm_sample(*args, **kw), mtm_sample_reference(*args, **kw),
+               burn == 0 and thin == 1)
+    flag = models["flagship"]
+    p = _start(C, 160)
+    args = (flag.tile_density, flag.cuda_density, p, flag.tile_density(p, *flag.tile_consts),
+            MTM_SCALE, flag.tile_consts, 0x3780)
+    report("mtm", f"flagship C={C} k={MTM_K} 64 steps",
+           fused_mtm(*args, k=MTM_K, n_steps=64, iteration_offset=3),
+           mtm_reference(*args, k=MTM_K, n_steps=64, iteration_offset=3), False)
+
+    pt_cases = [  # (model, betas, scale, replica_scales, burn, thin, n, offset)
+        ("flagship", PT_BETAS, PT_SCALE, None, 0, 1, 64, 0),
+        ("bimodal", (1.0, 0.55, 0.3, 0.15, 0.05), 0.5, None, 0, 1, 64, (1 << 32) - 30),
+        ("corr", (1.0, 0.6, 0.3), [0.8, 0.5], (1.0, 1.3, 1.8), 5, 3, 19, 7),
+    ]
+    for i, (key, betas, scale, rs, burn, thin, n, off) in enumerate(pt_cases):
+        m = models[key]
+        x, ell = _ladder(m, len(betas), C, 170 + 10 * i)
+        args = (m.tile_density, m.cuda_density, x, ell, m.tile_consts, 0x3790 + i)
+        kw = dict(betas=betas, scale=scale, replica_scales=rs, burn=burn, thin=thin, n_samples=n,
+                  iteration_offset=off)
+        got = fused_tempering_sample(*args, **kw)
+        check(not bool(torch.isnan(got[3]).any() or torch.isnan(got[4]).any()),
+              f"tempering {key}: NaN in the ladder")
+        report("tempering", f"{key} C={C} K={len(betas)} replica scales {rs} burn={burn} "
+               f"thin={thin} n={n} offset={off}", got, tempering_sample_reference(*args, **kw),
+               burn == 0 and thin == 1)
+
+    de_cases = [  # (model, M, snooker, burn, thin, n, offset)
+        ("emcee", 2048, 0.0, 0, 1, 64, 0),
+        ("emcee", 2048, 0.3, 3, 2, 30, (1 << 32) - 12),
+        ("corr", 2048, 0.5, 0, 1, 64, 9),
+        ("emcee", 6, 0.3, 0, 1, 64, 0),
+    ]
+    for i, (key, M, snooker, burn, thin, n, off) in enumerate(de_cases):
+        m = models[key]
+        x = _demc_start(M, 180 + i) if key == "emcee" else _gauss_start(2, M, 180 + i)
+        args = (m.tile_density, m.cuda_density, x, m.tile_density(x, *m.tile_consts),
+                m.tile_consts, 0x37A0 + i)
+        kw = dict(params=DemcParams(demc_sampler(M)._gamma(2), snooker_probability=snooker),
+                  burn=burn, thin=thin, n_samples=n, iteration_offset=off)
+        hold_population(errs, "demc", f"{key} M={M} snooker {snooker} burn={burn} thin={thin} "
+                        f"n={n} offset={off}", fused_demc_sample(*args, **kw),
+                        demc_sample_reference(*args, **kw))
+    sync()
+
+
+def phase_main_slice7(models, label, launches):
+    """MTM (k = 4, scale 0.2) on the flagship with the fused_mtm throughput
+    kernel at 16384 x 2000, replica exchange (K = 5, betas geomspace(1,
+    0.05), RWMH scale 0.1) on the flagship, and DE-MC on the emcee model
+    with one population of 16384 members, each at 16384 x (500 + 4000)
+    through sample(engine="fused") + summary() with its launch counters
+    read."""
+    from advancedmh_tpu_torch import sample, swap_rates
+    from advancedmh_tpu_torch.ops import fused_mtm
+
+    flag = models["flagship"]
+    mu_q, sig_q = grid_posterior_means(flag.tile_consts[0].cpu().numpy().ravel())
+    p0 = torch.tensor([[0.0], [1.0]], device=DEVICE).expand(2, N_CHAINS).contiguous()
+    lp0 = flag.tile_density(p0, *flag.tile_consts)
+
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    res = sample_path(flag, mtm_sampler(), KEY + 110, initial_params=[0.0, 1.0])
+    chains = res.to_chains(param_names=["μ", "σ"])
+    summary = chains.summary()
+    sync()
+    t_path = time.perf_counter() - t0
+    _, _, acc_b = fused_mtm(flag.tile_density, flag.cuda_density, p0, lp0, MTM_SCALE,
+                            flag.tile_consts, KEY, k=MTM_K, n_steps=MTM_THROUGHPUT_STEPS)
+    sync()
+    got = read_launches()
+    check_launches("mtm main path", got, {"mtm_sample": 1, "mtm": 1})
+    launches.update(mtm_sample=got["mtm_sample"], mtm=got["mtm"])
+    acc = float(res.transitions.accepted.float().mean())
+    acc_b_rate = float(acc_b.mean()) / MTM_THROUGHPUT_STEPS
+    rhat = max(s["rhat"] for s in summary.values())
+    print(f"[{label}] mtm flagship k={MTM_K} first sample(engine='fused') + summary "
+          f"{t_path:.4f} s; acceptance {acc:.4f} (fused_mtm {acc_b_rate:.4f}); means "
+          f"{summary['μ']['mean']:.5f}, {summary['σ']['mean']:.5f} (quadrature {mu_q:.5f}, "
+          f"{sig_q:.5f}); max R-hat {rhat:.5f}; ess(μ)={summary['μ']['ess']:.1f}")
+    check(bool(torch.isfinite(chains.values).all()), "mtm: non-finite draws")
+    check(0.70 <= acc <= 0.80, f"mtm acceptance {acc} outside [0.70, 0.80]")
+    check(0.70 <= acc_b_rate <= 0.80, f"fused_mtm acceptance {acc_b_rate}")
+    posterior_check("mtm flagship", summary, mu_q, sig_q)
+
+    res, _, summary, acc = _fused_path("tempering flagship", flag, pt_sampler(), N_DRAWS, N_WARM,
+                                       "tempering", launches, label, N_CHAINS, key=KEY + 111,
+                                       initial_params=[0.0, 1.0])
+    rates = swap_rates(res.final_state)
+    fs = res.final_state
+    print(f"tempering flagship: means {summary['μ']['mean']:.5f}, {summary['σ']['mean']:.5f} "
+          f"(quadrature {mu_q:.5f}, {sig_q:.5f}); cold acceptance {acc:.4f}; swap rates "
+          f"{rates.mean(0).tolist()} (min {float(rates.min()):.4f}, max {float(rates.max()):.4f})")
+    posterior_check("tempering flagship", summary, mu_q, sig_q)
+    check(bool(((rates > 0) & (rates < 1)).all()), "tempering: a swap rate outside (0, 1)")
+    check(tuple(fs.inner.params.shape) == (N_CHAINS, len(PT_BETAS), 2), "tempering ladder shape")
+    check(bool((fs.swap_proposal_count == N_WARM - 1 + N_DRAWS).all()),
+          "tempering: swap proposal count")
+
+    demo = models["emcee"]
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    res = sample(demo, demc_sampler(), N_DRAWS, engine="fused", discard_initial=N_WARM,
+                 key=KEY + 112)
+    chains = res.to_chains(param_names=["s", "m"])
+    summary = chains.summary()
+    sync()
+    t_path = time.perf_counter() - t0
+    got = read_launches()
+    check_launches("demc main path", got, {"demc": 1})
+    launches["demc"] = got["demc"]
+    acc = float(res.transitions.accepted.float().mean())
+    s_mean, m_mean = summary["s"]["mean"], summary["m"]["mean"]
+    print(f"[{label}] demc {N_CHAINS} members first sample(engine='fused') + summary "
+          f"{t_path:.4f} s; acceptance {acc:.4f}; means s={s_mean:.5f} (49/24 = {49 / 24:.5f}), "
+          f"m={m_mean:.5f} (7/6 = {7 / 6:.5f}); ess(m)={summary['m']['ess']:.1f}")
+    check(tuple(res.transitions.params.shape) == (N_DRAWS, N_CHAINS, 2), "demc shape")
+    check(bool(torch.isfinite(res.transitions.params).all()), "demc: non-finite draws")
+    check(abs(s_mean - 49 / 24) < 0.1 and abs(m_mean - 7 / 6) < 0.1, "demc means")
+    check(0.1 < acc < 0.9, f"demc acceptance {acc}")
+
+
+def sample_path(model, spl, key, **kw):
+    """The MTM main path's call: 16384 x (500 + 4000)."""
+    from advancedmh_tpu_torch import sample
+
+    return sample(model, spl, N_DRAWS, num_chains=N_CHAINS, engine="fused",
+                  discard_initial=N_WARM, key=key, **kw)
+
+
+def _split_same(whole, first, rest, axis):
+    return all(torch.equal(torch.cat([getattr(first.transitions, f),
+                                      getattr(rest.transitions, f)], axis),
+                           getattr(whole.transitions, f)) for f in ("params", "lp", "accepted"))
+
+
+def phase_slice7_checks(models):
+    """tests/test_pallas.py's card-only MTM, tempering and DE-MC checks at
+    their shapes: MTM moments against an engine="torch" run, k = 3 at
+    thinning 3, the throughput kernel deterministic; the bimodal mixture at
+    1024 x (500 + 4000) from -5 and its split 500 + 2000 + 2000 run bit for
+    bit with 4499 swap proposals; DE-MC at 1024 members (thinning 3, snooker
+    0.3); split runs of MTM and DE-MC bit for bit."""
+    from advancedmh_tpu_torch import RWMH, Normal, ReplicaExchange, sample, swap_rates
+    from advancedmh_tpu_torch.ops import fused_mtm
+
+    flag, demo = models["flagship"], models["emcee"]
+    start = [0.0, 1.0]
+    c = sample(flag, mtm_sampler(), 2000, key=3, num_chains=N_CHECK, engine="fused",
+               discard_initial=1000, initial_params=start, chain_type="chains",
+               param_names=["μ", "σ"])
+    ref = sample(flag, mtm_sampler(), 2000, key=3, num_chains=256, discard_initial=1000,
+                 initial_params=start, chain_type="chains", param_names=["μ", "σ"])
+    d_mu, d_sig = (abs(float(c[n].mean()) - float(ref[n].mean())) for n in ("μ", "σ"))
+    print(f"MTM {N_CHECK}x(1000+2000) fused vs engine=torch 256 chains: |Δμ| {d_mu:.5f}, "
+          f"|Δσ| {d_sig:.5f}")
+    check(d_mu < 0.05 and d_sig < 0.05, "MTM fused vs torch engine moments")
+    res = sample(flag, mtm_sampler(k=3), 100, key=11, num_chains=256, engine="fused",
+                 discard_initial=50, thinning=3, initial_params=start)
+    check(tuple(res.transitions.params.shape) == (256, 100, 2), "MTM thin 3 shape")
+    check(bool(torch.isfinite(res.transitions.lp).all()), "MTM thin 3: non-finite lp")
+    p = torch.tensor([[0.0], [1.0]], device=DEVICE).expand(2, 256).contiguous()
+    args = (flag.tile_density, flag.cuda_density, p, flag.tile_density(p, *flag.tile_consts),
+            0.2, flag.tile_consts, 3)
+    p1, _, _ = fused_mtm(*args, k=4, n_steps=50)
+    p2, _, _ = fused_mtm(*args, k=4, n_steps=50)
+    check(torch.equal(p1, p2), "fused_mtm is not deterministic")
+
+    bi = models["bimodal"]
+    pt = ReplicaExchange(RWMH(Normal(0.0, 0.5)), betas=(1.0, 0.55, 0.3, 0.15, 0.05))
+    kw = dict(key=0, num_chains=1024, engine="fused", initial_params=[-5.0])
+    whole = sample(bi, pt, 4000, discard_initial=500, **kw)
+    draws = whole.transitions.params[..., 0]
+    frac_right = (draws > 0).float().mean(1)
+    want = bi.tile_density(whole.transitions.params.reshape(1, -1)).reshape(draws.shape)
+    lp_err = float((whole.transitions.lp - want).abs().max())
+    rates = swap_rates(whole.final_state)
+    print(f"tempering bimodal 1024x(500+4000) from -5: frac right {float(frac_right.mean()):.4f},"
+          f" chains crossing {float((frac_right > 0.02).float().mean()):.4f}, mean "
+          f"{float(draws.mean()):.4f}, cold lp vs density max |err| {lp_err:.3g}, swap rates "
+          f"{rates.mean(0).tolist()}")
+    check(0.3 < float(frac_right.mean()) < 0.7, "tempering bimodal: mode balance")
+    check(float((frac_right > 0.02).float().mean()) > 0.95, "tempering bimodal: crossings")
+    check(abs(float(draws.mean())) < 1.0, "tempering bimodal: mean")
+    check(torch.allclose(whole.transitions.lp, want, rtol=1e-4, atol=1e-4),
+          "tempering bimodal: cold lp is not the untempered density")
+    check(tuple(rates.shape) == (1024, 4) and bool(((rates > 0) & (rates < 1)).all()),
+          "tempering bimodal: swap rates")
+    first = sample(bi, pt, 2000, discard_initial=500, **kw)
+    rest = sample(bi, pt, 2000, discard_initial=1, initial_state=first.final_state,
+                  iteration_offset=499 + 2000, **{**kw, "initial_params": None})
+    same = _split_same(whole, first, rest, 1)
+    prop = rest.final_state.swap_proposal_count
+    same_state = (torch.equal(rest.final_state.inner.params, whole.final_state.inner.params)
+                  and torch.equal(rest.final_state.swap_accept_count,
+                                  whole.final_state.swap_accept_count))
+    print(f"tempering split 500 + 2000 + 2000: bit-exact {same}, ladders and swap counts equal "
+          f"{same_state}, swap proposals {int(prop.min())}..{int(prop.max())}")
+    check(same and same_state, "tempering: the split run differs from the unsplit one")
+    check(bool((prop == 499 + 2000 + 2000).all()), "tempering: swap proposals across the split")
+
+    res = sample(demo, demc_sampler(1024), 1000, key=100, engine="fused", discard_initial=200)
+    dr = res.transitions.params.reshape(-1, 2)
+    acc = float(res.transitions.accepted.float().mean())
+    res_t = sample(demo, demc_sampler(1024), 200, key=101, engine="fused", discard_initial=100,
+                   thinning=3)
+    dt = res_t.transitions.params.reshape(-1, 2)
+    res_s = sample(demo, demc_sampler(1024, snooker_probability=0.3), 1000, key=100,
+                   engine="fused", discard_initial=200)
+    ds = res_s.transitions.params.reshape(-1, 2)
+    acc_s = float(res_s.transitions.accepted.float().mean())
+    print(f"DE-MC 1024 members (200+1000): means {dr.mean(0).tolist()}, acceptance {acc:.4f}; "
+          f"thin 3: {dt.mean(0).tolist()}; snooker 0.3: {ds.mean(0).tolist()}, acceptance "
+          f"{acc_s:.4f}")
+    for name, dd, tol in (("DE-MC", dr, 0.1), ("DE-MC thin 3", dt, 0.12),
+                          ("DE-MC snooker", ds, 0.1)):
+        check(abs(float(dd[:, 0].mean()) - 49 / 24) < tol
+              and abs(float(dd[:, 1].mean()) - 7 / 6) < tol, f"{name} means")
+    check(0.1 < acc < 0.9 and 0.1 < acc_s < 0.9, "DE-MC acceptance")
+    check(tuple(res.transitions.params.shape) == (1000, 1024, 2)
+          and tuple(res.final_state.params.shape) == (1024, 2), "DE-MC shapes")
+
+    # split runs: 2n in one call = n, then n resumed from the final state
+    for name, run, axis in (
+            ("mtm", lambda n, d, **k: sample(flag, mtm_sampler(), n, num_chains=N_CHECK,
+                                             engine="fused", key=KEY + 113, thinning=2,
+                                             discard_initial=d, **k), 1),
+            ("demc", lambda n, d, **k: sample(demo, demc_sampler(N_CHECK, snooker_probability=0.3),
+                                              n, engine="fused", key=KEY + 114, thinning=2,
+                                              discard_initial=d, **k), 0)):
+        init = dict(initial_params=start) if name == "mtm" else {}
+        whole = run(400, N_WARM, **init)
+        first = run(200, N_WARM, **init)
+        rest = run(200, 2, initial_state=first.final_state, iteration_offset=N_WARM - 2 + 400)
+        same = _split_same(whole, first, rest, axis)
+        print(f"{name} split run {N_CHECK}, {N_WARM} + 2 x 200 thin 2: bit-exact {same}")
+        check(same, f"{name}: the split run differs from the unsplit one")
+    sync()
+
+
+# float32 operations counted from csrc/{mtm,tempering,demc}.cu and the
+# functors, as the earlier bounds (Philox's integer work not counted): the
+# flagship's density 5n + 7 at its n = 30 observations, the emcee model's 18;
+# a Box-Muller pair 12 and a log 1.
+
+
+def bound_mtm(C: int, steps: int, emitted: int, k: int, d: int = 2, throughput: bool = False):
+    """An MTM launch: per step 2k − 1 densities with their clamp (5n + 8),
+    normals (12 a pair) and proposals (2d); k Gumbel draws (2 logs, a
+    negation, an add, a compare and d + 2 selects); 2k − 2 terms of the two
+    streaming logsumexps (7 each: max, two subtractions, two exps, a
+    multiply and an add); log α (two logs, three adds); the accept (a log,
+    a compare, d + 1 selects). In: x, lp, the scale and the constants; out:
+    the draws (or the final state and counts)."""
+    P = (d + 1) // 2
+    step = ((2 * k - 1) * (5 * _N_OBS + 8 + 12 * P + 2 * d) + k * (6 + d) + (2 * k - 2) * 7
+            + 5 + d + 3)
+    out = (d + 2) * C if throughput else emitted * (d + 2) * C
+    return _bound(((d + 1) * C + d + _N_OBS + out) * 4, step * steps * C)
+
+
+def bound_tempering(C: int, steps: int, emitted: int, K: int, d: int = 2):
+    """A tempering launch: per step K moves (normals 12 a pair, proposal 2d,
+    the density 5n + 7, β(ℓ_y − ℓ), a log, a compare and d + 1 selects) and
+    K − 1 swap tests (two operations, a log, a compare, 2d + 2 selects and
+    the count). In: the ladder (K d + K a chain), β, the scales and the
+    constants; out: the cold replica's draws and the final ladder with its
+    swap counts."""
+    P = (d + 1) // 2
+    step = K * (12 * P + 2 * d + 5 * _N_OBS + 7 + 2 + 2 + d + 1) + (K - 1) * (2 + 2 + 2 * d + 3)
+    nbytes = ((K * d + K) * C * 2 + (K - 1) * C + 2 * K + K * d + _N_OBS
+              + emitted * (d + 2) * C) * 4
+    return _bound(nbytes, step * steps * C)
+
+
+def bound_demc(M: int, steps: int, emitted: int, d: int = 2, dens_ops: int = 18):
+    """A DE-MC launch: per member-step the three index draws (2 each, the
+    bump 1), the jump (2), d normals (12 a pair), the proposal (4d), the
+    density and the accept (a log, three adds and compares, d + 1 selects).
+    In: the population (d + 1 a member); out: the draws."""
+    step = 7 + 2 + 12 * ((d + 1) // 2) + 4 * d + dens_ops + 4 + d + 1
+    return _bound(((d + 1) * M + emitted * (d + 2) * M) * 4, step * steps * M)
+
+
+def phase_timing_slice7(models, label, errs, times):
+    """The four kernels at their main paths' shapes (best of 3) with their
+    bounds, the plain versions at the paths' widths over N_PLAIN_SLICE7
+    steps held against the kernel there, DE-MC's plain version over the
+    whole run held as emcee's, and ESS/s of each path including
+    summary()."""
+    from advancedmh_tpu_torch import sample
+    from advancedmh_tpu_torch.ops import (DemcParams, demc_sample_reference, fused_demc_sample,
+                                          fused_mtm, fused_mtm_sample, fused_tempering_sample,
+                                          mtm_reference, mtm_sample_reference,
+                                          tempering_sample_reference)
+
+    C = N_CHAINS
+    flag, demo = models["flagship"], models["emcee"]
+    short = dict(burn=0, n_samples=N_PLAIN_SLICE7)
+    steps = N_WARM - 1 + N_DRAWS
+
+    def timed(name, fn, plain, args, kw, kws, tag):
+        t_k, out = best_of(lambda: fn(*args, **kw))
+        del out
+        t_ks, out = best_of(lambda: fn(*args, **kws))
+        t_p, ref = best_of(lambda: plain(*args, **kws), PLAIN_REPEATS)
+        print(f"[{label}] {name} {tag}: kernel {t_k * 1e3:.4f} ms; at {C} x {N_PLAIN_SLICE7}: "
+              f"kernel {t_ks * 1e3:.4f} ms, plain {t_p * 1e3:.4f} ms")
+        hold(errs, name, f"{C} x {N_PLAIN_SLICE7}", out, ref)
+        return t_k, t_p
+
+    p0 = torch.tensor([[0.0], [1.0]], device=DEVICE).expand(2, C).contiguous()
+    args = (flag.tile_density, flag.cuda_density, p0, flag.tile_density(p0, *flag.tile_consts),
+            MTM_SCALE, flag.tile_consts, KEY)
+    kw = dict(k=MTM_K, burn=N_WARM - 1, thin=1, n_samples=N_DRAWS)
+    t_k, t_p = timed("mtm_sample", fused_mtm_sample, mtm_sample_reference, args, kw,
+                     dict(kw, **short), f"flagship k={MTM_K} at {C} x ({N_WARM - 1} + {N_DRAWS})")
+    times["mtm_sample"] = (t_k, t_p, bound_mtm(C, steps, N_DRAWS, MTM_K),
+                           f"plain at {C} x {N_PLAIN_SLICE7} steps")
+    kw = dict(k=MTM_K, n_steps=MTM_THROUGHPUT_STEPS)
+    t_k, t_p = timed("mtm", fused_mtm, mtm_reference, args, kw,
+                     dict(k=MTM_K, n_steps=N_PLAIN_SLICE7),
+                     f"flagship k={MTM_K} at {C} x {MTM_THROUGHPUT_STEPS}")
+    times["mtm"] = (t_k, t_p, bound_mtm(C, MTM_THROUGHPUT_STEPS, 0, MTM_K, throughput=True),
+                    f"plain at {C} x {N_PLAIN_SLICE7} steps")
+    print(f"[{label}] fused_mtm {C * MTM_THROUGHPUT_STEPS / t_k:.6e} chain-steps/s")
+
+    K = len(PT_BETAS)
+    x0 = p0.repeat(K, 1).contiguous()
+    args = (flag.tile_density, flag.cuda_density, x0,
+            flag.tile_density(p0, *flag.tile_consts).expand(K, C).contiguous(), flag.tile_consts,
+            KEY)
+    kw = dict(betas=PT_BETAS, scale=PT_SCALE, burn=N_WARM - 1, thin=1, n_samples=N_DRAWS)
+    t_k, t_p = timed("tempering", fused_tempering_sample, tempering_sample_reference, args, kw,
+                     dict(kw, **short), f"flagship K={K} at {C} x ({N_WARM - 1} + {N_DRAWS})")
+    times["tempering"] = (t_k, t_p, bound_tempering(C, steps, N_DRAWS, K),
+                          f"plain at {C} x {N_PLAIN_SLICE7} steps")
+
+    spl = demc_sampler()
+    x = _demc_start(C, KEY)
+    args = (demo.tile_density, demo.cuda_density, x, demo.tile_density(x), (), KEY)
+    kw = dict(params=DemcParams(spl._gamma(2)), burn=N_WARM - 1, thin=1, n_samples=N_DRAWS)
+    t_k, out = best_of(lambda: fused_demc_sample(*args, **kw))
+    t_p, ref = best_of(lambda: demc_sample_reference(*args, **dict(kw, **short)), PLAIN_REPEATS)
+    t_pf, ref_full = best_of(lambda: demc_sample_reference(*args, **kw), PLAIN_REPEATS)
+    print(f"[{label}] demc at {C} members x ({N_WARM - 1} + {N_DRAWS}): kernel {t_k * 1e3:.4f} "
+          f"ms ({C * steps / t_k:.6e} member-steps/s); plain {t_p * 1e3:.4f} ms at {C} x "
+          f"{N_PLAIN_SLICE7}, {t_pf * 1e3:.4f} ms over the whole run")
+    hold_population(errs, "demc", f"{C} x ({N_WARM - 1} + {N_DRAWS})", out, ref_full)
+    del out, ref, ref_full
+    times["demc"] = (t_k, t_p, bound_demc(C, steps, N_DRAWS),
+                     f"plain at {C} x {N_PLAIN_SLICE7} steps")
+    for name in ("mtm_sample", "mtm", "tempering", "demc"):
+        print(f"[{label}] {name} bound {times[name][2][0] * 1e3:.4f} ms ({times[name][2][1]})")
+
+    time_path(label, f"mtm sample(engine='fused') {C} x ({N_WARM} + {N_DRAWS})",
+              lambda: sample_path(flag, mtm_sampler(), KEY + 115, initial_params=[0.0, 1.0],
+                                  chain_type="chains", param_names=["μ", "σ"]), "μ")
+    time_path(label, f"tempering sample(engine='fused') {C} x ({N_WARM} + {N_DRAWS}), cold replica",
+              lambda: sample_path(flag, pt_sampler(), KEY + 116, initial_params=[0.0, 1.0],
+                                  chain_type="chains", param_names=["μ", "σ"]), "μ")
+    time_path(label, f"demc sample(engine='fused') {C} members x ({N_WARM} + {N_DRAWS})",
+              lambda: sample(demo, demc_sampler(), N_DRAWS, engine="fused", discard_initial=N_WARM,
+                             key=KEY + 117, chain_type="chains", param_names=["s", "m"]), "m")
+
+
 # ---- timing ------------------------------------------------------------------------
 
 
@@ -2620,7 +3103,8 @@ def ptxas_summary(report: str):
             mangled = m.group(1)
             dens = re.findall(r"(GaussianMeanScale|EmceeDemo|CorrelatedGaussianILi\d+E"
                               r"|LogisticRegressionILi\d+E|NealFunnelILi\d+E"
-                              r"|GPRegressionILi\d+E|GPClassificationILi\d+E|Banana)", mangled)
+                              r"|GPRegressionILi\d+E|GPClassificationILi\d+E|Banana"
+                              r"|BimodalMixture)", mangled)
             flags = re.findall(r"Lb([01])E", mangled)
             kernel = re.match(r"_ZN3amh\d+([a-z_]+)", mangled).group(1)
             density = re.sub(r"ILi(\d+)E", r"<\1>", dens[0]) if dens else "?"
@@ -2654,6 +3138,10 @@ REPLACES = {
     "am": ("advancedmh_tpu/ops/pallas_am.py:90", "am.cu"),
     "dram": ("advancedmh_tpu/ops/pallas_dram.py:29", "dram.cu"),
     "dr": ("advancedmh_tpu/ops/pallas_dr.py:46", "dr.cu"),
+    "mtm_sample": ("advancedmh_tpu/ops/pallas_mtm.py:205", "mtm.cu"),
+    "mtm": ("advancedmh_tpu/ops/pallas_mtm.py:107", "mtm.cu"),
+    "tempering": ("advancedmh_tpu/ops/pallas_tempering.py:37", "tempering.cu"),
+    "demc": ("advancedmh_tpu/ops/pallas_demc.py:37", "demc.cu"),
 }
 
 
@@ -2666,6 +3154,7 @@ def main() -> None:
                                                  emcee_demo_model,
                                                  gaussian_mean_scale_model,
                                                  banana_model,
+                                                 bimodal_mixture_model,
                                                  logistic_regression_model,
                                                  neal_funnel_model)
         from advancedmh_tpu_torch.ops import _build
@@ -2712,6 +3201,7 @@ def main() -> None:
                                            device=DEVICE),
         "banana": banana_model(device=DEVICE),
         "flag300": gaussian_mean_scale_model(n_obs=300, device=DEVICE),
+        "bimodal": bimodal_mixture_model(device=DEVICE),
     }
     gps = gp_models()
     errs = {name: 0.0 for name in REPLACES}
@@ -2722,6 +3212,7 @@ def main() -> None:
     phase_kernels_slice4(models, errs)
     phase_kernels_slice5(models, gps, errs, evals)
     phase_kernels_slice6(models, errs)
+    phase_kernels_slice7(models, errs)
     print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
 
     launches = {}
@@ -2739,6 +3230,8 @@ def main() -> None:
     phase_slice5_checks(models, gps)
     phase_main_slice6(models, label, launches)
     phase_slice6_checks(models)
+    phase_main_slice7(models, label, launches)
+    phase_slice7_checks(models)
     print(f"main paths done at {time.perf_counter() - t_start:.1f} s")
 
     times = {}
@@ -2748,6 +3241,7 @@ def main() -> None:
     phase_timing_slice4(models, label, errs, times)
     phase_timing_slice5(models, gps, label, errs, times, evals, barker_eps)
     phase_timing_slice6(models, label, errs, times)
+    phase_timing_slice7(models, label, errs, times)
     print(f"[{label}] chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     kernels = []

@@ -165,10 +165,10 @@ def test_model_tags_name_cuda_functors():
 
     import numpy as np
 
-    from advancedmh_tpu_torch.models import (banana_model, correlated_gaussian_model,
-                                             emcee_demo_model, gaussian_mean_scale_model,
-                                             gp_latent_model, logistic_regression_model,
-                                             neal_funnel_model)
+    from advancedmh_tpu_torch.models import (banana_model, bimodal_mixture_model,
+                                             correlated_gaussian_model, emcee_demo_model,
+                                             gaussian_mean_scale_model, gp_latent_model,
+                                             logistic_regression_model, neal_funnel_model)
 
     names = set(re.findall(r'kName = "(\w+)"', (PKG / "csrc" / "common.cuh").read_text()))
     tags = {m.cuda_density for m in (gaussian_mean_scale_model(device="cpu"),
@@ -178,7 +178,8 @@ def test_model_tags_name_cuda_functors():
                                      neal_funnel_model(device="cpu"),
                                      gp_latent_model(8, device="cpu")[0],
                                      gp_latent_model(8, "logistic", device="cpu")[0],
-                                     banana_model(device="cpu"))}
+                                     banana_model(device="cpu"),
+                                     bimodal_mixture_model(device="cpu"))}
     assert tags == names
     for path in PKG.rglob("*.py"):
         assert "CUDA_DENSITIES" not in path.read_text(), path

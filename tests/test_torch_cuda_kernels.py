@@ -786,3 +786,155 @@ def test_slice6_wrappers_raise_for_what_has_no_kernel(model):
         with pytest.raises(ValueError, match="d <= 8"):
             calls[name]("correlated_gaussian", torch.zeros(9, 64, device="cuda"))
         assert ("correlated_gaussian", 8) in _build.kernel_pairs(_build.library(), name)
+
+
+# ---- slice 7: Multiple-Try Metropolis, replica exchange and DE-MC --------------------
+
+
+def _slice7_model(model, target):
+    from advancedmh_tpu_torch.models import bimodal_mixture_model
+
+    if target == "bimodal":
+        return bimodal_mixture_model(device="cuda")
+    if target == "emcee":
+        return emcee_demo_model(device="cuda")
+    return _slice6_model(model, target)
+
+
+@pytest.mark.parametrize("target,scale", [
+    ("flagship", [0.2, 0.2]), ("flagship", [[0.2, 0.0], [0.05, 0.15]]), ("corr2", [0.8, 0.6]),
+    ("corr4", [0.5] * 4),
+])
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("C,burn,thin,n,offset", [
+    (4096, 0, 1, 64, 0), (2001, 5, 3, 11, (1 << 32) - 20),
+])
+def test_mtm_sample_kernel_matches_plain(model, target, scale, k, C, burn, thin, n, offset):
+    from advancedmh_tpu_torch.ops import fused_mtm_sample, mtm_sample_reference
+
+    m = _slice7_model(model, target)
+    p = _slice3_start(m, C, seed=C + 8)
+    args = (m.tile_density, m.cuda_density, p, m.tile_density(p, *m.tile_consts),
+            torch.tensor(scale, device="cuda"), m.tile_consts, 98)
+    kw = dict(k=k, burn=burn, thin=thin, n_samples=n, iteration_offset=offset)
+    before = fused_mtm_sample.launches
+    got = fused_mtm_sample(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_mtm_sample.launches == before + 1
+    dec, chains = _agree(got, mtm_sample_reference(*args, **kw))
+    assert dec >= 0.999 and chains >= 0.999
+
+
+@pytest.mark.parametrize("k,n_steps", [(1, 1), (3, 40), (8, 17)])
+def test_mtm_step_kernel_matches_plain(model, k, n_steps):
+    from advancedmh_tpu_torch.ops import fused_mtm, mtm_reference
+
+    p, lp = _start(model, 4000, seed=k)
+    args = (model.tile_density, model.cuda_density, p, lp, torch.tensor([0.2, 0.2], device="cuda"),
+            model.tile_consts, 99)
+    before = fused_mtm.launches
+    x, l, acc = fused_mtm(*args, k=k, n_steps=n_steps, iteration_offset=3)
+    torch.cuda.synchronize()
+    assert fused_mtm.launches == before + 1
+    x_r, l_r, acc_r = mtm_reference(*args, k=k, n_steps=n_steps, iteration_offset=3)
+    ok = (acc == acc_r)[0] & _close(x, x_r).all(0) & _close(l, l_r)[0]
+    assert float(ok.float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("target,betas,scale,rs", [
+    ("flagship", (1.0, 0.5, 0.25, 0.1), 0.3, None),
+    ("bimodal", (1.0, 0.55, 0.3, 0.15, 0.05), 0.5, None),
+    ("bimodal", (1.0, 0.3), 0.5, (1.0, 2.0)),
+    ("corr2", (1.0, 0.6, 0.3), [0.8, 0.5], (1.0, 1.3, 1.8)),
+])
+@pytest.mark.parametrize("C,burn,thin,n,offset", [
+    (4096, 0, 1, 64, 0), (2001, 5, 3, 11, (1 << 32) - 20),
+])
+def test_tempering_kernel_matches_plain(model, target, betas, scale, rs, C, burn, thin, n,
+                                        offset):
+    """The cold replica's draws, lp and decisions, and per chain the final
+    ladder, its ℓ and the swap counts (the flagship's starts outside the
+    support, ℓ = −inf, among them: no NaN)."""
+    from advancedmh_tpu_torch.ops import fused_tempering_sample, tempering_sample_reference
+
+    m = _slice7_model(model, target)
+    K = len(betas)
+    x = torch.cat([_slice3_start(m, C, seed=C + 9 + k) if target != "bimodal" else
+                   torch.tensor(np.random.default_rng(C + k).normal(0.0, 4.0, (1, C)),
+                                dtype=torch.float32, device="cuda") for k in range(K)])
+    d = x.shape[0] // K
+    ell = torch.cat([m.tile_density(x[k * d:(k + 1) * d], *m.tile_consts) for k in range(K)])
+    args = (m.tile_density, m.cuda_density, x, ell, m.tile_consts, 100)
+    kw = dict(betas=betas, scale=scale, replica_scales=rs, burn=burn, thin=thin, n_samples=n,
+              iteration_offset=offset)
+    before = fused_tempering_sample.launches
+    got = fused_tempering_sample(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_tempering_sample.launches == before + 1
+    ref = tempering_sample_reference(*args, **kw)
+    dec, chains = _agree(got, ref)
+    assert dec >= 0.999 and chains >= 0.999
+    ladder = _bits_or_close(got[3], ref[3]) & _bits_or_close(got[4], ref[4]) & \
+        (got[5] == ref[5]).all(0)
+    assert float(ladder.float().mean()) >= 0.999
+    assert not bool(torch.isnan(got[3]).any() or torch.isnan(got[4]).any())
+
+
+@pytest.mark.parametrize("target,M,snooker", [
+    ("emcee", 1024, 0.0), ("emcee", 1000, 0.3), ("corr2", 512, 0.5), ("emcee", 6, 0.3),
+])
+@pytest.mark.parametrize("burn,thin,n,offset", [(0, 1, 32, 0), (4, 3, 9, (1 << 32) - 12)])
+def test_demc_kernel_matches_plain(model, target, M, snooker, burn, thin, n, offset):
+    """Members read each other, so one flipped decision spreads: the
+    decisions over the run and the draws element-wise, as emcee's."""
+    from advancedmh_tpu_torch.ops import DemcParams, demc_sample_reference, fused_demc_sample
+
+    m = _slice7_model(model, target)
+    rng = np.random.default_rng(M)
+    x = (torch.tensor(np.stack([rng.uniform(-0.2, 4.0, M), rng.normal(1.0, 1.0, M)]),
+                      dtype=torch.float32, device="cuda") if target == "emcee"
+         else _gauss_start(2, M, M))
+    args = (m.tile_density, m.cuda_density, x, m.tile_density(x, *m.tile_consts), m.tile_consts, 6)
+    kw = dict(params=DemcParams(2.38 / np.sqrt(4.0), snooker_probability=snooker), burn=burn,
+              thin=thin, n_samples=n, iteration_offset=offset)
+    before = fused_demc_sample.launches
+    got = fused_demc_sample(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_demc_sample.launches == before + 1
+    ref = demc_sample_reference(*args, **kw)
+    assert float((got[2] == ref[2]).float().mean()) >= 0.999
+    assert float(_close(got[0], ref[0]).float().mean()) >= 0.999
+
+
+def test_slice7_wrappers_raise_for_what_has_no_kernel(model):
+    """An unknown tag, a missing tag, or a (tag, d) the library lacks raises
+    _build.check's ValueError for the four slice-7 kernels."""
+    from advancedmh_tpu_torch.ops import (DemcParams, fused_demc_sample, fused_mtm,
+                                          fused_mtm_sample, fused_tempering_sample)
+
+    lp = lambda x: torch.zeros(1, x.shape[1], device="cuda")
+    one = lambda x: torch.ones(x.shape[0], device="cuda")
+    calls = {
+        "mtm_sample": ("mtm", lambda tag, x: fused_mtm_sample(
+            model.tile_density, tag, x, lp(x), one(x), model.tile_consts, 1, k=2, burn=0,
+            thin=1, n_samples=2)),
+        "mtm": ("mtm", lambda tag, x: fused_mtm(
+            model.tile_density, tag, x, lp(x), one(x), model.tile_consts, 1, k=2, n_steps=2)),
+        "tempering": ("tempering", lambda tag, x: fused_tempering_sample(
+            model.tile_density, tag, torch.cat([x, x]), torch.zeros(2, x.shape[1], device="cuda"),
+            model.tile_consts, 1, betas=(1.0, 0.5), scale=0.3, burn=0, thin=1, n_samples=2)),
+        "demc": ("demc", lambda tag, x: fused_demc_sample(
+            model.tile_density, tag, x, lp(x), model.tile_consts, 1, params=DemcParams(0.5),
+            burn=0, thin=1, n_samples=2)),
+    }
+    p = torch.zeros(2, 64, device="cuda")
+    for name, (source, call) in calls.items():
+        with pytest.raises(ValueError, match="CUDA density tag"):
+            call(None, p)
+        with pytest.raises(ValueError, match="'banana'"):
+            call("banana", p)
+        with pytest.raises(ValueError, match="instantiates only"):
+            call("correlated_gaussian", torch.zeros(3, 64, device="cuda"))
+        have = ("emcee_demo", 2) if source == "demc" else ("correlated_gaussian", 2)
+        assert have in _build.kernel_pairs(_build.library(), source)
+    assert ("bimodal_mixture", 1) in _build.kernel_pairs(_build.library(), "tempering")
