@@ -7,7 +7,9 @@ Metropolis, the emcee ensemble, HMC, AdaptiveHMC, dual-averaging step-size
 adaptation, ChEES-HMC, MEADS, slice sampling, elliptical slice sampling,
 the Barker proposal, preconditioned Crank-Nicolson, Adaptive Metropolis,
 delayed rejection, DRAM, Multiple-Try Metropolis, replica exchange and
-differential-evolution MCMC, ``sample`` with a
+differential-evolution MCMC, the evidence estimators (``log_evidence``
+with its power-posterior ladder, ``log_evidence_ais``) and adaptive-tempering
+SMC (``smc_sample``), ``sample`` with a
 batched tensor engine (``engine="torch"``) and the hand-written CUDA kernels
 of the fused engine (``engine="fused"``, ``csrc/``), ``Chains`` and the
 ESS / R̂ / MCSE diagnostics. Public names match ``advancedmh_tpu``'s. Models live on the
@@ -94,7 +96,11 @@ from .runtime import (
     MCMCThreads,
     SamplingResult,
     Schedule,
+    log_evidence,
+    log_evidence_ais,
+    power_ladder,
     sample,
+    smc_sample,
 )
 from .output import Chains, StructArray, chainscat
 from .diagnostics import ess, ess_bulk, ess_tail, mcse, rhat, rhat_rank
@@ -127,6 +133,7 @@ __all__ = [
     # runtime
     "sample", "Schedule", "SamplingResult",
     "MCMCSerial", "MCMCThreads", "MCMCDistributed",
+    "log_evidence", "log_evidence_ais", "power_ladder", "smc_sample",
     # output / diagnostics
     "Chains", "StructArray", "chainscat", "ess", "ess_bulk", "ess_tail",
     "rhat", "rhat_rank", "mcse",

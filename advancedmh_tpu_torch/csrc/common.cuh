@@ -587,6 +587,38 @@ struct BimodalMixture {
   }
 };
 
+// models/targets.py::normal_mean_tile: the conjugate check target of the
+// evidence kernel, x = (theta,); consts = the n observations y, then sigma.
+// The log-likelihood sum_i log N(y_i; theta, sigma) as
+//   (sum_i (-0.5 z_i) z_i) - n (log sigma + log(2 pi)/2),  z_i = (y_i - theta)/sigma,
+// the observations summed in order.
+struct NormalMean {
+  static constexpr const char* kName = "normal_mean";
+  static constexpr int kDim = 1;
+
+  __device__ static float logp(const float* x, const float* c, int n_consts) {
+    const int n = n_consts - 1;
+    const float th = x[0];
+    const float sigma = c[n];
+    float s = 0.0f;
+    for (int i = 0; i < n; ++i) {
+      const float z = (c[i] - th) / sigma;
+      s = s + -0.5f * z * z;
+    }
+    return s - (float)n * (logf(sigma) + (float)kHalfLog2Pi);
+  }
+};
+
+// models/targets.py::flat_tile: the flat likelihood L = 1 (log L = 0) in D
+// dimensions, no constants: with it the evidence is exactly 1.
+template <int D>
+struct Flat {
+  static constexpr const char* kName = "flat";
+  static constexpr int kDim = D;
+
+  __device__ static float logp(const float*, const float*, int) { return 0.0f; }
+};
+
 // ---- registry -----------------------------------------------------------
 
 template <class T>

@@ -1,8 +1,9 @@
 """Prebuilt target models (≙ advancedmh_tpu/models/targets.py): the README
 flagship, the correlated Gaussian of the RAM and MALA tests, the Bayesian
 logistic regression, Neal's funnel, the Haario banana, the GP latent field,
-the emcee test model and the two-mode mixture that checks the tempering
-kernel.
+the emcee test model, the two-mode mixture that checks the tempering
+kernel, and the conjugate Normal-mean and flat likelihoods that check the
+evidence kernel.
 
 A model that the fused engine can run carries, besides its per-chain
 density, a *tile* density over the transposed chain block ``(d, C) ->
@@ -289,6 +290,11 @@ def logistic_regression_model(
     """Bayesian logistic regression (≙ the JAX package's
     ``logistic_regression_model``): β ~ N(0, prior_scale²·I),
     yᵢ ~ Bernoulli(σ(xᵢ·β)).
+
+    With ``prior_scale=math.inf`` the prior term's ``inv_var = 1/prior_scale²``
+    is exactly 0 (as in the JAX model), so every form of the density is the
+    pure log-likelihood: the likelihood model of ``log_evidence``, whose prior
+    is then passed on its own.
 
     Without ``X``/``y`` the synthetic dataset is drawn with
     ``np.random.default_rng(seed)`` in the JAX package's order (X, then
@@ -645,6 +651,58 @@ def emcee_demo_model(transformed: bool = False, device="cuda") -> TileDensityMod
 
     return TileDensityModel(logdensity_fn=logprob, dimension=2, device=device,
                             tile_density=emcee_demo_tile, cuda_density="emcee_demo")
+
+
+# ---- likelihoods of the evidence estimators ---------------------------------
+
+
+def normal_mean_tile(th: torch.Tensor, y: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """Tile log-likelihood of n observations ``y`` (n, 1) from N(θ, σ²), θ the
+    (1, C) row and ``sigma`` (1, 1):
+
+        Σᵢ (−½zᵢ)·zᵢ − n·(log σ + ½log 2π),  zᵢ = (yᵢ − θ)/σ,
+
+    the observations summed in order, as ``NormalMean`` in csrc/common.cuh."""
+    z = (y - th) / sigma
+    return row_sum(-0.5 * z * z) - y.shape[0] * (torch.log(sigma) + _HALF_LOG_2PI)
+
+
+def normal_mean_likelihood(y, sigma: float, device="cuda") -> TileDensityModel:
+    """The likelihood of the conjugate Normal-mean model: x = (θ,) and
+    log L(θ) = Σᵢ log N(yᵢ; θ, σ) (the JAX evidence tests' ``jnp.sum(
+    Normal(theta[0], sigma).log_prob(y))``). Under a N(0, τ²) prior the
+    evidence has the closed form log N(y; 0, σ²I + τ²11ᵀ). Params are a
+    scalar or a length-1 vector; the batched density takes (C,) or (C, 1)."""
+    y_t = torch.as_tensor(np.asarray(y, np.float32), device=device)
+    col = y_t.reshape(-1, 1)
+    sig = torch.full((1, 1), float(sigma), dtype=torch.float32, device=device)
+
+    def batched(th):
+        return normal_mean_tile(th.reshape(1, -1), col, sig)[0]
+
+    return TileDensityModel(
+        logdensity_fn=lambda th: batched(th.reshape(1))[0], dimension=1,
+        logdensity_batched_fn=batched, device=device, tile_density=normal_mean_tile,
+        tile_consts=(col, sig), cuda_density="normal_mean")
+
+
+def flat_tile(x: torch.Tensor) -> torch.Tensor:
+    """Tile log-likelihood of the flat likelihood: zeros (1, C)."""
+    return torch.zeros((1, x.shape[1]), dtype=torch.float32, device=x.device)
+
+
+def flat_likelihood(d: int, device="cuda") -> TileDensityModel:
+    """The flat likelihood L ≡ 1 over d parameters (the JAX evidence tests'
+    ``lambda th: jnp.zeros(())``): under any proper prior the evidence is
+    exactly 1, log Z = 0. ``Flat<D>`` in csrc/common.cuh."""
+
+    def batched(th):
+        return torch.zeros(th.shape[0], dtype=torch.float32, device=th.device)
+
+    return TileDensityModel(
+        logdensity_fn=lambda th: torch.zeros((), dtype=torch.float32, device=device),
+        dimension=d, logdensity_batched_fn=batched, device=device, tile_density=flat_tile,
+        cuda_density="flat")
 
 
 # ---- the two-mode mixture (a check target of the tempering kernel) ----------

@@ -7,6 +7,8 @@ from .cholesky import chol_rank1_update, chol_rank1_update_batched
 from .dr import dr_sample_reference, dr_step, fused_dr_sample, log1m_exp
 from .dram import DramParams, dram_sample_reference, dram_step, fused_dram_sample
 from .emcee import emcee_sample_reference, fused_emcee_sample
+from .evidence import (fused_power_rwmh_sample, gaussian_prior_lp, power_rwmh_reference,
+                       power_step)
 from .ess import ess_sample_reference, ess_trips, fused_ess_sample
 from .hmc import fused_hmc_sample, hmc_sample_reference, minv_column
 from .hmc_adapt import DualAveraging, adaptive_hmc_reference, fused_adaptive_hmc_sample
@@ -58,9 +60,11 @@ KERNEL_WRAPPERS = {
     "mtm": fused_mtm,
     "tempering": fused_tempering_sample,
     "demc": fused_demc_sample,
+    "evidence": fused_power_rwmh_sample,
 }
 
 __all__ = [
+    "fused_power_rwmh_sample", "gaussian_prior_lp", "power_rwmh_reference", "power_step",
     "DemcParams", "demc_half_move", "demc_indices", "demc_move", "demc_sample_reference", "fused_demc_sample", "fused_mtm",
     "fused_mtm_sample", "fused_tempering_sample", "ladder_constants", "mtm_reference",
     "mtm_sample_reference", "mtm_step", "streaming_logsumexp", "tempering_sample_reference",

@@ -45,7 +45,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 # each csrc/<name>.cu exports amh_pairs_<name>
 KERNELS = ("rwmh", "mala", "ram", "emcee", "adapt", "hmc", "hmc_adapt", "chees", "meads",
-           "slice", "ess", "barker", "pcn", "am", "dr", "dram", "mtm", "tempering", "demc")
+           "slice", "ess", "barker", "pcn", "am", "dr", "dram", "mtm", "tempering", "demc",
+           "evidence")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v", "--split-compile=0",
@@ -168,6 +169,11 @@ _SIGNATURES = {
     # offset, samples, lps, accs, stream
     "amh_demc_sample": [_S, _I32, _P, _P, _P, _I32, _F, _F, _F, _F, _F, _F, _I64, _U64, _I64,
                         _I64, _I64, _U64, _P, _P, _P, _P],
+    # density, d, adapt, x_t, ll, plp, beta, eps0, consts (then loc, scale),
+    # n_consts, target, t0, kappa, gamma, seed, burn, thin, n_samples, offset,
+    # C, lls, accs, eps_out, stream
+    "amh_power_rwmh_sample": [_S, _I32, _I32, _P, _P, _P, _P, _P, _P, _I32, _F, _F, _F, _F,
+                              _U64, _I64, _I64, _I64, _U64, _I64, _P, _P, _P, _P],
 }
 
 # An H100 block may use at most 227 KB of shared memory; the density's

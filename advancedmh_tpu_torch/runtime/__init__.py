@@ -6,9 +6,12 @@ from .sample import (
     build_chain_fn,
     sample,
 )
+from .evidence import log_evidence, log_evidence_ais, power_ladder
 from .schedule import Schedule
+from .smc import smc_sample
 
 __all__ = [
     "MCMCDistributed", "MCMCSerial", "MCMCThreads", "SamplingResult",
-    "build_chain_fn", "sample", "Schedule",
+    "build_chain_fn", "sample", "Schedule", "log_evidence", "log_evidence_ais",
+    "power_ladder", "smc_sample",
 ]

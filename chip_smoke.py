@@ -21,7 +21,11 @@ the Haario banana among the card-only checks, and slice 7: Multiple-Try
 Metropolis (k = 4, and its ``fused_mtm`` throughput kernel) and replica
 exchange (K = 5) on the flagship at 16384 chains and DE-MC on the emcee model
 with one population of 16384 members, with the bimodal mixture among the
-card-only checks. Each path runs
+card-only checks, and slice 8: ``log_evidence`` on the d = 32 logistic
+regression (the likelihood at ``prior_scale=inf``, its N(0, 10²I) prior
+apart) at 16 rungs x 512 chains x (3000 + 3000) on both engines, with the
+conjugate Normal-mean and flat likelihoods, AIS and SMC among the card-only
+checks. Each path runs
 with every launch counter set to 0 just before it and read just after. The
 posteriors are checked against a float64 grid quadrature (the flagship),
 the analytic means (emcee), the ``engine="torch"`` run and the
@@ -2815,6 +2819,286 @@ def phase_timing_slice7(models, label, errs, times):
                              key=KEY + 117, chain_type="chains", param_names=["s", "m"]), "m")
 
 
+# ---- slice 8: the power-posterior (evidence) kernel, AIS and SMC ------------------------
+
+EV_CHAINS = 512  # chains a rung on the logistic regression: 16 x 512 = 8192, the port's other
+EV_STEPS = 3000  # logistic-regression paths' chain count; 3000 burn-in + 3000 draws
+EV_PRIOR_SCALE = 10.0  # the model's own N(0, 10^2 I) prior, passed apart from the likelihood
+EV_CONJ_CHAINS = 256  # bench.py:513-550: 16 rungs x 256 chains, 3000 + 3000
+Y_CONJ = [0.8, 1.3, 0.2, 1.0, 0.6]  # tests/test_evidence.py's conjugate data
+N_PLAIN_EV = 10  # steps of the evidence plain version timed at the main path's width
+
+
+def _analytic_log_evidence(y, sigma, tau):
+    """log N(y; 0, σ²I + τ²11ᵀ), the conjugate Normal-Normal evidence."""
+    y = np.asarray(y, np.float64)
+    n = len(y)
+    cov = sigma**2 * np.eye(n) + tau**2 * np.ones((n, n))
+    _, logdet = np.linalg.slogdet(2.0 * np.pi * cov)
+    return float(-0.5 * (logdet + y @ np.linalg.solve(cov, y)))
+
+
+def _ev_inputs(m, C, seed, s, beta_zero_chain=True):
+    """A ladder batch for the kernel: x (d, C) ~ N(0, s²), its ll and prior
+    lp, a β row drawn from power_ladder() (chain 0 with β = 0 beside
+    ll = -inf when ``beta_zero_chain``), and the prior's columns."""
+    from advancedmh_tpu_torch import power_ladder
+    from advancedmh_tpu_torch.ops import gaussian_prior_lp
+
+    d = m.dimension
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.normal(0.0, s, (d, C)), dtype=torch.float32, device=DEVICE)
+    loc = torch.zeros(d, device=DEVICE)
+    scale = torch.full((d,), float(s), device=DEVICE)
+    ll = m.tile_density(x, *m.tile_consts)
+    beta = torch.tensor(rng.choice(power_ladder(), C)[None], dtype=torch.float32, device=DEVICE)
+    if beta_zero_chain:
+        ll[0, 0] = -float("inf")
+        beta[0, 0] = 0.0
+    plp = gaussian_prior_lp(x, loc[:, None], scale[:, None], torch.log(scale)[:, None])
+    return x, ll, plp, beta, loc, scale
+
+
+def _ev_eps0(C, per_rung, seed):
+    if not per_rung:
+        return torch.full((1, C), 0.5, device=DEVICE)
+    rng = np.random.default_rng(seed)
+    return torch.tensor(rng.uniform(0.02, 0.6, (1, C)), dtype=torch.float32, device=DEVICE)
+
+
+def phase_kernels_slice8(models, errs):
+    """The evidence kernel against its plain version at short cases, 2048
+    chains: the conjugate Normal mean (d = 1), the flat likelihood (d = 2)
+    and the logistic regression (d = 32); adaptation on and off, one ε₀ and
+    per-chain ε₀, thin 1 and 3, an offset across 2³², and a β = 0 chain
+    beside ll = -inf (it must never accept). Held as every sampling kernel:
+    the emitted log-likelihoods as its states and lp, the accept flags as
+    its decisions, the frozen ε̄ as a final output."""
+    from advancedmh_tpu_torch.ops import fused_power_rwmh_sample, power_rwmh_reference
+
+    C = 2048
+    cases = [  # (model, prior scale, adapt, per-chain eps0, burn, thin, n, offset)
+        ("conj", 1.0, True, False, 32, 1, 64, 0),
+        ("conj", 1.0, False, True, 0, 1, 64, (1 << 32) - 30),
+        ("flat2", 1.0, True, True, 16, 3, 21, 5),
+        ("flat2", 1.0, False, False, 0, 1, 64, 0),
+        ("logreg_lik", EV_PRIOR_SCALE, True, False, 40, 1, 32, (1 << 32) - 20),
+        ("logreg_lik", EV_PRIOR_SCALE, False, True, 5, 3, 11, 9),
+    ]
+    for i, (key, s, adapt, per_rung, burn, thin, n, off) in enumerate(cases):
+        m = models[key]
+        x, ll, plp, beta, loc, scale = _ev_inputs(m, C, 190 + i, s)
+        args = (m.tile_density, m.cuda_density, x, ll, plp, beta, _ev_eps0(C, per_rung, i), loc,
+                scale, m.tile_consts, 0x3800 + i)
+        kw = dict(n_samples=n, burn=burn, thin=thin, adapt=adapt, iteration_offset=off)
+        got = fused_power_rwmh_sample(*args, **kw)
+        ref = power_rwmh_reference(*args, **kw)
+        check(got[0].shape == (n, 1, C) and got[2].shape == (1, C), "evidence output shapes")
+        r = agreement((got[0], got[0], got[1], got[2]), (ref[0], ref[0], ref[1], ref[2]))
+        print(f"kernel evidence {key} C={C} adapt={adapt} per-chain eps0={per_rung} "
+              f"burn={burn} thin={thin} n={n} offset={off}: {r}")
+        check_agreement("evidence", r, SHORT_RUN_CHAINS_MIN, visible_steps=burn == 0 and thin == 1)
+        check(bool((got[1][:, 0, 0] == 0).all() and (got[0][:, 0, 0] == -float("inf")).all()),
+              "evidence: the β = 0 chain beside ll = -inf accepted")
+        errs["evidence"] = max(errs["evidence"], r["max_abs_err"])
+    sync()
+
+
+def laplace_log_evidence(X: np.ndarray, y: np.ndarray, prior_scale: float) -> float:
+    """log Z of the logistic regression by the Laplace approximation at the
+    MAP (Newton in float64): log L(b*) + log p(b*) + (d/2) log 2π − ½ log|H|."""
+    X, y = X.astype(np.float64), y.astype(np.float64)
+    d = X.shape[1]
+    iv = 1.0 / prior_scale**2
+    b = np.zeros(d)
+    for _ in range(100):
+        p = 1.0 / (1.0 + np.exp(-(X @ b)))
+        H = (X * (p * (1.0 - p))[:, None]).T @ X + iv * np.eye(d)
+        b = b + np.linalg.solve(H, X.T @ (y - p) - iv * b)
+    z = X @ b
+    p = 1.0 / (1.0 + np.exp(-z))
+    H = (X * (p * (1.0 - p))[:, None]).T @ X + iv * np.eye(d)
+    log_l = float(np.sum(y * z - np.logaddexp(0.0, z)))
+    log_p = float(-0.5 * iv * b @ b - 0.5 * d * np.log(2.0 * np.pi * prior_scale**2))
+    return log_l + log_p + 0.5 * d * np.log(2.0 * np.pi) - 0.5 * float(np.linalg.slogdet(H)[1])
+
+
+def _ev_prior(d, s):
+    from advancedmh_tpu_torch import MvNormal
+
+    return MvNormal(torch.zeros(d, device=DEVICE), scale=s)
+
+
+def phase_main_slice8(models, label, launches):
+    """log_evidence on the d = 32 logistic regression (256 observations,
+    seed 0; the likelihood at prior_scale=inf, the prior its own N(0, 10²I)
+    passed apart): power_ladder() (16 rungs) x 512 chains, 3000 + 3000,
+    proposal_scale="auto", on engine="fused" (one kernel launch), then on
+    engine="torch" with another key. Stepping-stone within 4 combined SEs,
+    TI within the same bound (its Monte-Carlo error is the stepping-stone's
+    to first order: the same draws, the same rung weights up to the
+    trapezoid's split), every rung's acceptance > 0.1, the adapted scales
+    smaller on the β = 1 rung than on the prior's. The fused call is timed
+    best of 3, the first call beside it."""
+    from advancedmh_tpu_torch import log_evidence
+
+    lik = models["logreg_lik"]
+    prior = _ev_prior(32, EV_PRIOR_SCALE)
+    run = lambda key, engine: log_evidence(lik, prior, EV_STEPS, key=key, num_chains=EV_CHAINS,
+                                           engine=engine)
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    fused = run(KEY + 120, "fused")
+    sync()
+    t_first = time.perf_counter() - t0
+    got = read_launches()
+    check_launches("evidence main path", got, {"evidence": 1})
+    launches["evidence"] = got["evidence"]
+    t_best, _ = best_of(lambda: run(KEY + 120, "fused"), 2)
+    t_best = min(t_best, t_first)
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    ref = run(KEY + 121, "torch")
+    sync()
+    t_torch = time.perf_counter() - t0
+    check_launches("evidence engine='torch'", read_launches(), {})
+    X, y = (c.cpu().numpy() for c in lik.tile_consts[:2])
+    laplace = laplace_log_evidence(X, y.ravel(), EV_PRIOR_SCALE)
+    B = 16 * EV_CHAINS
+    print(f"[{label}] log_evidence(engine='fused') logistic regression 16 x {EV_CHAINS} "
+          f"({B} chains) x ({EV_STEPS} + {EV_STEPS}): first call {t_first:.4f} s, best of 3 "
+          f"{t_best:.4f} s; engine='torch' {t_torch:.4f} s")
+    for name, o in (("fused", fused), ("torch", ref)):
+        print(f"evidence {name}: log_z_ss {o['log_z_ss']:.5f} (se {o['se_ss']:.5f}), log_z_ti "
+              f"{o['log_z_ti']:.5f}; acceptance {np.round(o['acceptance'], 4).tolist()}; "
+              f"scales {np.round(o['proposal_scales'], 5).tolist()}")
+    print(f"evidence logistic regression: Laplace approximation at the MAP {laplace:.5f} "
+          "(not a gate)")
+    se = float(np.hypot(fused["se_ss"], ref["se_ss"]))
+    for est in ("log_z_ss", "log_z_ti"):
+        diff = abs(fused[est] - ref[est])
+        check(np.isfinite(fused[est]) and diff < 4.0 * se,
+              f"evidence {est}: fused {fused[est]} vs torch {ref[est]} (4 combined SE {4 * se})")
+    for name, o in (("fused", fused), ("torch", ref)):
+        check(bool(np.all(o["acceptance"] > 0.1)), f"evidence {name}: a rung's acceptance <= 0.1")
+        check(o["proposal_scales"][-1] < o["proposal_scales"][0],
+              f"evidence {name}: the adapted scales do not fall along the ladder")
+    return t_first, t_best
+
+
+def phase_slice8_checks(models):
+    """tests/test_pallas.py's card-only evidence checks at their shapes, and
+    tests/test_evidence.py's AIS and tests/test_smc.py's SMC checks on the
+    card: the fused conjugate Normal-Normal at 16 x 256 x (3000 + 3000)
+    within 3·se_ss + 0.02 of the closed form, TI within 0.1, every rung's
+    acceptance in (0.15, 0.35); the flat likelihood |log Z| < 1e-5; an
+    InverseGamma prior raising; AIS within 0.05 and 3·SE + 0.02 with weight
+    ESS > 100; SMC's evidence within 0.05 and posterior mean and sd within
+    0.03."""
+    from advancedmh_tpu_torch import InverseGamma, log_evidence, log_evidence_ais, smc_sample
+
+    conj, flat = models["conj"], models["flat2"]
+    want = _analytic_log_evidence(Y_CONJ, 1.0, 1.0)
+    out = log_evidence(conj, _ev_prior(1, 1.0), 3000, key=0, num_chains=EV_CONJ_CHAINS,
+                       engine="fused")
+    err = abs(out["log_z_ss"] - want)
+    print(f"evidence fused conjugate 16 x {EV_CONJ_CHAINS} x (3000 + 3000): log_z_ss "
+          f"{out['log_z_ss']:.5f} (closed form {want:.5f}, se {out['se_ss']:.5f}), log_z_ti "
+          f"{out['log_z_ti']:.5f}, acceptance {np.round(out['acceptance'], 4).tolist()}")
+    check(err < 3.0 * out["se_ss"] + 0.02, f"fused conjugate: |err| {err}")
+    check(abs(out["log_z_ti"] - want) < 0.1, "fused conjugate: TI off by 0.1 or more")
+    check(bool(np.all((out["acceptance"] > 0.15) & (out["acceptance"] < 0.35))),
+          "fused conjugate: a rung's acceptance outside (0.15, 0.35)")
+    out = log_evidence(flat, _ev_prior(2, 1.0), 200, key=1, num_chains=64, engine="fused")
+    print(f"evidence fused flat likelihood: log_z_ss {out['log_z_ss']!r}, log_z_ti "
+          f"{out['log_z_ti']!r}")
+    check(abs(out["log_z_ss"]) < 1e-5 and abs(out["log_z_ti"]) < 1e-5, "fused flat: log Z != 0")
+    try:
+        log_evidence(flat, InverseGamma(2.0, 3.0), 100, key=2, num_chains=64, engine="fused")
+        fail("fused log_evidence took an InverseGamma prior")
+    except ValueError as e:
+        check("MvNormal prior" in str(e), f"fused InverseGamma error: {e}")
+    ais = log_evidence_ais(conj, _ev_prior(1, 1.0), key=0, num_chains=512, n_steps_per_rung=4,
+                           proposal_scale=0.6)
+    err = abs(ais["log_z_ais"] - want)
+    print(f"evidence AIS on the card: log_z_ais {ais['log_z_ais']:.5f} (se {ais['se_ais']:.5f}), "
+          f"ess_weights {ais['ess_weights']:.1f}")
+    check(err < 0.05 and err < 3.0 * ais["se_ais"] + 0.02, f"AIS: |err| {err}")
+    check(ais["ess_weights"] > 100.0, "AIS: weight ESS <= 100")
+    t0 = time.perf_counter()
+    smc = smc_sample(conj, _ev_prior(1, 1.0), key=0, num_particles=8192)
+    sync()
+    t_smc = time.perf_counter() - t0
+    th = smc["particles"].reshape(-1).double()
+    n = len(Y_CONJ)
+    mean, sd = float(th.mean()), float(th.std(correction=0))
+    print(f"SMC on the card (8192 particles, {smc['n_stages']} stages, {t_smc:.4f} s): log_z "
+          f"{smc['log_z']:.5f}, posterior mean {mean:.5f} (closed form "
+          f"{sum(Y_CONJ) / (n + 1):.5f}), sd {sd:.5f} ({(1.0 / (n + 1)) ** 0.5:.5f}), acceptance "
+          f"{np.round(smc['acceptance'], 4).tolist()}")
+    check(abs(smc["log_z"] - want) < 0.05, "SMC: log Z off by 0.05 or more")
+    check(abs(mean - sum(Y_CONJ) / (n + 1)) < 0.03, "SMC: posterior mean")
+    check(abs(sd - (1.0 / (n + 1)) ** 0.5) < 0.03, "SMC: posterior sd")
+
+
+def logreg_logp_ops(d: int, n: int) -> int:
+    """The logistic regression's log density at d coefficients and n
+    observations, counted from csrc/common.cuh: per observation the logit's
+    2d − 1 and nine for the term (abs, negation, exp, multiply, max,
+    log1p and three adds); per evaluation the partials' 7, b·b (2d − 1)
+    and the prior term's 3."""
+    return n * ((2 * d - 1) + 9) + 2 * d + 10
+
+
+def bound_evidence(C: int, steps: int, emitted: int, d: int, dens_ops: int, n_consts: int,
+                   burn: int = 0):
+    """An evidence launch: per chain-step the noise (12 a Box-Muller pair and
+    3), the proposal (2d), the likelihood (``dens_ops``), the prior (7 a
+    coordinate: subtract, divide, two multiplies, two subtractions, the add),
+    the accept (two multiplies, three adds and subtractions, a compare) and
+    d + 2 selects; a burn-in step adds ε = exp(log ε) and the dual
+    averaging (19). In: x, ll, lp, β and ε₀ (d + 4 floats a chain), the
+    constants and the prior's columns; out: 2 floats a chain and draw and ε̄."""
+    step = _noise_ops(d) + 2 * d + dens_ops + 7 * d + 6 + d + 2
+    nbytes = ((d + 4) * C + n_consts + 2 * d + 2 * emitted * C + C) * 4
+    return _bound(nbytes, (step * steps + 20 * burn) * C)
+
+
+def phase_timing_slice8(models, label, errs, times):
+    """The evidence kernel at the main path's shape (16 x 512 chains, 3000 +
+    3000, adaptation on; best of 3) with its bound, and the plain version at
+    the same width over N_PLAIN_EV steps, held against the kernel there."""
+    from advancedmh_tpu_torch.ops import fused_power_rwmh_sample, power_rwmh_reference
+
+    m = models["logreg_lik"]
+    C = 16 * EV_CHAINS
+    x, ll, plp, beta, loc, scale = _ev_inputs(m, C, KEY, EV_PRIOR_SCALE, beta_zero_chain=False)
+    args = (m.tile_density, m.cuda_density, x, ll, plp, beta, _ev_eps0(C, False, 0), loc, scale,
+            m.tile_consts, KEY)
+    kw = dict(n_samples=EV_STEPS, burn=EV_STEPS, adapt=True)
+    t_k, out = best_of(lambda: fused_power_rwmh_sample(*args, **kw))
+    check(bool(torch.isfinite(out[0]).all()), "evidence kernel: non-finite ll at the main shape")
+    acc = float(out[1].mean())
+    del out
+    short = dict(n_samples=N_PLAIN_EV // 2, burn=N_PLAIN_EV // 2, adapt=True)
+    t_ks, got = best_of(lambda: fused_power_rwmh_sample(*args, **short))
+    t_p, ref = best_of(lambda: power_rwmh_reference(*args, **short), PLAIN_REPEATS)
+    hold(errs, "evidence", f"{C} x {N_PLAIN_EV}", (got[0], got[0], got[1], got[2]),
+         (ref[0], ref[0], ref[1], ref[2]))
+    n_consts = sum(c.numel() for c in m.tile_consts)
+    times["evidence"] = (t_k, t_p, bound_evidence(C, 2 * EV_STEPS, EV_STEPS, 32,
+                                                  logreg_logp_ops(32, 256), n_consts,
+                                                  burn=EV_STEPS),
+                         f"plain at {C} x {N_PLAIN_EV} steps")
+    print(f"[{label}] evidence logistic regression at {C} x ({EV_STEPS} + {EV_STEPS}): kernel "
+          f"{t_k * 1e3:.4f} ms ({C * 2 * EV_STEPS / t_k:.6e} chain-steps/s, acceptance "
+          f"{acc:.4f}); at {C} x {N_PLAIN_EV}: kernel {t_ks * 1e3:.4f} ms, plain "
+          f"{t_p * 1e3:.4f} ms; bound {times['evidence'][2][0] * 1e3:.4f} ms "
+          f"({times['evidence'][2][1]})")
+
+
 # ---- timing ------------------------------------------------------------------------
 
 
@@ -3104,7 +3388,7 @@ def ptxas_summary(report: str):
             dens = re.findall(r"(GaussianMeanScale|EmceeDemo|CorrelatedGaussianILi\d+E"
                               r"|LogisticRegressionILi\d+E|NealFunnelILi\d+E"
                               r"|GPRegressionILi\d+E|GPClassificationILi\d+E|Banana"
-                              r"|BimodalMixture)", mangled)
+                              r"|BimodalMixture|NormalMean|FlatILi\d+E)", mangled)
             flags = re.findall(r"Lb([01])E", mangled)
             kernel = re.match(r"_ZN3amh\d+([a-z_]+)", mangled).group(1)
             density = re.sub(r"ILi(\d+)E", r"<\1>", dens[0]) if dens else "?"
@@ -3142,6 +3426,7 @@ REPLACES = {
     "mtm": ("advancedmh_tpu/ops/pallas_mtm.py:107", "mtm.cu"),
     "tempering": ("advancedmh_tpu/ops/pallas_tempering.py:37", "tempering.cu"),
     "demc": ("advancedmh_tpu/ops/pallas_demc.py:37", "demc.cu"),
+    "evidence": ("advancedmh_tpu/ops/pallas_evidence.py:41", "evidence.cu"),
 }
 
 
@@ -3155,8 +3440,10 @@ def main() -> None:
                                                  gaussian_mean_scale_model,
                                                  banana_model,
                                                  bimodal_mixture_model,
+                                                 flat_likelihood,
                                                  logistic_regression_model,
-                                                 neal_funnel_model)
+                                                 neal_funnel_model,
+                                                 normal_mean_likelihood)
         from advancedmh_tpu_torch.ops import _build
     except ImportError as e:
         fail(f"advancedmh_tpu_torch is not importable next to this script: {e}")
@@ -3202,6 +3489,10 @@ def main() -> None:
         "banana": banana_model(device=DEVICE),
         "flag300": gaussian_mean_scale_model(n_obs=300, device=DEVICE),
         "bimodal": bimodal_mixture_model(device=DEVICE),
+        "conj": normal_mean_likelihood(Y_CONJ, 1.0, device=DEVICE),
+        "flat2": flat_likelihood(2, device=DEVICE),
+        "logreg_lik": logistic_regression_model(256, 32, seed=0, prior_scale=float("inf"),
+                                                device=DEVICE),
     }
     gps = gp_models()
     errs = {name: 0.0 for name in REPLACES}
@@ -3213,6 +3504,7 @@ def main() -> None:
     phase_kernels_slice5(models, gps, errs, evals)
     phase_kernels_slice6(models, errs)
     phase_kernels_slice7(models, errs)
+    phase_kernels_slice8(models, errs)
     print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s")
 
     launches = {}
@@ -3232,6 +3524,8 @@ def main() -> None:
     phase_slice6_checks(models)
     phase_main_slice7(models, label, launches)
     phase_slice7_checks(models)
+    phase_main_slice8(models, label, launches)
+    phase_slice8_checks(models)
     print(f"main paths done at {time.perf_counter() - t_start:.1f} s")
 
     times = {}
@@ -3242,6 +3536,7 @@ def main() -> None:
     phase_timing_slice5(models, gps, label, errs, times, evals, barker_eps)
     phase_timing_slice6(models, label, errs, times)
     phase_timing_slice7(models, label, errs, times)
+    phase_timing_slice8(models, label, errs, times)
     print(f"[{label}] chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     kernels = []

@@ -118,6 +118,10 @@ def test_every_wrapper_on_cpu_launches_nothing():
     rw = lambda s: port.RandomWalkProposal(port.MvNormal(torch.zeros(2), scale=s), symmetric=True)
     port.sample(flag, port.DelayedRejection(rw(0.5), rw(0.1)), 5, engine="fused",
                 discard_initial=2, **kw)
+    from advancedmh_tpu_torch.models import normal_mean_likelihood
+
+    port.log_evidence(normal_mean_likelihood([0.5, 1.0], 1.0, device="cpu"),
+                      port.MvNormal(torch.zeros(1)), 5, key=0, num_chains=4, engine="fused")
     assert all(w.launches == 0 for w in KERNEL_WRAPPERS.values())
     assert _build.library.cache_info().currsize == 0
 
@@ -137,7 +141,7 @@ class _FakeLibrary:
 
 
 @pytest.mark.parametrize("kernel", ["rwmh", "mala", "ram", "emcee", "slice", "ess", "barker",
-                                    "pcn", "am", "dr", "dram"])
+                                    "pcn", "am", "dr", "dram", "evidence"])
 def test_check_is_the_one_error_for_missing_pairs(kernel):
     """No kernel for the (tag, d) pair -- an unknown tag, no tag, or a d the
     library lacks -- is one ValueError naming the pairs the library has; any
@@ -167,8 +171,9 @@ def test_model_tags_name_cuda_functors():
 
     from advancedmh_tpu_torch.models import (banana_model, bimodal_mixture_model,
                                              correlated_gaussian_model, emcee_demo_model,
-                                             gaussian_mean_scale_model, gp_latent_model,
-                                             logistic_regression_model, neal_funnel_model)
+                                             flat_likelihood, gaussian_mean_scale_model,
+                                             gp_latent_model, logistic_regression_model,
+                                             neal_funnel_model, normal_mean_likelihood)
 
     names = set(re.findall(r'kName = "(\w+)"', (PKG / "csrc" / "common.cuh").read_text()))
     tags = {m.cuda_density for m in (gaussian_mean_scale_model(device="cpu"),
@@ -179,7 +184,9 @@ def test_model_tags_name_cuda_functors():
                                      gp_latent_model(8, device="cpu")[0],
                                      gp_latent_model(8, "logistic", device="cpu")[0],
                                      banana_model(device="cpu"),
-                                     bimodal_mixture_model(device="cpu"))}
+                                     bimodal_mixture_model(device="cpu"),
+                                     normal_mean_likelihood([0.5], 1.0, device="cpu"),
+                                     flat_likelihood(2, device="cpu"))}
     assert tags == names
     for path in PKG.rglob("*.py"):
         assert "CUDA_DENSITIES" not in path.read_text(), path

@@ -938,3 +938,83 @@ def test_slice7_wrappers_raise_for_what_has_no_kernel(model):
         have = ("emcee_demo", 2) if source == "demc" else ("correlated_gaussian", 2)
         assert have in _build.kernel_pairs(_build.library(), source)
     assert ("bimodal_mixture", 1) in _build.kernel_pairs(_build.library(), "tempering")
+
+
+# ---- slice 8: the power-posterior (evidence) kernel ---------------------------------
+
+
+def _evidence_inputs(target, C, seed):
+    """A ladder batch: the likelihood model, x (d, C) from its prior, ll, the
+    prior's lp, a β row over power_ladder(16) (a β = 0 chain beside ll = -inf
+    among them) and the prior's columns."""
+    from advancedmh_tpu_torch import power_ladder
+    from advancedmh_tpu_torch.models import flat_likelihood, normal_mean_likelihood
+    from advancedmh_tpu_torch.ops import gaussian_prior_lp
+
+    if target == "conjugate":
+        m, s = normal_mean_likelihood([0.8, 1.3, 0.2, 1.0, 0.6], 1.0, device="cuda"), 1.0
+    elif target == "flat":
+        m, s = flat_likelihood(2, device="cuda"), 1.0
+    else:
+        from advancedmh_tpu_torch.models import logistic_regression_model
+
+        m = logistic_regression_model(256, 32, seed=0, prior_scale=float("inf"), device="cuda")
+        s = 10.0
+    d = m.dimension
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.normal(0.0, s, (d, C)), dtype=torch.float32, device="cuda")
+    loc = torch.zeros(d, device="cuda")
+    scale = torch.full((d,), s, device="cuda")
+    ll = m.tile_density(x, *m.tile_consts)
+    ll[0, 0] = -float("inf")
+    beta = torch.tensor(rng.choice(power_ladder(16), C)[None], dtype=torch.float32,
+                        device="cuda")
+    beta[0, 0] = 0.0
+    plp = gaussian_prior_lp(x, loc[:, None], scale[:, None], torch.log(scale)[:, None])
+    return m, x, ll, plp, beta, loc, scale
+
+
+@pytest.mark.parametrize("target", ["conjugate", "flat", "logreg"])
+@pytest.mark.parametrize("adapt,per_rung", [(True, False), (False, True)])
+@pytest.mark.parametrize("C,burn,thin,n,offset", [
+    (4096, 32, 1, 32, 0), (4001, 10, 3, 11, (1 << 32) - 20),
+])
+def test_evidence_kernel_matches_plain(target, adapt, per_rung, C, burn, thin, n, offset):
+    """The emitted log-likelihoods and accept flags and the frozen ε̄ against
+    the plain version: at least 99.9% of decisions and chains agree (lp
+    within 1e-5), the β = 0 chain beside ll = -inf never accepts."""
+    from advancedmh_tpu_torch.ops import fused_power_rwmh_sample, power_rwmh_reference
+
+    m, x, ll, plp, beta, loc, scale = _evidence_inputs(target, C, C)
+    eps0 = (0.02 + 0.5 * torch.rand(1, C, generator=torch.Generator().manual_seed(C))).cuda() \
+        if per_rung else torch.full((1, C), 0.5, device="cuda")
+    args = (m.tile_density, m.cuda_density, x, ll, plp, beta, eps0, loc, scale, m.tile_consts,
+            91)
+    kw = dict(n_samples=n, burn=burn, thin=thin, adapt=adapt, iteration_offset=offset)
+    before = fused_power_rwmh_sample.launches
+    got = fused_power_rwmh_sample(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_power_rwmh_sample.launches == before + 1
+    ref = power_rwmh_reference(*args, **kw)
+    dec = (got[1] == ref[1]).reshape(-1, C)
+    ok = dec.all(dim=0) & _close(got[0], ref[0]).all(dim=0)[0] & _close(got[2], ref[2])[0]
+    assert float(dec.float().mean()) >= 0.999 and float(ok.float().mean()) >= 0.999
+    assert torch.all(got[1][:, 0, 0] == 0) and torch.all(got[0][:, 0, 0] == -float("inf"))
+
+
+def test_evidence_wrapper_raises_for_what_has_no_kernel():
+    from advancedmh_tpu_torch.ops import fused_power_rwmh_sample
+
+    m, x, ll, plp, beta, loc, scale = _evidence_inputs("flat", 64, 1)
+    eps0 = torch.full((1, 64), 0.5, device="cuda")
+    call = lambda tag, xx, lo, sc: fused_power_rwmh_sample(
+        m.tile_density, tag, xx, ll, plp, beta, eps0, lo, sc, (), 1, n_samples=2, burn=1)
+    with pytest.raises(ValueError, match="CUDA density tag"):
+        call(None, x, loc, scale)
+    with pytest.raises(ValueError, match="'banana'"):
+        call("banana", x, loc, scale)
+    z3 = torch.zeros(3, device="cuda")
+    with pytest.raises(ValueError, match="instantiates only"):
+        call("flat", torch.zeros(3, 64, device="cuda"), z3, z3 + 1.0)
+    pairs = _build.kernel_pairs(_build.library(), "evidence")
+    assert {("normal_mean", 1), ("flat", 2), ("logistic_regression", 32)} <= pairs
