@@ -13,16 +13,27 @@
 // ops/hmc_adapt.py::adaptive_hmc_reference; the C entry point at the end is
 // bound there with ctypes.
 //
-// Layout and design: csrc/hmc.cuh. Each chain's M^-1 is a register row of
-// the thread (recomputed from M2 before each warmup step); the Welford
-// moments (mean, M2), read and written once a warmup step, live in device
-// memory (d, C) next to the fall-back state, so that the registers hold the
-// trajectory only. What bounds it: as csrc/hmc.cu (the same step, plus
-// O(d) per warmup step for the adaptation).
+// Design: a block runs a group of chains, each spread over the lanes of its
+// density's group form (csrc/group.cuh, the step in csrc/hmc_group.cuh). On
+// the logistic regression a chain takes 8 lanes, a block of 128 threads 16
+// chains with X in its shared memory, and a value and gradient is a product
+// over the group: the TPU kernel's X (n, d) @ beta (d, TC) per tile, here
+// in float32 on the CUDA cores, summed in the plain density's order. The
+// trajectory, the fall-back state, M^-1, the Welford moments (mean, M2) and
+// the dual-averaging scalars live in the chain's lanes' registers (kJ = 4
+// coordinates each at d = 32); ptxas must report no spills (chip_smoke.py
+// prints its report). The flagship and the correlated Gaussian run one
+// thread per chain through the same code (kLanes = 1, chosen at compile
+// time).
+//
+// What bounds it on this card: one value and gradient per leapfrog step,
+// ~36.7k float32 operations a chain at d = 32 and n = 256 issued one by one
+// (no FMA under --fmad=false, so at best half the 67 TFLOP/s peak), from
+// shared memory at about one float4 load per 8 operations.
 //
 // Numerics: --fmad=false, no --use_fast_math (see ops/_build.py).
 
-#include "hmc.cuh"
+#include "hmc_group.cuh"
 
 namespace amh {
 
@@ -41,10 +52,26 @@ __device__ __forceinline__ float reg_minv(float m2, float n,
   return n >= m.warm_start ? est : 1.0f;
 }
 
+// The block of a density: 16 chains of 8 lanes (group form), else 64 chains
+// of one thread; at least 4 blocks an SM, so that 8192 chains keep 16 warps
+// resident on each of the 132 SMs.
+template <class Density>
+struct AhmcShape {
+  static constexpr int kLanes = GroupForm<Density>::kLanes;
+  static constexpr int kThreads = kLanes == 1 ? 64 : 128;
+  static constexpr int kChains = kThreads / kLanes;
+  static constexpr int kMinBlocks = kLanes == 1 ? 1 : 4;
+
+  __host__ __device__ static int smem_floats(int n_consts) {
+    return GroupForm<Density>::consts_floats(n_consts) + kChains * GroupForm<Density>::kScratch;
+  }
+};
+
 // Sample e is the state after warmup + (e+1)*thin steps; step t of the
 // launch is absolute iteration offset + t (t = 1, 2, ...).
 template <class Density, bool kResume>
-__global__ void __launch_bounds__(kHmcBlock) adaptive_hmc_kernel(
+__global__ void __launch_bounds__(AhmcShape<Density>::kThreads, AhmcShape<Density>::kMinBlocks)
+adaptive_hmc_kernel(
     const float* __restrict__ params_t, const float* __restrict__ lp_in,
     const float* __restrict__ grad_in, const float* __restrict__ leb_in,
     const float* __restrict__ minv_in, const float* __restrict__ consts,
@@ -53,68 +80,84 @@ __global__ void __launch_bounds__(kHmcBlock) adaptive_hmc_kernel(
     uint64_t offset, int64_t C, float* __restrict__ samples,
     float* __restrict__ lps, float* __restrict__ accs,
     float* __restrict__ leb_out, float* __restrict__ minv_out,
-    float* __restrict__ x_state, float* __restrict__ g_state,
-    float* __restrict__ mean_s, float* __restrict__ m2_s) {
+    float* __restrict__ x_out, float* __restrict__ g_out) {
+  using GF = GroupForm<Density>;
+  using S = AhmcShape<Density>;
   constexpr int D = Density::kDim;
-  extern __shared__ float sh_consts[];
-  load_consts(sh_consts, consts, n_consts);
-  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  float x[D], g[D], minv[D];
-  hmc_load<D>(params_t, grad_in, x, g, x_state, g_state, c, C);
+  constexpr int kLanes = S::kLanes;
+  constexpr int kJ = D / kLanes;
+  extern __shared__ __align__(16) float sh[];
+  GF::load(sh, consts, n_consts);
+  const int slot = threadIdx.x / kLanes;
+  float* scratch = sh + GF::consts_floats(n_consts) + slot * GF::kScratch;
+  const Lanes ln = chain_lanes<kLanes>();
+  const int64_t c = (int64_t)blockIdx.x * S::kChains + slot;
+  if (c >= C) return;  // the chain's lanes leave together
+  const int j0 = ln.lane * kJ;
+  float x[kJ], g[kJ], x0[kJ], g0[kJ], minv[kJ];
+#pragma unroll
+  for (int k = 0; k < kJ; ++k) {
+    x[k] = params_t[(j0 + k) * C + c];
+    g[k] = grad_in[(j0 + k) * C + c];
+    x0[k] = x[k];
+    g0[k] = g[k];
+  }
   float lp = lp_in[c];
   float leb;
   uint64_t j = offset;
   if (kResume) {
     leb = leb_in[c];
 #pragma unroll
-    for (int i = 0; i < D; ++i) minv[i] = minv_in[i * C + c];
+    for (int k = 0; k < kJ; ++k) minv[k] = minv_in[(j0 + k) * C + c];
   } else {
     float log_eps = da.log_eps0, h_bar = 0.0f;
+    float mean[kJ], m2[kJ];
     leb = da.log_eps0;
-    if (warmup > 0) {
 #pragma unroll
-      for (int i = 0; i < D; ++i) {
-        mean_s[i * C + c] = x[i];
-        m2_s[i * C + c] = 0.0f;
-      }
+    for (int k = 0; k < kJ; ++k) {
+      mean[k] = x[k];
+      m2[k] = 0.0f;
     }
     for (int64_t t = 1; t <= warmup; ++t) {
       const float tf = (float)t;
 #pragma unroll
-      for (int i = 0; i < D; ++i) minv[i] = reg_minv(m2_s[i * C + c], tf - 1.0f, ma);
-      const bool acc = hmc_step<Density>(x, lp, g, minv, expf(log_eps), n_leapfrog,
-                                         sh_consts, n_consts, x_state, g_state,
-                                         c, C, ++j, k0, k1);
+      for (int k = 0; k < kJ; ++k) minv[k] = reg_minv(m2[k], tf - 1.0f, ma);
+      const bool acc = group_hmc_step<Density>(x, lp, g, x0, g0, minv, expf(log_eps),
+                                               n_leapfrog, sh, n_consts, scratch, ln, c,
+                                               ++j, k0, k1);
       dual_average(da, tf, acc ? 1.0f : 0.0f, log_eps, leb, h_bar);
 #pragma unroll
-      for (int i = 0; i < D; ++i) {
-        const float mean = mean_s[i * C + c];
-        const float delta = x[i] - mean;
-        const float mean_new = mean + delta / tf;
-        mean_s[i * C + c] = mean_new;
-        m2_s[i * C + c] = m2_s[i * C + c] + delta * (x[i] - mean_new);
+      for (int k = 0; k < kJ; ++k) {
+        const float delta = x[k] - mean[k];
+        const float mean_new = mean[k] + delta / tf;
+        m2[k] = m2[k] + delta * (x[k] - mean_new);
+        mean[k] = mean_new;
       }
     }
 #pragma unroll
-    for (int i = 0; i < D; ++i)
-      minv[i] = warmup > 0 ? reg_minv(m2_s[i * C + c], (float)warmup, ma)
-                           : reg_minv(0.0f, 0.0f, ma);
+    for (int k = 0; k < kJ; ++k)
+      minv[k] = warmup > 0 ? reg_minv(m2[k], (float)warmup, ma) : reg_minv(0.0f, 0.0f, ma);
   }
   const float eps = expf(leb);
   for (int64_t e = 0; e < n_samples; ++e) {
     bool accepted = false;
     for (int64_t t = 0; t < thin; ++t)
-      accepted = hmc_step<Density>(x, lp, g, minv, eps, n_leapfrog, sh_consts,
-                                   n_consts, x_state, g_state, c, C, ++j, k0, k1);
+      accepted = group_hmc_step<Density>(x, lp, g, x0, g0, minv, eps, n_leapfrog, sh,
+                                         n_consts, scratch, ln, c, ++j, k0, k1);
 #pragma unroll
-    for (int i = 0; i < D; ++i) samples[(e * D + i) * C + c] = x[i];
-    lps[e * C + c] = lp;
-    accs[e * C + c] = accepted ? 1.0f : 0.0f;
+    for (int k = 0; k < kJ; ++k) samples[(e * D + j0 + k) * C + c] = x[k];
+    if (ln.lane == 0) {
+      lps[e * C + c] = lp;
+      accs[e * C + c] = accepted ? 1.0f : 0.0f;
+    }
   }
-  leb_out[c] = leb;
+  if (ln.lane == 0) leb_out[c] = leb;
 #pragma unroll
-  for (int i = 0; i < D; ++i) minv_out[i * C + c] = minv[i];
+  for (int k = 0; k < kJ; ++k) {
+    minv_out[(j0 + k) * C + c] = minv[k];
+    x_out[(j0 + k) * C + c] = x[k];
+    g_out[(j0 + k) * C + c] = g[k];
+  }
 }
 
 template <class Density, bool kResume>
@@ -125,17 +168,39 @@ int launch_adaptive_hmc(const float* params_t, const float* lp,
                         uint64_t seed, int64_t warmup, int64_t thin,
                         int64_t n_samples, uint64_t offset, int64_t C,
                         float* samples, float* lps, float* accs, float* leb_out,
-                        float* minv_out, float* x_state, float* g_state,
-                        float* mean_s, float* m2_s, cudaStream_t stream) {
-  const size_t smem = n_consts * sizeof(float);
+                        float* minv_out, float* x_out, float* g_out,
+                        cudaStream_t stream) {
+  using S = AhmcShape<Density>;
+  const size_t smem = (size_t)S::smem_floats(n_consts) * sizeof(float);
   const cudaError_t err = allow_shared(adaptive_hmc_kernel<Density, kResume>, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((C + kHmcBlock - 1) / kHmcBlock));
-  adaptive_hmc_kernel<Density, kResume><<<grid, kHmcBlock, smem, stream>>>(
+  const dim3 grid((unsigned)((C + S::kChains - 1) / S::kChains));
+  adaptive_hmc_kernel<Density, kResume><<<grid, S::kThreads, smem, stream>>>(
       params_t, lp, grad, leb_in, minv_in, consts, n_consts, da, ma, n_leapfrog,
       (uint32_t)seed, (uint32_t)(seed >> 32), warmup, thin, n_samples, offset, C,
-      samples, lps, accs, leb_out, minv_out, x_state, g_state, mean_s, m2_s);
+      samples, lps, accs, leb_out, minv_out, x_out, g_out);
   return (int)cudaGetLastError();
+}
+
+// The launch shape and occupancy of the kernel for a density: out[0..5] =
+// chains a block, lanes a chain, threads a block, blocks for C chains,
+// dynamic shared memory bytes, resident blocks an SM.
+template <class Density, bool kResume>
+int adaptive_hmc_info(int n_consts, int64_t C, int64_t* out) {
+  using S = AhmcShape<Density>;
+  const size_t smem = (size_t)S::smem_floats(n_consts) * sizeof(float);
+  cudaError_t err = allow_shared(adaptive_hmc_kernel<Density, kResume>, smem);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, adaptive_hmc_kernel<Density, kResume>, S::kThreads, smem);
+  out[0] = S::kChains;
+  out[1] = S::kLanes;
+  out[2] = S::kThreads;
+  out[3] = (C + S::kChains - 1) / S::kChains;
+  out[4] = (int64_t)smem;
+  out[5] = per_sm;
+  return (int)err;
 }
 
 }  // namespace amh
@@ -158,8 +223,7 @@ int amh_adaptive_hmc_sample(
     float gamma, float mu, float log_eps0, float mass_reg, float warm_start,
     int32_t n_leapfrog, uint64_t seed, int64_t warmup, int64_t thin,
     int64_t n_samples, uint64_t offset, int64_t C, void* samples, void* lps,
-    void* accs, void* leb_out, void* minv_out, void* x_state, void* g_state,
-    void* mean_s, void* m2_s, void* stream) {
+    void* accs, void* leb_out, void* minv_out, void* x_out, void* g_out, void* stream) {
   const amh::DualAveraging da{target, t0, kappa, gamma, mu, log_eps0};
   const amh::MassAdaptation ma{mass_reg, warm_start};
 #define X(T)                                                                  \
@@ -170,8 +234,18 @@ int amh_adaptive_hmc_sample(
         (const float*)leb_in, (const float*)minv_in, (const float*)consts,    \
         n_consts, da, ma, n_leapfrog, seed, warmup, thin, n_samples, offset,  \
         C, (float*)samples, (float*)lps, (float*)accs, (float*)leb_out,       \
-        (float*)minv_out, (float*)x_state, (float*)g_state, (float*)mean_s,   \
-        (float*)m2_s, (cudaStream_t)stream);
+        (float*)minv_out, (float*)x_out, (float*)g_out, (cudaStream_t)stream);
+  AMH_HMC_ADAPT_DENSITIES(X)
+#undef X
+  return amh::kNoKernel;
+}
+
+int amh_adaptive_hmc_info(const char* density, int32_t d, int32_t resume, int32_t n_consts,
+                          int64_t C, int64_t* out) {
+#define X(T)                                                                  \
+  if (amh::matches<T>(density, d))                                            \
+    return resume ? amh::adaptive_hmc_info<T, true>(n_consts, C, out)         \
+                  : amh::adaptive_hmc_info<T, false>(n_consts, C, out);
   AMH_HMC_ADAPT_DENSITIES(X)
 #undef X
   return amh::kNoKernel;

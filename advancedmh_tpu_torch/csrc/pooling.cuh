@@ -1,6 +1,7 @@
-// Deterministic cross-chain sums for kernels that pool statistics over a
-// tile of chains on every step (csrc/chees.cu, csrc/meads.cu). The plain
-// version is ops/pooling.py.
+// Deterministic cross-chain sums for the ChEES warmup kernel
+// (csrc/chees.cu), which pools statistics over a tile of chains on every
+// step. The plain version is ops/pooling.py. (csrc/meads.cu runs a tile in
+// one thread-block cluster instead.)
 //
 // A tile spans several blocks of kPoolBlock threads, so a sum over it needs
 // the whole grid: the kernels are launched cooperatively (all blocks

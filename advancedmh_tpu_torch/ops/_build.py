@@ -95,11 +95,13 @@ _SIGNATURES = {
     # density, d, resume, params_t, lp, grad, log_eps_bar, minv, consts,
     # n_consts, target, t0, kappa, gamma, mu, log_eps0, mass_reg, warm_start,
     # n_leapfrog, seed, warmup, thin, n_samples, offset, C, samples, lps,
-    # accs, log_eps_bar_out, minv_out, x_state, g_state, mean, m2, stream
+    # accs, log_eps_bar_out, minv_out, x_out, g_out, stream
     "amh_adaptive_hmc_sample": [_S, _I32, _I32, _P, _P, _P, _P, _P, _P, _I32,
                                 _F, _F, _F, _F, _F, _F, _F, _F, _I32, _U64,
                                 _I64, _I64, _I64, _U64, _I64, _P, _P, _P, _P,
-                                _P, _P, _P, _P, _P, _P],
+                                _P, _P, _P, _P],
+    # density, d, resume, n_consts, C, out (6 int64)
+    "amh_adaptive_hmc_info": [_S, _I32, _I32, _I32, _I64, _P],
     # density, d, params_t, lp, grad, sv_in, minv_in, trips, us, E, n_groups,
     # consts, n_consts, target, t0, kappa, gamma, mu, lr, b1, 1 - b1, b2,
     # 1 - b2, log b1, log b2, log max_leapfrog, mass_reg, warm_start,
@@ -115,11 +117,13 @@ _SIGNATURES = {
                                 _I64, _U64, _I64, _I64, _U64, _I64, _P, _P, _P, _P, _P,
                                 _P],
     # density, d, precond, nonrev, x, lp, g, p, u, consts, n_consts, mult,
-    # clip, slowdown, K, tile, C, seed, t0, burn, thin, n_samples, samples,
-    # lps, accs, partials, nb, stream
+    # clip, slowdown, K, tile, C, n_cta, seed, t0, burn, thin, n_samples,
+    # samples, lps, accs, stream
     "amh_meads_sample": [_S, _I32, _I32, _I32, _P, _P, _P, _P, _P, _P, _I32, _F, _F, _F,
-                         _I32, _I64, _I64, _U64, _U64, _I64, _I64, _I64, _P, _P, _P, _P,
-                         _I64, _P],
+                         _I32, _I64, _I64, _I32, _U64, _U64, _I64, _I64, _I64, _P, _P, _P,
+                         _P],
+    # density, d, precond, nonrev, n_consts, K, tile, C, n_cta, out (7 int64)
+    "amh_meads_info": [_S, _I32, _I32, _I32, _I32, _I32, _I64, _I64, _I32, _P],
     # density, d, params_t, lp, consts, n_consts, width, max_stepout,
     # max_shrink, seed, burn, thin, n_samples, offset, C, samples, lps, accs,
     # stream

@@ -17,12 +17,15 @@ warmup: the frozen phase from the given per-chain ``log ε̄`` (1, C) and
 so a run split after its warmup and resumed is bit-exact.
 
 ``t^-κ`` is ``exp(-κ·log t)``, as in the JAX kernel. Layout: chains on the
-last axis. The wrapper runs the plain version for tensors on the CPU, and
+last axis. On the logistic regression the kernel spreads each chain over 8
+threads (``csrc/group.cuh``), 16 chains a block; :func:`adaptive_hmc_launch_info`
+reports the shape and occupancy. The wrapper runs the plain version for tensors on the CPU, and
 for CUDA tensors launches the kernel or raises;
 ``fused_adaptive_hmc_sample.launches`` counts the launches.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 from typing import Callable, Optional, Sequence
@@ -195,10 +198,8 @@ def fused_adaptive_hmc_sample(
     accs = torch.empty((n_samples, 1, n_chains), **f)
     leb_out = torch.empty((1, n_chains), **f)
     minv_out = torch.empty((d, n_chains), **f)
-    x_state = torch.empty((d, n_chains), **f)
-    g_state = torch.empty((d, n_chains), **f)
-    # the Welford moments of the warmup live in device memory, not registers
-    moments = torch.empty((2, d, n_chains) if warmup > 0 else (2, 1, 1), **f)
+    x_out = torch.empty((d, n_chains), **f)
+    g_out = torch.empty((d, n_chains), **f)
     leb_in = log_eps_bar.contiguous() if resume else leb_out
     minv_in = inverse_mass.to(torch.float32).contiguous() if resume else minv_out
     with torch.cuda.device(p.device):
@@ -208,13 +209,30 @@ def fused_adaptive_hmc_sample(
             *da.args(), f32(mass_regularization), float(mass_warm_start), n_leapfrog,
             seed, warmup, thin, n_samples, iteration_offset, n_chains,
             samples.data_ptr(), lps.data_ptr(), accs.data_ptr(), leb_out.data_ptr(),
-            minv_out.data_ptr(), x_state.data_ptr(), g_state.data_ptr(),
-            moments[0].data_ptr(), moments[1].data_ptr(),
+            minv_out.data_ptr(), x_out.data_ptr(), g_out.data_ptr(),
             torch.cuda.current_stream(p.device).cuda_stream,
         )
     _build.check(lib, code, "hmc_adapt", cuda_density, d)
     fused_adaptive_hmc_sample.launches += 1
-    return samples, lps, accs, leb_out, minv_out, g_state
+    return samples, lps, accs, leb_out, minv_out, g_out
+
+
+def adaptive_hmc_launch_info(cuda_density: str, d: int, n_consts: int, n_chains: int,
+                             resume: bool = False) -> dict:
+    """The kernel's launch shape and occupancy on the current card for a
+    (density, d) pair: chains a block, lanes a chain, threads a block, blocks
+    for ``n_chains`` chains, dynamic shared memory bytes, resident blocks and
+    warps an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    lib = _build.library()
+    out = (ctypes.c_int64 * 6)()
+    code = lib.amh_adaptive_hmc_info(_build.density_arg(cuda_density), d, int(resume),
+                                     n_consts, n_chains, ctypes.addressof(out))
+    _build.check(lib, code, "hmc_adapt", cuda_density, d)
+    keys = ("chains_per_block", "lanes_per_chain", "threads", "blocks", "smem_bytes",
+            "blocks_per_sm")
+    info = dict(zip(keys, map(int, out)))
+    info["warps_per_sm"] = info["blocks_per_sm"] * info["threads"] // 32
+    return info
 
 
 fused_adaptive_hmc_sample.launches = 0

@@ -23,13 +23,17 @@ Metropolis variant iff ``-log u' > -logα``; a rejection negates p.
 
 Step t (the iteration, ``t0`` for the launch's first) draws z and u' from
 Philox at counter (t, chain) (ops/rwmh.py::step_noise), so a run split at
-any step and resumed from its final state is exact. The pooled sums run in
-the kernel's order (ops/pooling.py). The wrapper runs the plain version for
-tensors on the CPU, and for CUDA tensors launches the kernel or raises;
+any step and resumed from its final state is exact. A tile runs in one
+cluster of :func:`cluster_ctas` blocks, block r holding fold positions
+[r·P, r·P + P) of every fold (:func:`cta_chains`), and the pooled sums run in
+the kernel's order: each block's positions in order, then the blocks in order
+(ops/pooling.py::cluster_sum). The wrapper runs the plain version for tensors
+on the CPU, and for CUDA tensors launches the kernel or raises;
 ``fused_meads_sample.launches`` counts the launches.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Callable, Optional, Sequence
 
@@ -38,11 +42,45 @@ import torch.nn.functional as F
 
 from . import _build
 from .hmc import f32
-from .pooling import (POOL_BLOCK, full, n_blocks, nan_max, nan_min, pooled_sum,
-                      tile_groups, tree_sum)
+from .pooling import cluster_sum, full, nan_max, nan_min, tile_groups, tree_sum
 from .rwmh import _noise_chunk, check_cuda_launch, flat_consts, row_sum, step_noise
 
 _TINY = 1e-30
+MEADS_THREADS = 256  # threads a block (csrc/meads.cu::kMeadsThreads), 8 warps
+MAX_CLUSTER = 16  # blocks a cluster (kMaxCluster): the card's non-portable limit
+CTA_POSITIONS = 32  # fold positions a block aims at: 32 chains x 8 lanes, d = 32
+
+
+def cluster_ctas(tile_chains: int, n_folds: int) -> int:
+    """Blocks of a tile's cluster: ceil(F / 32) for F = tile_chains // n_folds
+    fold positions, rounded up to a power of two, at most 16. One number for
+    the launch (a short last tile takes as many, some with no positions)."""
+    want = -(-(tile_chains // n_folds) // CTA_POSITIONS)
+    n = 1
+    while n < min(want, MAX_CLUSTER):
+        n *= 2
+    return n
+
+
+def cta_chains(n_chains: int, tile_chains: int, n_folds: int):
+    """(blocks a cluster, chains (blocks, n_folds, P) of each block of the
+    launch in block order): block b runs tile b // n_cta, whose fold k holds
+    chains start + k·F + j; block rank r takes positions j in [r·P, r·P + P),
+    P = ceil(F / n_cta), and −1 marks a position past F (or past a short
+    tile's P)."""
+    K = n_folds
+    n_cta = cluster_ctas(tile_chains, K)
+    blocks = []
+    for start, n_t, size in tile_groups(n_chains, tile_chains):
+        F_ = size // K
+        P = -(-F_ // n_cta)
+        pos = torch.arange(n_cta)[:, None] * P + torch.arange(P)  # (n_cta, P)
+        chains = (start + torch.arange(n_t)[:, None, None, None] * size
+                  + torch.arange(K)[None, None, :, None] * F_ + pos[None, :, None, :])
+        chains = torch.where((pos < F_)[None, :, None, :], chains, -1)
+        blocks.append(chains.reshape(n_t * n_cta, K, P))
+    P_max = max(b.shape[-1] for b in blocks)
+    return n_cta, torch.cat([F.pad(b, (0, P_max - b.shape[-1]), value=-1) for b in blocks])
 
 
 def max_eig_cols(v: torch.Tensor) -> torch.Tensor:
@@ -58,24 +96,27 @@ def max_eig_cols(v: torch.Tensor) -> torch.Tensor:
     return tr_a2 / nan_max(tr_a, _TINY)
 
 
-def pooled_max_eig(v: torch.Tensor) -> torch.Tensor:
+def pooled_max_eig(v: torch.Tensor, n_blocks: int) -> torch.Tensor:
     """:func:`max_eig_cols` of each fold ``v`` (n, d, F) in the kernel's
-    order: the Gram matrix and the column norms pooled over the F chains,
-    then Σ G² with entry e taken by thread e mod POOL_BLOCK (in order), the
-    threads' sums by a tree."""
+    order: the Gram matrix and the column norms (each over the coordinates in
+    order) summed over the F chains by :func:`cluster_sum` with ``n_blocks``
+    blocks; then Σ G² with entry e taken by thread e mod MEADS_THREADS in
+    order, a tree over each warp's 32 threads and a tree over the warps."""
     n, d, F_ = v.shape
     colnorm2 = row_sum(v.transpose(0, 1) * v.transpose(0, 1))[0]  # (n, F)
-    gram = pooled_sum((v[:, :, None, :] * v[:, None, :, :]).reshape(n, d * d, F_))
-    sq = gram * gram
-    m = -(-d * d // POOL_BLOCK)
-    sq = F.pad(sq, (0, m * POOL_BLOCK - d * d)).reshape(n, m, POOL_BLOCK)
-    acc = torch.zeros((n, POOL_BLOCK), dtype=v.dtype, device=v.device)
+    prods = (v[:, :, None, :] * v[:, None, :, :]).reshape(n, d * d, F_)
+    sums = cluster_sum(torch.cat([prods, colnorm2[:, None], (colnorm2 * colnorm2)[:, None]], 1),
+                       n_blocks)
+    gram, sc, sc2 = sums[:, :d * d], sums[:, d * d], sums[:, d * d + 1]
+    T = MEADS_THREADS
+    m = -(-d * d // T)
+    sq = F.pad(gram * gram, (0, m * T - d * d)).reshape(n, m, T)
+    acc = torch.zeros((n, T), dtype=v.dtype, device=v.device)
     for i in range(m):
         acc = acc + sq[:, i]
-    s_gg = tree_sum(acc)
-    ff = full(s_gg, float(F_))
-    tr_a = pooled_sum(colnorm2) / ff
-    tr_a2 = (s_gg - pooled_sum(colnorm2 * colnorm2)) / full(s_gg, f32(F_ * (F_ - 1.0)))
+    s_gg = tree_sum(tree_sum(acc.reshape(n, T // 32, 32)))
+    tr_a = sc / full(sc, float(F_))
+    tr_a2 = (s_gg - sc2) / full(s_gg, f32(F_ * (F_ - 1.0)))
     return tr_a2 / nan_max(tr_a, _TINY)
 
 
@@ -100,19 +141,21 @@ class MeadsParams:
                    sampler.accept)
 
 
-def fold_parameters(xb: torch.Tensor, gb: torch.Tensor, t: int, prm: MeadsParams):
+def fold_parameters(xb: torch.Tensor, gb: torch.Tensor, t: int, prm: MeadsParams,
+                    n_blocks: int):
     """(σ (n, d), ε, α, δ (n,)) of the folds ``xb``, ``gb`` (n, d, F) at
-    iteration ``t``, in the kernel's order."""
+    iteration ``t``, in the kernel's order with ``n_blocks`` blocks a
+    cluster."""
     F_ = xb.shape[2]
-    mu = pooled_sum(xb) / full(xb[:, :, 0], float(F_))
+    mu = cluster_sum(xb, n_blocks) / full(xb[:, :, 0], float(F_))
     xc = xb - mu[..., None]
     if prm.diagonal_preconditioning:
-        var = pooled_sum(xc * xc) / full(mu, float(F_))
+        var = cluster_sum(xc * xc, n_blocks) / full(mu, float(F_))
         sigma = nan_max(torch.sqrt(var), f32(1e-10))
     else:
         sigma = torch.ones_like(mu)
-    lam_g = pooled_max_eig(sigma[..., None] * gb)
-    lam_x = pooled_max_eig(xc / sigma[..., None])
+    lam_g = pooled_max_eig(sigma[..., None] * gb, n_blocks)
+    lam_x = pooled_max_eig(xc / sigma[..., None], n_blocks)
     eps = prm.step_size_multiplier * (1.0 / torch.sqrt(nan_max(lam_g, _TINY)))
     eps = nan_min(eps, prm.step_size_clip)
     gamma = 1.0 / torch.sqrt(nan_max(lam_x, 1.0))
@@ -177,6 +220,7 @@ def meads_reference(
     x, l, g, pp, uu = (t.clone() for t in (params_t, lp, grad, p, u))
     acc = torch.zeros((1, C), dtype=torch.bool, device=dev)
     nonrev = params.accept == "nonreversible"
+    n_cta = cluster_ctas(tile_chains, K)
     folds = []  # per tile group: (n_t, F, chain index of fold k position j)
     for start, n_t, size in tile_groups(C, tile_chains):
         F_ = size // K
@@ -195,7 +239,7 @@ def meads_reference(
                     ib, ik = idx[b].reshape(-1), idx[k].reshape(-1)
                     xb = x[:, ib].reshape(d, n_t, F_).transpose(0, 1)
                     gb = g[:, ib].reshape(d, n_t, F_).transpose(0, 1)
-                    sigma, eps, alpha, delta = fold_parameters(xb, gb, t0 + s, params)
+                    sigma, eps, alpha, delta = fold_parameters(xb, gb, t0 + s, params, n_cta)
                     rep = lambda v: torch.repeat_interleave(v, F_, dim=-1)
                     out = ghmc_move(x[:, ik], l[:, ik], g[:, ik], pp[:, ik], uu[:, ik],
                                     z[i][:, ik], logu[i][ik], rep(sigma.T),
@@ -250,18 +294,14 @@ def fused_meads_sample(
     samples = torch.empty((n_samples, d, C), **fl)
     lps = torch.empty((n_samples, 1, C), **fl)
     accs = torch.empty((n_samples, 1, C), **fl)
-    nb = n_blocks(C, tile_chains, lambda size: size // n_folds)
-    # block partials of the three pooled rounds: Σx, Σ(x−μ)², the two Gram
-    # matrices with the column-norm sums
-    partials = torch.empty((nb * (2 * d + 2 * d * d + 4),), **fl)
     with torch.cuda.device(dev):
         code = lib.amh_meads_sample(
             _build.density_arg(cuda_density), d, int(params.diagonal_preconditioning),
             int(params.accept == "nonreversible"), x_s.data_ptr(), lp_s.data_ptr(),
             g_s.data_ptr(), p_s.data_ptr(), u_s.data_ptr(), flat.data_ptr(), n_consts,
             params.step_size_multiplier, params.step_size_clip, params.damping_slowdown,
-            n_folds, tile_chains, C, seed, t0, burn, thin, n_samples, samples.data_ptr(),
-            lps.data_ptr(), accs.data_ptr(), partials.data_ptr(), nb,
+            n_folds, tile_chains, C, cluster_ctas(tile_chains, n_folds), seed, t0, burn, thin,
+            n_samples, samples.data_ptr(), lps.data_ptr(), accs.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, code, "meads", cuda_density, d)
@@ -270,3 +310,23 @@ def fused_meads_sample(
 
 
 fused_meads_sample.launches = 0
+
+
+def meads_launch_info(cuda_density: str, d: int, n_consts: int, n_chains: int, n_folds: int,
+                      tile_chains: int, params: MeadsParams = MeadsParams()) -> dict:
+    """The kernel's launch shape on the current card: blocks a cluster,
+    blocks, threads a block, lanes a chain, dynamic shared memory bytes,
+    whether the chains' state stays in shared memory, and the clusters the
+    card holds at once (``cudaOccupancyMaxActiveClusters``; 0: the launch
+    would be refused)."""
+    lib = _build.library()
+    out = (ctypes.c_int64 * 7)()
+    code = lib.amh_meads_info(_build.density_arg(cuda_density), d,
+                              int(params.diagonal_preconditioning),
+                              int(params.accept == "nonreversible"), n_consts, n_folds,
+                              tile_chains, n_chains, cluster_ctas(tile_chains, n_folds),
+                              ctypes.addressof(out))
+    _build.check(lib, code, "meads", cuda_density, d)
+    keys = ("cluster", "blocks", "threads", "lanes_per_chain", "smem_bytes", "state_shared",
+            "active_clusters")
+    return dict(zip(keys, map(int, out)))

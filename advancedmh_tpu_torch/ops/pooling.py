@@ -1,16 +1,18 @@
 """Cross-chain sums in the order the pooling kernels take them.
 
 The ChEES warmup and MEADS kernels (``csrc/chees.cu``, ``csrc/meads.cu``)
-pool statistics over a tile of chains on every step. A tile spans several
-blocks of ``POOL_BLOCK`` threads; the sum of a per-thread quantity is taken
-in two stages (``csrc/pooling.cuh``):
+pool statistics over a tile of chains on every step. In the ChEES warmup a
+tile spans several blocks of ``POOL_BLOCK`` threads; the sum of a per-thread
+quantity is taken in two stages (``csrc/pooling.cuh``):
 
 1. in each block, a halving tree over its threads: at each level thread
    ``i < s`` adds thread ``i + s``'s value, ``s = B/2, B/4, .., 1``;
 2. over the tile, the block partials in block order, one after another.
 
-Threads past the end of the tile add 0. No atomics: the order is fixed, so a
-kernel's sums are repeatable and these plain versions give the same bits.
+Threads past the end of the tile add 0. MEADS runs a tile in one cluster of
+blocks and sums each block's positions in order, then the blocks in order
+(:func:`cluster_sum`). No atomics: the order is fixed, so a kernel's sums are
+repeatable and these plain versions give the same bits.
 """
 from __future__ import annotations
 
@@ -46,6 +48,17 @@ def pooled_sum(v: torch.Tensor, block: int = POOL_BLOCK) -> torch.Tensor:
     nb = -(-n // block)
     v = F.pad(v, (0, nb * block - n))
     return seq_sum(tree_sum(v.reshape(*v.shape[:-1], nb, block)))
+
+
+def cluster_sum(v: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """The MEADS kernel's sum of ``v`` (..., F) over F fold positions split
+    among the ``n_blocks`` blocks of a cluster, ``P = ceil(F / n_blocks)``
+    each (the last ones short, padded with 0): each block's P in order, then
+    the blocks' partials in block order (``csrc/meads.cu``)."""
+    F_ = v.shape[-1]
+    P = -(-F_ // n_blocks)
+    v = F.pad(v, (0, n_blocks * P - F_))
+    return seq_sum(seq_sum(v.reshape(*v.shape[:-1], n_blocks, P)))
 
 
 def tile_groups(n_chains: int, tile: int) -> List[Tuple[int, int, int]]:

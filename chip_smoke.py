@@ -25,7 +25,9 @@ card-only checks, and slice 8: ``log_evidence`` on the d = 32 logistic
 regression (the likelihood at ``prior_scale=inf``, its N(0, 10²I) prior
 apart) at 16 rungs x 512 chains x (3000 + 3000) on both engines, with the
 conjugate Normal-mean and flat likelihoods, AIS and SMC among the card-only
-checks. Each path runs
+checks; slice 9 redesigned MEADS (a thread-block cluster per tile, held here
+also at 65,536 chains) and AdaptiveHMC (8 lanes a chain on the logistic
+regression), whose launch shapes, occupancy and registers it prints. Each path runs
 with every launch counter set to 0 just before it and read just after. The
 posteriors are checked against a float64 grid quadrature (the flagship),
 the analytic means (emcee), the ``engine="torch"`` run and the
@@ -1011,6 +1013,8 @@ def phase_timing_slice3(models, label, errs, times, med_eps, minv_med):
 # 475-493) on the d = 32 logistic regression and Neal's funnel, 8192 chains.
 CHEES = dict(initial_step_size=0.1, initial_trajectory_length=1.0, max_leapfrog=16)
 N_PLAIN_SLICE4 = 10  # steps of the slice-4 plain versions timed at 8192 chains
+MEADS_WIDE_CHAINS = 65536  # MEADS held at a chain count no cooperative launch takes
+MEADS_WIDE_STEPS = 4
 
 
 def _slice4_start(m, C: int, seed: int):
@@ -1097,6 +1101,26 @@ def phase_kernels_slice4(models, errs):
         print(f"kernel meads {m.cuda_density} d={d} C={C} tile={tile} K=2 64 steps: {r}")
         check_agreement("meads", r, SHORT_RUN_CHAINS_MIN, visible_steps=True)
         errs["meads"] = max(errs["meads"], r["max_abs_err"])
+
+    # a chain count the parent's cooperative launch refused: 64 tiles of 1024
+    # on the logistic regression, one cluster of 16 blocks each
+    m, C = models["logreg"], MEADS_WIDE_CHAINS
+    p = _slice4_start(m, C, 120)
+    lp, g = m.tile_value_and_grad(p, *m.tile_consts)
+    rng = np.random.default_rng(121)
+    mom = torch.tensor(rng.normal(size=(32, C)), dtype=torch.float32, device=DEVICE)
+    u = torch.tensor(rng.uniform(size=(1, C)), dtype=torch.float32, device=DEVICE)
+    margs = (m.tile_value_and_grad, m.cuda_density, p, lp, g, mom, u, m.tile_consts, 0x3EB0)
+    tile = fused_tile(C, MAX_TILE, 32, MEADS_BUDGET)
+    kw = dict(n_folds=2, t0=1, burn=0, thin=1, n_samples=MEADS_WIDE_STEPS, params=MeadsParams(),
+              tile_chains=tile)
+    got = fused_meads_sample(*margs, **kw)
+    ref = meads_reference(*margs, **kw)
+    r = agreement(got, ref)
+    print(f"kernel meads logistic_regression d=32 C={C} tile={tile} K=2 {MEADS_WIDE_STEPS} "
+          f"steps: {r}")
+    check_agreement("meads", r, SHORT_RUN_CHAINS_MIN, visible_steps=True)
+    errs["meads"] = max(errs["meads"], r["max_abs_err"])
     sync()
 
 
@@ -3375,6 +3399,40 @@ def bound(name: str, C: int, steps: int, emitted: int, warmup: int = 0, d: int =
 # ---- main -------------------------------------------------------------------------------
 
 
+def launch_report(models, ptxas_lines) -> None:
+    """The launch shapes of the two kernels redesigned for the card (MEADS: a
+    cluster per tile; AdaptiveHMC: a group of chains a block) at the main
+    paths' widths, with their occupancy and ptxas' registers and spills."""
+    from advancedmh_tpu_torch.ops.hmc_adapt import adaptive_hmc_launch_info
+    from advancedmh_tpu_torch.ops.meads import meads_launch_info
+    from advancedmh_tpu_torch.ops.rwmh import flat_consts
+    from advancedmh_tpu_torch.runtime.fused import MAX_TILE, MEADS_BUDGET, fused_tile
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for key, C in (("logreg", LOGREG_CHAINS), ("logreg", MEADS_WIDE_CHAINS),
+                   ("funnel", LOGREG_CHAINS), ("corr", LOGREG_CHAINS)):
+        m = models[key]
+        d = m.dimension
+        n_consts = flat_consts(m.tile_consts, DEVICE)[1]
+        tile = fused_tile(C, MAX_TILE, d, MEADS_BUDGET)
+        info = meads_launch_info(m.cuda_density, d, n_consts, C, 2, tile)
+        print(f"launch meads {m.cuda_density} d={d} C={C} tile={tile} K=2: {info}")
+        check(info["active_clusters"] >= 1, "meads: the card holds no cluster of this launch")
+    m = models["logreg"]
+    info = adaptive_hmc_launch_info(m.cuda_density, 32, flat_consts(m.tile_consts, DEVICE)[1],
+                                    LOGREG_CHAINS)
+    launched = info["blocks"] * info["threads"] / 32 / n_sm
+    print(f"launch adaptive_hmc logistic_regression d=32 C={LOGREG_CHAINS}: {info}; warps "
+          f"launched per SM {launched:.2f} on {n_sm} SMs")
+    for line in ptxas_lines:
+        if line.startswith(("meads_kernel<LogisticRegression<32>",
+                            "adaptive_hmc_kernel<LogisticRegression<32>")):
+            print(f"  ptxas (redesigned): {line}")
+            if line.startswith("adaptive_hmc_kernel"):
+                check(" 0 bytes spill stores" in line,
+                      "adaptive_hmc on the logistic regression spills")
+
+
 def ptxas_summary(report: str):
     """One line per compiled kernel of nvcc's -Xptxas -v report: its name,
     density and flags (from the mangled name), registers and spills."""
@@ -3467,7 +3525,8 @@ def main() -> None:
     for line in report.splitlines():
         if line.startswith("amh build:"):
             print(f"  {line}")
-    for line in ptxas_summary(report):
+    ptxas_lines = ptxas_summary(report)
+    for line in ptxas_lines:
         print(f"  ptxas: {line}")
     lib = _build.library()
     for kernel in _build.KERNELS:
@@ -3494,6 +3553,7 @@ def main() -> None:
         "logreg_lik": logistic_regression_model(256, 32, seed=0, prior_scale=float("inf"),
                                                 device=DEVICE),
     }
+    launch_report(models, ptxas_lines)
     gps = gp_models()
     errs = {name: 0.0 for name in REPLACES}
     evals = {}

@@ -484,6 +484,7 @@ def test_chees_frozen_kernel_matches_plain(model, target, per_chain_eps):
 @pytest.mark.parametrize("target,C,tile,K", [
     ("flagship", 4096, 1024, 4), ("corr2", 4000, 1024, 2), ("logreg", 2048, 1024, 2),
     ("funnel", 2048, 2048, 2),
+    ("logreg", 8192, 8192, 2),  # 256 positions a block: the state stays in device memory
 ])
 @pytest.mark.parametrize("accept", ["nonreversible", "metropolis"])
 @pytest.mark.parametrize("precond", [True, False])
@@ -509,6 +510,73 @@ def test_meads_kernel_matches_plain(model, target, C, tile, K, accept, precond):
     assert dec >= 0.999 and chains >= 0.999
     for a, b in zip(got[3:], ref[3:]):  # the final x, lp, gradient, p, u
         assert float(_bits_or_close(a, b).float().mean()) >= 0.999
+
+
+def _same_bits(a, b):
+    """Every entry equal (NaN equal to NaN)."""
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def test_meads_kernel_at_65536_chains_matches_plain():
+    """The cluster launch at a chain count the cooperative launch refused:
+    64 tiles of 1024 on the logistic regression, 16 blocks a cluster."""
+    from advancedmh_tpu_torch.ops import MeadsParams, fused_meads_sample, meads_reference
+    from advancedmh_tpu_torch.ops.meads import cluster_ctas
+    from advancedmh_tpu_torch.runtime.fused import MAX_TILE, MEADS_BUDGET, fused_tile
+
+    m, C = _logreg(), 65536
+    tile = fused_tile(C, MAX_TILE, 32, MEADS_BUDGET)
+    assert (tile, cluster_ctas(tile, 2)) == (1024, 16)
+    p0 = _slice3_start(m, C, seed=5)
+    lp, g = m.tile_value_and_grad(p0, *m.tile_consts)
+    rng = np.random.default_rng(6)
+    mom = torch.tensor(rng.normal(size=(32, C)), dtype=torch.float32, device="cuda")
+    u = torch.tensor(rng.uniform(size=(1, C)), dtype=torch.float32, device="cuda")
+    args = (m.tile_value_and_grad, m.cuda_density, p0, lp, g, mom, u, m.tile_consts, 85)
+    kw = dict(n_folds=2, t0=1, burn=1, thin=1, n_samples=3, params=MeadsParams(),
+              tile_chains=tile)
+    before = fused_meads_sample.launches
+    got = fused_meads_sample(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_meads_sample.launches == before + 1
+    ref = meads_reference(*args, **kw)
+    dec, chains = _agree(got, ref)
+    assert dec >= 0.999 and chains >= 0.999
+    for a, b in zip(got[3:], ref[3:]):
+        assert float(_bits_or_close(a, b).float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("C", [8190, 100])
+@pytest.mark.parametrize("resume", [False, True])
+def test_adaptive_hmc_group_kernel_is_bit_exact(C, resume):
+    """The logistic regression's 8-lane group kernel on chain counts that are
+    not a multiple of its 16-chain blocks, fresh and resumed, thin 3: every
+    output equal to the plain version's bits."""
+    from advancedmh_tpu_torch.ops import (DualAveraging, adaptive_hmc_reference,
+                                          fused_adaptive_hmc_sample)
+
+    m = _logreg()
+    p = _slice3_start(m, C, seed=C)
+    lp, g = m.tile_value_and_grad(p, *m.tile_consts)
+    args = (m.tile_value_and_grad, m.cuda_density, p, lp, g, m.tile_consts, 43)
+    kw = dict(n_leapfrog=8, thin=3, n_samples=5, da=DualAveraging(0.05, 0.65),
+              iteration_offset=21)
+    if resume:
+        rng = np.random.default_rng(C + 1)
+        kw.update(warmup=0,
+                  log_eps_bar=torch.tensor(np.log(rng.uniform(0.5, 1.5, (1, C)) * 0.02),
+                                           dtype=torch.float32, device="cuda"),
+                  inverse_mass=torch.tensor(rng.uniform(0.5, 2.0, (32, C)),
+                                            dtype=torch.float32, device="cuda"))
+    else:
+        kw.update(warmup=12)
+    before = fused_adaptive_hmc_sample.launches
+    got = fused_adaptive_hmc_sample(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_adaptive_hmc_sample.launches == before + 1
+    ref = adaptive_hmc_reference(*args, **kw)
+    for a, b in zip(got, ref):  # draws, lps, decisions, log ε̄, M⁻¹, final gradient
+        assert _same_bits(a, b)
 
 
 def test_slice4_wrappers_raise_for_what_has_no_kernel(model):

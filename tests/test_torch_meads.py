@@ -1,7 +1,10 @@
 """MEADS in advancedmh_tpu_torch against advancedmh_tpu.
 
 - ``_max_eig`` and ``ops/meads.py::max_eig_cols`` (d = 2 and 32, and the
-  kernel-order ``pooled_max_eig``) against the JAX functions, and
+  kernel-order ``pooled_max_eig``) against the JAX functions; the kernel's
+  order of the fold statistics (``pooled_max_eig``, ``fold_parameters``) at
+  d = 2, 10, 32 and F = 64, 512, 1000; the map of a tile onto its cluster's
+  blocks (``cta_chains``) on the JAX rule's tiles; and
   ``_fold_parameters``, ``_ghmc_fold`` / ``step_batched`` on JAX's own
   random numbers (1e-5);
 - tests/test_meads.py's assertions on the torch engine, at their
@@ -22,7 +25,9 @@ from advancedmh_tpu_torch import MEADS, DensityModel, sample
 from advancedmh_tpu_torch.convert import correlated_gaussian_from_numpy, meads_state_from_numpy
 from advancedmh_tpu_torch.models import gaussian_mean_scale_model
 from advancedmh_tpu_torch.ops import max_eig_cols
-from advancedmh_tpu_torch.ops.meads import pooled_max_eig
+from advancedmh_tpu_torch.ops.meads import (MeadsParams, cluster_ctas, cta_chains,
+                                            fold_parameters, pooled_max_eig)
+from advancedmh_tpu_torch.runtime.fused import MAX_TILE, MEADS_BUDGET, fused_tile
 
 SIG = np.array([[1.5, 0.35], [0.35, 1.0]], np.float32)
 SIG2 = np.array([[1.0, 0.5], [0.5, 1.0]], np.float32)
@@ -57,8 +62,69 @@ def test_max_eig_matches_jax(d):
     v = (rng.normal(size=(d, 300)) * rng.uniform(0.3, 3.0, size=(d, 1))).astype(np.float32)
     want = float(pallas_meads._max_eig_cols(jnp.asarray(v)))
     _close(float(max_eig_cols(_t(v))), want)
-    _close(float(pooled_max_eig(_t(v)[None])[0]), want)
+    _close(float(pooled_max_eig(_t(v)[None], 8)[0]), want)
     _close(float(MEADS._max_eig(_t(v.T))), float(ref.MEADS._max_eig(jnp.asarray(v.T))))
+
+
+# The kernel's order of the fold statistics (each block's positions in order,
+# then the cluster's blocks in order; sum G^2 by thread, warp tree, warps tree)
+# against JAX's: float32 sums of up to 1000 x 32 x 32 products in two orders,
+# so 1e-4 relative (the tr(A^2) estimate subtracts two sums of that size).
+MAX_EIG_SHAPES = [(d, F_) for d in (2, 10, 32) for F_ in (64, 512, 1000)]
+
+
+def _fold_inputs(d, F_):
+    rng = np.random.default_rng(100 * d + F_)
+    scale = rng.uniform(0.3, 3.0, size=(d, 1))
+    xb = (rng.normal(size=(d, F_)) * scale + rng.normal(size=(d, 1))).astype(np.float32)
+    gb = (rng.normal(size=(d, F_)) / scale).astype(np.float32)
+    return xb, gb
+
+
+@pytest.mark.parametrize("d,F_", MAX_EIG_SHAPES)
+def test_kernel_order_max_eig_matches_jax(d, F_):
+    v, _ = _fold_inputs(d, F_)
+    n_cta = cluster_ctas(2 * F_, 2)
+    got = float(pooled_max_eig(_t(v)[None], n_cta)[0])
+    _close(got, float(pallas_meads._max_eig_cols(jnp.asarray(v))), 1e-4)
+    _close(got, float(ref.MEADS._max_eig(jnp.asarray(v.T))), 1e-4)
+
+
+@pytest.mark.parametrize("d,F_", MAX_EIG_SHAPES)
+def test_kernel_order_fold_parameters_match_jax(d, F_):
+    xb, gb = _fold_inputs(d, F_)
+    n_cta = cluster_ctas(2 * F_, 2)
+    for kw in (dict(), dict(diagonal_preconditioning=False)):
+        got = fold_parameters(_t(xb)[None], _t(gb)[None], 7, MeadsParams(**kw), n_cta)
+        want = ref.MEADS(**kw)._fold_parameters(jnp.asarray(xb.T), jnp.asarray(gb.T),
+                                                jnp.asarray(7, jnp.int32))
+        for a, b in zip(got, want):
+            _close(a.reshape(-1), np.asarray(b).reshape(-1), 1e-4)
+
+
+@pytest.mark.parametrize("d", [2, 10, 32])
+@pytest.mark.parametrize("C", [1000, 8192, 65536])
+def test_cluster_blocks_cover_every_chain_once(d, C):
+    """Every chain of every tile the JAX rule gives sits at exactly one
+    (block, fold, position) of the launch, at most 16 blocks a cluster, each
+    block's positions a contiguous run of its tile's fold."""
+    tile = fused_tile(C, MAX_TILE, d, MEADS_BUDGET)
+    K = 2
+    n_cta, chains = cta_chains(C, tile, K)
+    assert 1 <= n_cta <= 16 and n_cta & (n_cta - 1) == 0
+    assert chains.shape[0] == n_cta * -(-C // tile) and chains.shape[1] == K
+    flat = chains.reshape(-1)
+    flat = flat[flat >= 0]
+    assert flat.numel() == C
+    assert torch.equal(torch.sort(flat).values, torch.arange(C))
+    for b in range(chains.shape[0]):  # fold k of a block: F apart, positions in a run
+        row = chains[b]
+        valid = row[0] >= 0
+        assert torch.equal(row >= 0, valid.expand_as(row))
+        if valid.any():
+            run = row[:, valid]
+            assert bool((run[:, 1:] - run[:, :-1] == 1).all())
+            assert bool((run[1:, 0] - run[:-1, 0] == run[1, 0] - run[0, 0]).all())
 
 
 def test_fold_parameters_match_jax():
