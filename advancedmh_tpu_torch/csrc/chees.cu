@@ -17,9 +17,9 @@
 // a small int array read through the cache). Plain version:
 // ops/chees.py::chees_frozen_reference.
 //
-// Design. One thread runs one chain (the HMC step of csrc/hmc.cuh). The
-// warmup's statistics are pooled over tiles of `tile` chains (512 at d = 32
-// by the JAX rule): a tile spans several 64-thread blocks, so the kernel is
+// Design. The warmup runs one thread a chain (the HMC step of csrc/hmc.cuh).
+// Its statistics are pooled over tiles of `tile` chains (512 at d = 32 by
+// the JAX rule): a tile spans several 64-thread blocks, so the kernel is
 // launched cooperatively and pools in two rounds per step with a grid
 // barrier each (csrc/pooling.cuh): round 1 sums w, healthy, x and y over the
 // healthy chains (2 + 2d values), round 2 the ChEES contributions, w *
@@ -31,9 +31,19 @@
 // coordinate per thread. The trajectory stays in registers across the
 // barriers; the state to fall back to on a reject is in device memory.
 //
+// The frozen phase pools nothing: it runs the group step of
+// csrc/hmc_group.cuh, as csrc/hmc.cu does. On the logistic regression a
+// chain runs on 8 lanes with x, g, the fall-back (x0, g0) and M^-1 in
+// registers, 16 chains a 128-thread block with X in shared memory; the
+// other densities, NealFunnel<10> among them, run one thread a chain through
+// the same code. A trajectory's trip count is the same for every chain, so
+// the chains of a warp never part on it; every lane of a chain reads the
+// chain's eps.
+//
 // What bounds it on this card: the density (the logistic regression's value
 // and gradient is ~99% of a step's operations), run as one dependent stream
-// per chain, plus two grid barriers a step.
+// per chain in the warmup, plus its two grid barriers a step; in the frozen
+// phase the issue rate of 8 lanes a chain (as csrc/hmc.cu).
 //
 // Numerics: --fmad=false, no --use_fast_math; the NaN semantics of the JAX
 // kernel are kept: |logalpha| < 1e30 and the healthy test are false for NaN,
@@ -41,6 +51,7 @@
 // (nan_max / nan_min), Adam's bias terms are 1 - exp(t log b).
 
 #include "hmc.cuh"
+#include "hmc_group.cuh"
 #include "pooling.cuh"
 
 namespace amh {
@@ -263,24 +274,31 @@ int launch_chees_warmup(const float* params_t, const float* lp, const float* gra
 // Sample e is the state after (e+1)*thin trajectories; trajectory k of the
 // launch is absolute step offset + k + 1.
 template <class Density>
-__global__ void __launch_bounds__(kHmcBlock) chees_frozen_kernel(
-    const float* __restrict__ params_t, const float* __restrict__ lp_in,
-    const float* __restrict__ grad_in, const float* __restrict__ eps_in,
-    int eps_per_chain, const float* __restrict__ minv_in,
-    const float* __restrict__ consts, int n_consts, const int* __restrict__ trips,
-    int P, int64_t phase, uint32_t k0, uint32_t k1, int64_t thin, int64_t n_samples,
-    uint64_t offset, int64_t C, float* __restrict__ samples, float* __restrict__ lps,
-    float* __restrict__ accs, float* __restrict__ x_state,
-    float* __restrict__ g_state) {
+__global__ void __launch_bounds__(GroupShape<Density>::kThreads, GroupShape<Density>::kMinBlocks)
+    chees_frozen_kernel(const float* __restrict__ params_t, const float* __restrict__ lp_in,
+                        const float* __restrict__ grad_in, const float* __restrict__ eps_in,
+                        int eps_per_chain, const float* __restrict__ minv_in,
+                        const float* __restrict__ consts, int n_consts,
+                        const int* __restrict__ trips, int P, int64_t phase, uint32_t k0,
+                        uint32_t k1, int64_t thin, int64_t n_samples, uint64_t offset,
+                        int64_t C, float* __restrict__ samples, float* __restrict__ lps,
+                        float* __restrict__ accs, float* __restrict__ g_state) {
   constexpr int D = Density::kDim;
-  extern __shared__ float sh_consts[];
-  load_consts(sh_consts, consts, n_consts);
-  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  float x[D], g[D], minv[D];
-  hmc_load<D>(params_t, grad_in, x, g, x_state, g_state, c, C);
+  constexpr int kJ = GroupShape<Density>::kJ;
+  // not `sh`: the warmup kernel above declares that name without the alignment
+  extern __shared__ __align__(16) float sh_group[];
+  const GroupChain ch = group_chain<Density>(sh_group, consts, n_consts);
+  const int64_t c = ch.c;
+  if (c >= C) return;  // the chain's lanes leave together
+  float x[kJ], g[kJ], x0[kJ], g0[kJ], minv[kJ];
+  lane_load<kJ>(params_t, ch, C, x);
+  lane_load<kJ>(grad_in, ch, C, g);
 #pragma unroll
-  for (int i = 0; i < D; ++i) minv[i] = minv_in[i];
+  for (int k = 0; k < kJ; ++k) {
+    x0[k] = x[k];
+    g0[k] = g[k];
+    minv[k] = minv_in[ch.j0 + k];
+  }
   float lp = lp_in[c];
   const float eps = eps_in[eps_per_chain ? c : 0];
   uint64_t j = offset;
@@ -288,33 +306,15 @@ __global__ void __launch_bounds__(kHmcBlock) chees_frozen_kernel(
   for (int64_t e = 0; e < n_samples; ++e) {
     bool accepted = false;
     for (int64_t s = 0; s < thin; ++s, ++traj)
-      accepted = hmc_step<Density>(x, lp, g, minv, eps, __ldg(trips + traj % P), sh_consts,
-                                   n_consts, x_state, g_state, c, C, ++j, k0, k1);
-#pragma unroll
-    for (int i = 0; i < D; ++i) samples[(e * D + i) * C + c] = x[i];
-    lps[e * C + c] = lp;
-    accs[e * C + c] = accepted ? 1.0f : 0.0f;
+      accepted = group_hmc_step<Density>(x, lp, g, x0, g0, minv, eps, __ldg(trips + traj % P),
+                                         sh_group, n_consts, ch.scratch, ch.ln, c, ++j, k0, k1);
+    lane_store<kJ>(samples + e * D * C, ch, C, x);
+    if (ch.ln.lane == 0) {
+      lps[e * C + c] = lp;
+      accs[e * C + c] = accepted ? 1.0f : 0.0f;
+    }
   }
-}
-
-template <class Density>
-int launch_chees_frozen(const float* params_t, const float* lp, const float* grad,
-                        const float* eps, int eps_per_chain, const float* minv,
-                        const float* consts, int n_consts, const int* trips, int P,
-                        int64_t phase, uint64_t seed, int64_t thin, int64_t n_samples,
-                        uint64_t offset, int64_t C, float* samples, float* lps,
-                        float* accs, float* x_state, float* g_state,
-                        cudaStream_t stream) {
-  if (P < 1 || phase < 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = n_consts * sizeof(float);
-  const cudaError_t err = allow_shared(chees_frozen_kernel<Density>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((C + kHmcBlock - 1) / kHmcBlock));
-  chees_frozen_kernel<Density><<<grid, kHmcBlock, smem, stream>>>(
-      params_t, lp, grad, eps, eps_per_chain, minv, consts, n_consts, trips, P, phase,
-      (uint32_t)seed, (uint32_t)(seed >> 32), thin, n_samples, offset, C, samples, lps,
-      accs, x_state, g_state);
-  return (int)cudaGetLastError();
+  lane_store<kJ>(g_state, ch, C, g);
 }
 
 }  // namespace amh
@@ -322,7 +322,8 @@ int launch_chees_frozen(const float* params_t, const float* lp, const float* gra
 // ---- plain C interface (loaded with ctypes by ops/_build.py) --------------
 //
 // The densities with a value_and_grad that both kernels are instantiated
-// for: the one list of the pairs (see csrc/common.cuh).
+// for: the one list of the pairs (see csrc/common.cuh). NealFunnel<10> has no
+// group form and runs one thread a chain in both.
 #define AMH_CHEES_DENSITIES(X) \
   X(amh::GaussianMeanScale)    \
   X(amh::CorrelatedGaussian<2>) \
@@ -366,16 +367,30 @@ int amh_chees_frozen_sample(const char* density, int32_t d, const void* params_t
                             int32_t n_consts, const void* trips, int32_t P,
                             int64_t phase, uint64_t seed, int64_t thin,
                             int64_t n_samples, uint64_t offset, int64_t C,
-                            void* samples, void* lps, void* accs, void* x_state,
-                            void* g_state, void* stream) {
-#define X(T)                                                                    \
-  if (amh::matches<T>(density, d))                                              \
-    return amh::launch_chees_frozen<T>(                                         \
-        (const float*)params_t, (const float*)lp, (const float*)grad,           \
-        (const float*)eps, eps_per_chain, (const float*)minv,                   \
-        (const float*)consts, n_consts, (const int*)trips, P, phase, seed, thin,  \
-        n_samples, offset, C, (float*)samples, (float*)lps, (float*)accs,       \
-        (float*)x_state, (float*)g_state, (cudaStream_t)stream);
+                            void* samples, void* lps, void* accs, void* g_state,
+                            void* stream) {
+  if (P < 1 || phase < 0) return (int)cudaErrorInvalidValue;
+#define X(T)                                                                           \
+  if (amh::matches<T>(density, d))                                                     \
+    return amh::launch_group<T>(                                                       \
+        amh::chees_frozen_kernel<T>, n_consts, C, (cudaStream_t)stream,                \
+        (const float*)params_t, (const float*)lp, (const float*)grad,                  \
+        (const float*)eps, (int)eps_per_chain, (const float*)minv,                     \
+        (const float*)consts, n_consts, (const int*)trips, (int)P, phase,              \
+        (uint32_t)seed, (uint32_t)(seed >> 32), thin, n_samples, offset, C,            \
+        (float*)samples, (float*)lps, (float*)accs, (float*)g_state);
+  AMH_CHEES_DENSITIES(X)
+#undef X
+  return amh::kNoKernel;
+}
+
+// The frozen kernel's launch shape for C chains
+// (csrc/hmc_group.cuh::group_launch_info).
+int amh_chees_frozen_info(const char* density, int32_t d, int32_t n_consts, int64_t C,
+                          int64_t* out) {
+#define X(T)                       \
+  if (amh::matches<T>(density, d)) \
+    return amh::group_launch_info<T>(amh::chees_frozen_kernel<T>, n_consts, C, out);
   AMH_CHEES_DENSITIES(X)
 #undef X
   return amh::kNoKernel;

@@ -1,6 +1,7 @@
 // Chains spread over the lanes of a warp: a density's group form, and the
-// per-lane pieces of a step that the MEADS (csrc/meads.cu) and AdaptiveHMC
-// (csrc/hmc_adapt.cu, csrc/hmc_group.cuh) kernels share.
+// per-lane pieces of a step that the MEADS (csrc/meads.cu) kernel and the
+// kernels on the group HMC step (csrc/hmc_group.cuh: HMC, ChEES's frozen
+// phase, AdaptiveHMC) share.
 //
 // A density's group form is a compile-time property (GroupForm<Density>):
 // kLanes threads of one warp run one chain, lane l holding its coordinates

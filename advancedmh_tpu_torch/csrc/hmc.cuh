@@ -1,22 +1,20 @@
-// The HMC step shared by csrc/hmc.cu and csrc/hmc_adapt.cu: momentum from the
-// step's noise, n_leapfrog kick-drift-kick leapfrog steps, the exact
-// energy-error accept. The plain version is ops/hmc.py::hmc_step.
+// The HMC proposal of one thread per chain, for the ChEES warmup kernel
+// (csrc/chees.cu): momentum from the step's noise, n_leapfrog kick-drift-kick
+// leapfrog steps, the energy error. The plain version is
+// ops/hmc.py::hmc_propose. The sampling kernels spread a chain over lanes
+// instead (csrc/hmc_group.cuh).
 //
 // Layout: one thread runs one chain. The trajectory (x, p, g) and the
 // diagonal inverse mass live in registers; the state to fall back to on a
 // reject (x and g) lives in device memory, (d, C) with chains on the last
-// axis, and is re-read only then. At d = 32 that keeps 4 x 32 floats and
-// the density's temporaries live in a thread, not 7 x 32: ptxas then fills
-// the 255 registers and spills at most a few hundred bytes (chip_smoke.py
-// prints its report).
+// axis, where the warmup also reads it for its pooled statistics.
 #pragma once
 
 #include "common.cuh"
 
 namespace amh {
 
-constexpr int kHmcBlock = 64;
-
+// 1/2 sum_i p_i^2 M^-1_i over the coordinates in order.
 template <int D>
 __device__ __forceinline__ float kinetic(const float (&p)[D],
                                          const float (&minv)[D]) {
@@ -62,40 +60,6 @@ __device__ __forceinline__ float hmc_propose(
     for (int i = 0; i < D; ++i) p[i] = p[i] + half * g[i];
   }
   return (lp_y - kinetic<D>(p, minv)) - (lp - k_0);
-}
-
-// One HMC step of absolute index j for chain c, at step size eps and
-// inverse mass minv. On entry x, g, lp hold the current state, which is also
-// stored at x_state / g_state; on exit they hold the next state, stored
-// there too. Returns whether the proposal was accepted.
-template <class Density>
-__device__ __forceinline__ bool hmc_step(
-    float (&x)[Density::kDim], float& lp, float (&g)[Density::kDim],
-    const float (&minv)[Density::kDim], float eps, int n_leapfrog,
-    const float* consts, int n_consts, float* x_state, float* g_state,
-    int64_t c, int64_t C, uint64_t j, uint32_t k0, uint32_t k1) {
-  constexpr int D = Density::kDim;
-  float p[D];
-  float lp_y, logu;
-  const float logalpha = hmc_propose<Density>(x, lp, g, p, minv, eps, n_leapfrog,
-                                              consts, n_consts, c, j, k0, k1,
-                                              lp_y, logu);
-  const bool accept = -logu > -logalpha;  // NaN rejects
-  if (accept) {
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      x_state[i * C + c] = x[i];
-      g_state[i * C + c] = g[i];
-    }
-    lp = lp_y;
-  } else {
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      x[i] = x_state[i * C + c];
-      g[i] = g_state[i * C + c];
-    }
-  }
-  return accept;
 }
 
 // Every thread's start: the state into registers and into x_state/g_state.

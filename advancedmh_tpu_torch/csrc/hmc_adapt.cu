@@ -14,7 +14,8 @@
 // bound there with ctypes.
 //
 // Design: a block runs a group of chains, each spread over the lanes of its
-// density's group form (csrc/group.cuh, the step in csrc/hmc_group.cuh). On
+// density's group form (csrc/group.cuh; the step, block shape and launch in
+// csrc/hmc_group.cuh, shared with HMC and ChEES's frozen phase). On
 // the logistic regression a chain takes 8 lanes, a block of 128 threads 16
 // chains with X in its shared memory, and a value and gradient is a product
 // over the group: the TPU kernel's X (n, d) @ beta (d, TC) per tile, here
@@ -52,25 +53,10 @@ __device__ __forceinline__ float reg_minv(float m2, float n,
   return n >= m.warm_start ? est : 1.0f;
 }
 
-// The block of a density: 16 chains of 8 lanes (group form), else 64 chains
-// of one thread; at least 4 blocks an SM, so that 8192 chains keep 16 warps
-// resident on each of the 132 SMs.
-template <class Density>
-struct AhmcShape {
-  static constexpr int kLanes = GroupForm<Density>::kLanes;
-  static constexpr int kThreads = kLanes == 1 ? 64 : 128;
-  static constexpr int kChains = kThreads / kLanes;
-  static constexpr int kMinBlocks = kLanes == 1 ? 1 : 4;
-
-  __host__ __device__ static int smem_floats(int n_consts) {
-    return GroupForm<Density>::consts_floats(n_consts) + kChains * GroupForm<Density>::kScratch;
-  }
-};
-
 // Sample e is the state after warmup + (e+1)*thin steps; step t of the
 // launch is absolute iteration offset + t (t = 1, 2, ...).
 template <class Density, bool kResume>
-__global__ void __launch_bounds__(AhmcShape<Density>::kThreads, AhmcShape<Density>::kMinBlocks)
+__global__ void __launch_bounds__(GroupShape<Density>::kThreads, GroupShape<Density>::kMinBlocks)
 adaptive_hmc_kernel(
     const float* __restrict__ params_t, const float* __restrict__ lp_in,
     const float* __restrict__ grad_in, const float* __restrict__ leb_in,
@@ -81,24 +67,17 @@ adaptive_hmc_kernel(
     float* __restrict__ lps, float* __restrict__ accs,
     float* __restrict__ leb_out, float* __restrict__ minv_out,
     float* __restrict__ x_out, float* __restrict__ g_out) {
-  using GF = GroupForm<Density>;
-  using S = AhmcShape<Density>;
   constexpr int D = Density::kDim;
-  constexpr int kLanes = S::kLanes;
-  constexpr int kJ = D / kLanes;
+  constexpr int kJ = GroupShape<Density>::kJ;
   extern __shared__ __align__(16) float sh[];
-  GF::load(sh, consts, n_consts);
-  const int slot = threadIdx.x / kLanes;
-  float* scratch = sh + GF::consts_floats(n_consts) + slot * GF::kScratch;
-  const Lanes ln = chain_lanes<kLanes>();
-  const int64_t c = (int64_t)blockIdx.x * S::kChains + slot;
+  const GroupChain ch = group_chain<Density>(sh, consts, n_consts);
+  const int64_t c = ch.c;
   if (c >= C) return;  // the chain's lanes leave together
-  const int j0 = ln.lane * kJ;
   float x[kJ], g[kJ], x0[kJ], g0[kJ], minv[kJ];
+  lane_load<kJ>(params_t, ch, C, x);
+  lane_load<kJ>(grad_in, ch, C, g);
 #pragma unroll
   for (int k = 0; k < kJ; ++k) {
-    x[k] = params_t[(j0 + k) * C + c];
-    g[k] = grad_in[(j0 + k) * C + c];
     x0[k] = x[k];
     g0[k] = g[k];
   }
@@ -107,8 +86,7 @@ adaptive_hmc_kernel(
   uint64_t j = offset;
   if (kResume) {
     leb = leb_in[c];
-#pragma unroll
-    for (int k = 0; k < kJ; ++k) minv[k] = minv_in[(j0 + k) * C + c];
+    lane_load<kJ>(minv_in, ch, C, minv);
   } else {
     float log_eps = da.log_eps0, h_bar = 0.0f;
     float mean[kJ], m2[kJ];
@@ -123,8 +101,8 @@ adaptive_hmc_kernel(
 #pragma unroll
       for (int k = 0; k < kJ; ++k) minv[k] = reg_minv(m2[k], tf - 1.0f, ma);
       const bool acc = group_hmc_step<Density>(x, lp, g, x0, g0, minv, expf(log_eps),
-                                               n_leapfrog, sh, n_consts, scratch, ln, c,
-                                               ++j, k0, k1);
+                                               n_leapfrog, sh, n_consts, ch.scratch, ch.ln,
+                                               c, ++j, k0, k1);
       dual_average(da, tf, acc ? 1.0f : 0.0f, log_eps, leb, h_bar);
 #pragma unroll
       for (int k = 0; k < kJ; ++k) {
@@ -143,21 +121,17 @@ adaptive_hmc_kernel(
     bool accepted = false;
     for (int64_t t = 0; t < thin; ++t)
       accepted = group_hmc_step<Density>(x, lp, g, x0, g0, minv, eps, n_leapfrog, sh,
-                                         n_consts, scratch, ln, c, ++j, k0, k1);
-#pragma unroll
-    for (int k = 0; k < kJ; ++k) samples[(e * D + j0 + k) * C + c] = x[k];
-    if (ln.lane == 0) {
+                                         n_consts, ch.scratch, ch.ln, c, ++j, k0, k1);
+    lane_store<kJ>(samples + e * D * C, ch, C, x);
+    if (ch.ln.lane == 0) {
       lps[e * C + c] = lp;
       accs[e * C + c] = accepted ? 1.0f : 0.0f;
     }
   }
-  if (ln.lane == 0) leb_out[c] = leb;
-#pragma unroll
-  for (int k = 0; k < kJ; ++k) {
-    minv_out[(j0 + k) * C + c] = minv[k];
-    x_out[(j0 + k) * C + c] = x[k];
-    g_out[(j0 + k) * C + c] = g[k];
-  }
+  if (ch.ln.lane == 0) leb_out[c] = leb;
+  lane_store<kJ>(minv_out, ch, C, minv);
+  lane_store<kJ>(x_out, ch, C, x);
+  lane_store<kJ>(g_out, ch, C, g);
 }
 
 template <class Density, bool kResume>
@@ -170,37 +144,10 @@ int launch_adaptive_hmc(const float* params_t, const float* lp,
                         float* samples, float* lps, float* accs, float* leb_out,
                         float* minv_out, float* x_out, float* g_out,
                         cudaStream_t stream) {
-  using S = AhmcShape<Density>;
-  const size_t smem = (size_t)S::smem_floats(n_consts) * sizeof(float);
-  const cudaError_t err = allow_shared(adaptive_hmc_kernel<Density, kResume>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((C + S::kChains - 1) / S::kChains));
-  adaptive_hmc_kernel<Density, kResume><<<grid, S::kThreads, smem, stream>>>(
-      params_t, lp, grad, leb_in, minv_in, consts, n_consts, da, ma, n_leapfrog,
-      (uint32_t)seed, (uint32_t)(seed >> 32), warmup, thin, n_samples, offset, C,
-      samples, lps, accs, leb_out, minv_out, x_out, g_out);
-  return (int)cudaGetLastError();
-}
-
-// The launch shape and occupancy of the kernel for a density: out[0..5] =
-// chains a block, lanes a chain, threads a block, blocks for C chains,
-// dynamic shared memory bytes, resident blocks an SM.
-template <class Density, bool kResume>
-int adaptive_hmc_info(int n_consts, int64_t C, int64_t* out) {
-  using S = AhmcShape<Density>;
-  const size_t smem = (size_t)S::smem_floats(n_consts) * sizeof(float);
-  cudaError_t err = allow_shared(adaptive_hmc_kernel<Density, kResume>, smem);
-  int per_sm = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, adaptive_hmc_kernel<Density, kResume>, S::kThreads, smem);
-  out[0] = S::kChains;
-  out[1] = S::kLanes;
-  out[2] = S::kThreads;
-  out[3] = (C + S::kChains - 1) / S::kChains;
-  out[4] = (int64_t)smem;
-  out[5] = per_sm;
-  return (int)err;
+  return launch_group<Density>(
+      adaptive_hmc_kernel<Density, kResume>, n_consts, C, stream, params_t, lp, grad, leb_in,
+      minv_in, consts, n_consts, da, ma, n_leapfrog, (uint32_t)seed, (uint32_t)(seed >> 32),
+      warmup, thin, n_samples, offset, C, samples, lps, accs, leb_out, minv_out, x_out, g_out);
 }
 
 }  // namespace amh
@@ -242,10 +189,11 @@ int amh_adaptive_hmc_sample(
 
 int amh_adaptive_hmc_info(const char* density, int32_t d, int32_t resume, int32_t n_consts,
                           int64_t C, int64_t* out) {
-#define X(T)                                                                  \
-  if (amh::matches<T>(density, d))                                            \
-    return resume ? amh::adaptive_hmc_info<T, true>(n_consts, C, out)         \
-                  : amh::adaptive_hmc_info<T, false>(n_consts, C, out);
+#define X(T)                                                                              \
+  if (amh::matches<T>(density, d))                                                        \
+    return resume                                                                         \
+        ? amh::group_launch_info<T>(amh::adaptive_hmc_kernel<T, true>, n_consts, C, out)  \
+        : amh::group_launch_info<T>(amh::adaptive_hmc_kernel<T, false>, n_consts, C, out);
   AMH_HMC_ADAPT_DENSITIES(X)
 #undef X
   return amh::kNoKernel;

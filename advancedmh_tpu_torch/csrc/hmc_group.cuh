@@ -1,17 +1,19 @@
 // The HMC step with a chain spread over the lanes of its density's group form
-// (csrc/group.cuh): the step of csrc/hmc.cuh, the same arithmetic in the same
-// order, for the AdaptiveHMC kernel (csrc/hmc_adapt.cu). The plain version is
-// ops/hmc.py::hmc_step.
+// (csrc/group.cuh), and the block shape, start and launch of the three kernels
+// built on it: HMC (csrc/hmc.cu), ChEES's frozen phase (csrc/chees.cu) and
+// AdaptiveHMC (csrc/hmc_adapt.cu). The plain version of the step is
+// ops/hmc.py::hmc_step: the same arithmetic in the same order.
 //
 // Layout: kLanes threads of a warp run one chain; lane l holds coordinates
 // [l kJ, (l + 1) kJ) of the trajectory (x, p, g), of the state to fall back
 // to on a reject (x0, g0) and of the inverse mass, all in registers (7 kJ
 // floats: 28 at d = 32 on 8 lanes, where one thread per chain held 4 x 32
-// and spilled). A value and gradient of the logistic regression is then a
-// product of the 8 lanes (group.cuh); the kinetic energies are sums over the
-// coordinates in order, gathered with shuffles; the noise of the lane's
-// coordinates is the lane's own Philox words. Densities without a group form
-// run one thread per chain (kLanes = 1) through the same code.
+// and spilled, or kept the fall-back state in device memory). A value and
+// gradient of the logistic regression is then a product of the 8 lanes
+// (group.cuh); the kinetic energies are sums over the coordinates in order,
+// gathered with shuffles; the noise of the lane's coordinates is the lane's
+// own Philox words. Densities without a group form run one thread per chain
+// (kLanes = 1) through the same code.
 #pragma once
 
 #include "group.cuh"
@@ -74,6 +76,95 @@ __device__ __forceinline__ bool group_hmc_step(
   }
   lp = accept ? lp_y : lp;
   return accept;
+}
+
+// The block of a density: 16 chains of 8 lanes (group form), else 64 chains
+// of one thread; at least 4 blocks an SM, so that 8192 chains keep 16 warps
+// resident on each of the 132 SMs. Dynamic shared memory: the group form's
+// constants, then each chain's scratch.
+template <class Density>
+struct GroupShape {
+  static constexpr int kLanes = GroupForm<Density>::kLanes;
+  static constexpr int kJ = Density::kDim / kLanes;
+  static constexpr int kThreads = kLanes == 1 ? 64 : 128;
+  static constexpr int kChains = kThreads / kLanes;
+  static constexpr int kMinBlocks = kLanes == 1 ? 1 : 4;
+
+  __host__ __device__ static int smem_floats(int n_consts) {
+    return GroupForm<Density>::consts_floats(n_consts) + kChains * GroupForm<Density>::kScratch;
+  }
+};
+
+// A thread's chain: its lanes, its index c in the batch, its lane's first
+// coordinate j0 and the chain's shared scratch.
+struct GroupChain {
+  Lanes ln;
+  int64_t c;
+  int j0;
+  float* scratch;
+};
+
+// Every kernel's start: the block loads the density's constants into `sh`
+// (a block barrier), then each thread finds its chain. A chain with c >= C
+// is past the end of the batch: its lanes return together.
+template <class Density>
+__device__ __forceinline__ GroupChain group_chain(float* sh, const float* consts,
+                                                  int n_consts) {
+  using GF = GroupForm<Density>;
+  using S = GroupShape<Density>;
+  GF::load(sh, consts, n_consts);
+  const int slot = threadIdx.x / S::kLanes;
+  const Lanes ln = chain_lanes<S::kLanes>();
+  return GroupChain{ln, (int64_t)blockIdx.x * S::kChains + slot, ln.lane * S::kJ,
+                    sh + GF::consts_floats(n_consts) + slot * GF::kScratch};
+}
+
+// The lane's kJ coordinates of column c of a (d, C) array, and back.
+template <int kJ>
+__device__ __forceinline__ void lane_load(const float* a, const GroupChain& ch, int64_t C,
+                                          float (&v)[kJ]) {
+#pragma unroll
+  for (int k = 0; k < kJ; ++k) v[k] = a[(ch.j0 + k) * C + ch.c];
+}
+
+template <int kJ>
+__device__ __forceinline__ void lane_store(float* a, const GroupChain& ch, int64_t C,
+                                           const float (&v)[kJ]) {
+#pragma unroll
+  for (int k = 0; k < kJ; ++k) a[(ch.j0 + k) * C + ch.c] = v[k];
+}
+
+// Launch `kernel` over C chains in blocks of GroupShape<Density>, on `stream`.
+template <class Density, class... Params, class... Args>
+int launch_group(void (*kernel)(Params...), int n_consts, int64_t C, cudaStream_t stream,
+                 Args... args) {
+  using S = GroupShape<Density>;
+  const size_t smem = (size_t)S::smem_floats(n_consts) * sizeof(float);
+  const cudaError_t err = allow_shared(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((C + S::kChains - 1) / S::kChains));
+  kernel<<<grid, S::kThreads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// The launch shape and occupancy of `kernel` for C chains: out[0..5] = chains
+// a block, lanes a chain, threads a block, blocks, dynamic shared memory
+// bytes, resident blocks an SM.
+template <class Density, class Kernel>
+int group_launch_info(Kernel kernel, int n_consts, int64_t C, int64_t* out) {
+  using S = GroupShape<Density>;
+  const size_t smem = (size_t)S::smem_floats(n_consts) * sizeof(float);
+  cudaError_t err = allow_shared(kernel, smem);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, S::kThreads, smem);
+  out[0] = S::kChains;
+  out[1] = S::kLanes;
+  out[2] = S::kThreads;
+  out[3] = (C + S::kChains - 1) / S::kChains;
+  out[4] = (int64_t)smem;
+  out[5] = per_sm;
+  return (int)err;
 }
 
 }  // namespace amh

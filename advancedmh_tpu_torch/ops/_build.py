@@ -88,10 +88,12 @@ _SIGNATURES = {
                               _F, _F, _F, _U64, _I64, _I64, _I64, _U64, _I64,
                               _P, _P, _P, _P, _P],
     # density, d, params_t, lp, grad, minv, consts, n_consts, eps, n_leapfrog,
-    # seed, burn, thin, n_samples, offset, C, samples, lps, accs, x_state,
-    # g_state, stream
+    # seed, burn, thin, n_samples, offset, C, samples, lps, accs, g_state,
+    # stream
     "amh_hmc_sample": [_S, _I32, _P, _P, _P, _P, _P, _I32, _F, _I32, _U64,
-                       _I64, _I64, _I64, _U64, _I64, _P, _P, _P, _P, _P, _P],
+                       _I64, _I64, _I64, _U64, _I64, _P, _P, _P, _P, _P],
+    # density, d, n_consts, C, out (6 int64)
+    "amh_hmc_info": [_S, _I32, _I32, _I64, _P],
     # density, d, resume, params_t, lp, grad, log_eps_bar, minv, consts,
     # n_consts, target, t0, kappa, gamma, mu, log_eps0, mass_reg, warm_start,
     # n_leapfrog, seed, warmup, thin, n_samples, offset, C, samples, lps,
@@ -112,10 +114,11 @@ _SIGNATURES = {
                          _P, _P, _P, _P, _I64, _P],
     # density, d, params_t, lp, grad, eps, eps_per_chain, minv, consts,
     # n_consts, trips, P, phase, seed, thin, n_samples, offset, C, samples,
-    # lps, accs, x_state, g_state, stream
+    # lps, accs, g_state, stream
     "amh_chees_frozen_sample": [_S, _I32, _P, _P, _P, _P, _I32, _P, _P, _I32, _P, _I32,
-                                _I64, _U64, _I64, _I64, _U64, _I64, _P, _P, _P, _P, _P,
-                                _P],
+                                _I64, _U64, _I64, _I64, _U64, _I64, _P, _P, _P, _P, _P],
+    # density, d, n_consts, C, out (6 int64)
+    "amh_chees_frozen_info": [_S, _I32, _I32, _I64, _P],
     # density, d, precond, nonrev, x, lp, g, p, u, consts, n_consts, mult,
     # clip, slowdown, K, tile, C, n_cta, seed, t0, burn, thin, n_samples,
     # samples, lps, accs, stream

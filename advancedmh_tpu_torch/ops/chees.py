@@ -30,7 +30,10 @@
   frozen ε̄ (a scalar or a per-chain row) and M⁻¹ column; trajectory k
   (0-based) of the launch runs ``trips[(phase + k) mod P]`` leapfrog steps
   (``halton_trips``, P = len(trips)); sample e is the state after
-  ``(e + 1)·thin`` trajectories.
+  ``(e + 1)·thin`` trajectories. The kernel runs the group HMC step of
+  ``csrc/hmc_group.cuh``: 8 threads a chain, 16 chains a block, on the
+  logistic regression (:func:`chees_frozen_launch_info`), one thread a chain
+  elsewhere.
 
 Noise: step j (``iteration_offset + 1`` is a launch's first) draws its
 momentum normals and accept uniform from Philox at counter (j, chain)
@@ -48,7 +51,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from . import _build
-from .hmc import check_hmc_args, f32, hmc_propose, hmc_step
+from .hmc import check_hmc_args, f32, group_launch_info, hmc_propose, hmc_step
 from .pooling import full, n_blocks, nan_max, nan_min, per_chain, tile_sums
 from .rwmh import _noise_chunk, check_cuda_launch, flat_consts, row_sum, step_noise
 
@@ -364,18 +367,24 @@ def fused_chees_frozen_sample(
     samples = torch.empty((n_samples, d, C), **f)
     lps = torch.empty((n_samples, 1, C), **f)
     accs = torch.empty((n_samples, 1, C), **f)
-    x_state, g_state = torch.empty((d, C), **f), torch.empty((d, C), **f)
+    g_state = torch.empty((d, C), **f)
     with torch.cuda.device(dev):
         code = lib.amh_chees_frozen_sample(
             _build.density_arg(cuda_density), d, p.data_ptr(), l.data_ptr(), g.data_ptr(),
             eps.data_ptr(), int(eps.numel() > 1), minv.data_ptr(), flat.data_ptr(), n_consts,
             trips_t.data_ptr(), len(trips), phase, seed, thin, n_samples, iteration_offset,
-            C, samples.data_ptr(), lps.data_ptr(), accs.data_ptr(), x_state.data_ptr(),
-            g_state.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            C, samples.data_ptr(), lps.data_ptr(), accs.data_ptr(), g_state.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, code, "chees", cuda_density, d)
     fused_chees_frozen_sample.launches += 1
     return samples, lps, accs, g_state
+
+
+def chees_frozen_launch_info(cuda_density: str, d: int, n_consts: int, n_chains: int) -> dict:
+    """:func:`~.hmc.group_launch_info` of the frozen-phase kernel."""
+    return group_launch_info("amh_chees_frozen_info", "chees", cuda_density, d, n_consts,
+                             n_chains)
 
 
 fused_chees_warmup_block.launches = 0

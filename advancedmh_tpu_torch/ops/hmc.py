@@ -15,12 +15,16 @@ one ``(d, 1)`` column for every chain (a per-chain ``(d, C)`` block in the
 adaptive kernel, ops/hmc_adapt.py, which shares :func:`hmc_step`).
 
 Layout: chains on the last axis, params and gradient ``(d, C)``, lp
-``(1, C)``. The wrapper runs the plain version for tensors on the CPU, and
-for CUDA tensors launches the kernel or raises; ``fused_hmc_sample.launches``
-counts the launches.
+``(1, C)``. On the logistic regression the kernel spreads each chain over 8
+threads (``csrc/group.cuh``), 16 chains a block, as do ChEES's frozen phase
+and AdaptiveHMC; :func:`hmc_launch_info` reports the shape and occupancy. The
+wrapper runs the plain version for tensors on the CPU, and for CUDA tensors
+launches the kernel or raises; ``fused_hmc_sample.launches`` counts the
+launches.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -161,14 +165,13 @@ def fused_hmc_sample(
     samples = torch.empty((n_samples, d, n_chains), **f)
     lps = torch.empty((n_samples, 1, n_chains), **f)
     accs = torch.empty((n_samples, 1, n_chains), **f)
-    x_state = torch.empty((d, n_chains), **f)
     g_state = torch.empty((d, n_chains), **f)
     with torch.cuda.device(p.device):
         code = lib.amh_hmc_sample(
             _build.density_arg(cuda_density), d, p.data_ptr(), l.data_ptr(), g.data_ptr(),
             m.data_ptr(), flat.data_ptr(), n_consts, f32(step_size), n_leapfrog, seed,
             burn, thin, n_samples, iteration_offset, n_chains, samples.data_ptr(),
-            lps.data_ptr(), accs.data_ptr(), x_state.data_ptr(), g_state.data_ptr(),
+            lps.data_ptr(), accs.data_ptr(), g_state.data_ptr(),
             torch.cuda.current_stream(p.device).cuda_stream,
         )
     _build.check(lib, code, "hmc", cuda_density, d)
@@ -177,3 +180,28 @@ def fused_hmc_sample(
 
 
 fused_hmc_sample.launches = 0
+
+
+def group_launch_info(entry: str, kernel: str, cuda_density: str, d: int, n_consts: int,
+                      n_chains: int, *flags: int) -> dict:
+    """The launch shape and occupancy on the current card of a kernel built on
+    ``csrc/hmc_group.cuh`` (its C entry point ``entry``, source ``kernel``)
+    for a (density, d) pair: chains a block, lanes a chain, threads a block,
+    blocks for ``n_chains`` chains, dynamic shared memory bytes, resident
+    blocks and warps an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).
+    ``flags`` are the entry point's int arguments after ``d``."""
+    lib = _build.library()
+    out = (ctypes.c_int64 * 6)()
+    code = getattr(lib, entry)(_build.density_arg(cuda_density), d, *flags, n_consts,
+                               n_chains, ctypes.addressof(out))
+    _build.check(lib, code, kernel, cuda_density, d)
+    keys = ("chains_per_block", "lanes_per_chain", "threads", "blocks", "smem_bytes",
+            "blocks_per_sm")
+    info = dict(zip(keys, map(int, out)))
+    info["warps_per_sm"] = info["blocks_per_sm"] * info["threads"] // 32
+    return info
+
+
+def hmc_launch_info(cuda_density: str, d: int, n_consts: int, n_chains: int) -> dict:
+    """:func:`group_launch_info` of the HMC kernel."""
+    return group_launch_info("amh_hmc_info", "hmc", cuda_density, d, n_consts, n_chains)

@@ -25,7 +25,6 @@ for CUDA tensors launches the kernel or raises;
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import math
 from typing import Callable, Optional, Sequence
@@ -33,7 +32,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from . import _build
-from .hmc import check_hmc_args, f32, hmc_step
+from .hmc import check_hmc_args, f32, group_launch_info, hmc_step
 from .rwmh import _noise_chunk, check_cuda_launch, flat_consts, step_noise
 
 
@@ -219,20 +218,9 @@ def fused_adaptive_hmc_sample(
 
 def adaptive_hmc_launch_info(cuda_density: str, d: int, n_consts: int, n_chains: int,
                              resume: bool = False) -> dict:
-    """The kernel's launch shape and occupancy on the current card for a
-    (density, d) pair: chains a block, lanes a chain, threads a block, blocks
-    for ``n_chains`` chains, dynamic shared memory bytes, resident blocks and
-    warps an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-    lib = _build.library()
-    out = (ctypes.c_int64 * 6)()
-    code = lib.amh_adaptive_hmc_info(_build.density_arg(cuda_density), d, int(resume),
-                                     n_consts, n_chains, ctypes.addressof(out))
-    _build.check(lib, code, "hmc_adapt", cuda_density, d)
-    keys = ("chains_per_block", "lanes_per_chain", "threads", "blocks", "smem_bytes",
-            "blocks_per_sm")
-    info = dict(zip(keys, map(int, out)))
-    info["warps_per_sm"] = info["blocks_per_sm"] * info["threads"] // 32
-    return info
+    """:func:`~.hmc.group_launch_info` of the kernel, fresh or resumed."""
+    return group_launch_info("amh_adaptive_hmc_info", "hmc_adapt", cuda_density, d, n_consts,
+                             n_chains, int(resume))
 
 
 fused_adaptive_hmc_sample.launches = 0

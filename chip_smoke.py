@@ -3300,7 +3300,7 @@ _FLOPS = {
 }
 
 
-# Slice 3, counted the same way from csrc/common.cuh, csrc/hmc.cuh,
+# Slice 3, counted the same way from csrc/common.cuh, csrc/hmc_group.cuh,
 # csrc/hmc_adapt.cu and csrc/adapt.cu. The noise of a step is 12 per
 # Box-Muller pair plus 3 (15 at d = 2, as above). The logistic regression's
 # value and gradient at d coefficients and n observations: per observation
@@ -3400,9 +3400,13 @@ def bound(name: str, C: int, steps: int, emitted: int, warmup: int = 0, d: int =
 
 
 def launch_report(models, ptxas_lines) -> None:
-    """The launch shapes of the two kernels redesigned for the card (MEADS: a
-    cluster per tile; AdaptiveHMC: a group of chains a block) at the main
-    paths' widths, with their occupancy and ptxas' registers and spills."""
+    """The launch shapes of the kernels redesigned for the card (MEADS: a
+    cluster per tile; AdaptiveHMC, HMC and ChEES's frozen phase: a group of
+    chains a block) at the main paths' widths, with their occupancy and
+    ptxas' registers and spills. Fails if a group kernel of a fresh build
+    spills on the logistic regression."""
+    from advancedmh_tpu_torch.ops.chees import chees_frozen_launch_info
+    from advancedmh_tpu_torch.ops.hmc import hmc_launch_info
     from advancedmh_tpu_torch.ops.hmc_adapt import adaptive_hmc_launch_info
     from advancedmh_tpu_torch.ops.meads import meads_launch_info
     from advancedmh_tpu_torch.ops.rwmh import flat_consts
@@ -3419,18 +3423,27 @@ def launch_report(models, ptxas_lines) -> None:
         print(f"launch meads {m.cuda_density} d={d} C={C} tile={tile} K=2: {info}")
         check(info["active_clusters"] >= 1, "meads: the card holds no cluster of this launch")
     m = models["logreg"]
-    info = adaptive_hmc_launch_info(m.cuda_density, 32, flat_consts(m.tile_consts, DEVICE)[1],
-                                    LOGREG_CHAINS)
-    launched = info["blocks"] * info["threads"] / 32 / n_sm
-    print(f"launch adaptive_hmc logistic_regression d=32 C={LOGREG_CHAINS}: {info}; warps "
-          f"launched per SM {launched:.2f} on {n_sm} SMs")
-    for line in ptxas_lines:
-        if line.startswith(("meads_kernel<LogisticRegression<32>",
-                            "adaptive_hmc_kernel<LogisticRegression<32>")):
+    n_consts = flat_consts(m.tile_consts, DEVICE)[1]
+    group = {"adaptive_hmc": adaptive_hmc_launch_info, "hmc_sample": hmc_launch_info,
+             "chees_frozen": chees_frozen_launch_info}
+    for name, launch_info in group.items():
+        info = launch_info(m.cuda_density, 32, n_consts, LOGREG_CHAINS)
+        launched = info["blocks"] * info["threads"] / 32 / n_sm
+        print(f"launch {name} logistic_regression d=32 C={LOGREG_CHAINS}: {info}; warps "
+              f"launched per SM {launched:.2f} on {n_sm} SMs")
+        check(info["chains_per_block"] == 16 and info["threads"] == 128,
+              f"{name}: the logistic regression does not run 16 chains of 8 lanes a block")
+    if not ptxas_lines:
+        print("  ptxas: the library was built before this run; no register report")
+        return
+    for kernel in ("meads", *group):
+        lines = [ln for ln in ptxas_lines
+                 if ln.startswith(f"{kernel}_kernel<LogisticRegression<32>")]
+        check(bool(lines), f"ptxas reported no {kernel}_kernel on the logistic regression")
+        for line in lines:
             print(f"  ptxas (redesigned): {line}")
-            if line.startswith("adaptive_hmc_kernel"):
-                check(" 0 bytes spill stores" in line,
-                      "adaptive_hmc on the logistic regression spills")
+            check(kernel == "meads" or " 0 bytes spill stores" in line,
+                  f"{kernel}_kernel on the logistic regression spills")
 
 
 def ptxas_summary(report: str):

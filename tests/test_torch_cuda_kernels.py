@@ -579,6 +579,103 @@ def test_adaptive_hmc_group_kernel_is_bit_exact(C, resume):
         assert _same_bits(a, b)
 
 
+@pytest.mark.parametrize("kernel", ["adaptive_hmc", "hmc", "chees_frozen"])
+@pytest.mark.parametrize("target", ["flagship", "logreg"])
+def test_group_kernel_launch_shape(model, kernel, target):
+    """The three kernels on csrc/hmc_group.cuh: 16 chains of 8 lanes in
+    128-thread blocks, 4 resident an SM, on the logistic regression; 64
+    chains of one thread on the flagship."""
+    from advancedmh_tpu_torch.ops.chees import chees_frozen_launch_info
+    from advancedmh_tpu_torch.ops.hmc import hmc_launch_info
+    from advancedmh_tpu_torch.ops.hmc_adapt import adaptive_hmc_launch_info
+    from advancedmh_tpu_torch.ops.rwmh import flat_consts
+
+    m = _slice3_model(model, target)
+    launch_info = {"adaptive_hmc": adaptive_hmc_launch_info, "hmc": hmc_launch_info,
+                   "chees_frozen": chees_frozen_launch_info}[kernel]
+    info = launch_info(m.cuda_density, m.dimension, flat_consts(m.tile_consts, "cuda")[1], 8190)
+    lanes, threads = (8, 128) if target == "logreg" else (1, 64)
+    assert info["lanes_per_chain"] == lanes and info["threads"] == threads
+    assert info["chains_per_block"] * lanes == threads
+    assert info["blocks"] == -(-8190 // info["chains_per_block"])
+    assert info["blocks_per_sm"] >= (4 if target == "logreg" else 1)
+
+
+def _assert_split_resumes(whole, first, rest):
+    """A run split after ``first``'s draws and resumed from its last state
+    (``rest``) gives the whole run's draws, lps, decisions and final gradient."""
+    for a, b, c in zip(whole[:3], first[:3], rest[:3]):
+        assert _same_bits(a, torch.cat([b, c]))
+    assert _same_bits(whole[3], rest[3])
+
+
+@pytest.mark.parametrize("C", [8190, 100])
+def test_hmc_group_kernel_is_bit_exact(C):
+    """HMC on the logistic regression's 8-lane group kernel on chain counts
+    that are not a multiple of its 16-chain blocks, burn 5, thin 3, offsets
+    near 2**32: every output equal to the plain version's bits, and a run
+    split in two and resumed equal to the whole run."""
+    from advancedmh_tpu_torch.ops import fused_hmc_sample, hmc_sample_reference, minv_column
+
+    m = _logreg()
+    p = _slice3_start(m, C, seed=C + 2)
+    lp, g = m.tile_value_and_grad(p, *m.tile_consts)
+    vg, consts, seed = m.tile_value_and_grad, m.tile_consts, 47
+    offset = (1 << 32) - 20
+    kw = dict(step_size=0.05, n_leapfrog=8, thin=3,
+              inverse_mass=minv_column(torch.linspace(0.5, 1.5, 32), 32, "cuda"))
+    before = fused_hmc_sample.launches
+    got = fused_hmc_sample(vg, m.cuda_density, p, lp, g, consts, seed, burn=5, n_samples=6,
+                           iteration_offset=offset, **kw)
+    torch.cuda.synchronize()
+    assert fused_hmc_sample.launches == before + 1
+    ref = hmc_sample_reference(vg, m.cuda_density, p, lp, g, consts, seed, burn=5,
+                               n_samples=6, iteration_offset=offset, **kw)
+    for a, b in zip(got, ref):  # draws, lps, decisions, final gradient
+        assert _same_bits(a, b)
+    first = fused_hmc_sample(vg, m.cuda_density, p, lp, g, consts, seed, burn=5, n_samples=2,
+                             iteration_offset=offset, **kw)
+    rest = fused_hmc_sample(vg, m.cuda_density, first[0][-1].contiguous(),
+                            first[1][-1].contiguous(), first[3], consts, seed, burn=0,
+                            n_samples=4, iteration_offset=offset + 5 + 2 * 3, **kw)
+    _assert_split_resumes(got, first, rest)
+
+
+@pytest.mark.parametrize("target,C", [("logreg", 8190), ("logreg", 100), ("funnel", 4001)])
+@pytest.mark.parametrize("per_chain_eps", [False, True])
+def test_chees_frozen_group_kernel_is_bit_exact(model, target, C, per_chain_eps):
+    """ChEES's frozen phase on the logistic regression's 8-lane group kernel
+    (chain counts not a multiple of its 16-chain blocks) and on the funnel at
+    one thread a chain, thin 3, phase 4, offsets near 2**32, one ε̄ or one
+    per chain: every output equal to the plain version's bits, and a run
+    split in two and resumed equal to the whole run."""
+    from advancedmh_tpu_torch.ops import chees_frozen_reference, fused_chees_frozen_sample
+
+    m, args = _chees_args(model, target, C, seed=C)
+    eps = {"logreg": 0.05, "funnel": 0.2}[target]
+    step = (eps * torch.linspace(0.5, 1.5, C, device="cuda")[None] if per_chain_eps
+            else torch.full((1, 1), eps, device="cuda"))
+    trips, phase, offset = (3, 5, 1, 7, 2, 6), 4, (1 << 32) - 7
+    kw = dict(trips=trips, step_size=step, thin=3,
+              inverse_mass=torch.linspace(0.5, 1.5, m.dimension, device="cuda")[:, None])
+    before = fused_chees_frozen_sample.launches
+    got = fused_chees_frozen_sample(*args, phase=phase, n_samples=6, iteration_offset=offset,
+                                    **kw)
+    torch.cuda.synchronize()
+    assert fused_chees_frozen_sample.launches == before + 1
+    ref = chees_frozen_reference(*args, phase=phase, n_samples=6, iteration_offset=offset, **kw)
+    for a, b in zip(got, ref):  # draws, lps, decisions, final gradient
+        assert _same_bits(a, b)
+    vg, dens, _, _, _, consts, seed = args
+    first = fused_chees_frozen_sample(*args, phase=phase, n_samples=2, iteration_offset=offset,
+                                      **kw)
+    rest = fused_chees_frozen_sample(vg, dens, first[0][-1].contiguous(),
+                                     first[1][-1].contiguous(), first[3], consts, seed,
+                                     phase=phase + 2 * 3, n_samples=4,
+                                     iteration_offset=offset + 2 * 3, **kw)
+    _assert_split_resumes(got, first, rest)
+
+
 def test_slice4_wrappers_raise_for_what_has_no_kernel(model):
     """An unknown tag, a missing tag, or a (tag, d) the library lacks raises
     _build.check's ValueError for the three slice-4 kernels."""
