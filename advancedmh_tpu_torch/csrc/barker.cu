@@ -13,101 +13,78 @@
 // ops/barker.py::barker_sample_reference; the C entry point at the end is
 // bound there with ctypes.
 //
-// Layout and design as csrc/mala.cu: chains on the last axis (x and grad
-// (d, C), lp (1, C), emitted (N, d, C) / (N, 1, C)); one thread runs one
-// chain with x, lp and the gradient in registers; the density's constants sit
-// in shared memory; the last block is masked. The noise of a step is one
-// Philox stream (common.cuh::StepWords): the d normals' Box-Muller words
-// 0 .. 2P-1, the d sign uniforms at 2P .. 2P+d-1, the accept uniform at
-// 2P+d. To keep only x, g, y and g_y live across the density (as MALA) at
-// d = 32, the kernel keeps the signs as bits and draws the normals a second
-// time after the density for the Hastings sum: the same words, so the same
-// delta.
+// Layout: the block shape, start and launch of csrc/hmc_group.cuh, as HMC.
+// On the logistic regression a chain runs on 8 lanes (its group form,
+// csrc/group.cuh), lane l holding coordinates [4 l, 4 l + 4) of x, g, delta,
+// y and g_y in registers (20 floats, where one thread a chain held 4 x 32 and
+// spilled 456 B); 16 chains share a 128-thread block with X in its shared
+// memory, at least 4 blocks an SM. The flagship and the correlated Gaussian
+// run one thread a chain through the same code (kLanes = 1, 64 threads).
+// Lane 0 writes lp and the decision, every lane its own coordinates of each
+// draw and of the final gradient.
+//
+// Noise of a step, one Philox stream (common.cuh::StepWords) keyed by the
+// absolute step and the chain: the d normals' Box-Muller words 0 .. 2P-1,
+// the d sign uniforms at 2P .. 2P+d-1, the accept uniform at 2P+d. Each lane
+// reads only its own coordinates' words (at d = 32 lane l's normals are
+// sub-block l and its signs sub-block 8 + l) and the accept word, so a split
+// run resumed at an offset is bit-exact. The lane keeps delta in registers
+// for the Hastings sum (coord_sum: the coordinates in order).
 //
 // What bounds it on this card: as MALA, one value and gradient per step (at
 // d = 32, 256 observations: ~99% of the step's operations), plus 2d softplus
-// and d logit tests; a dependent chain per thread, latency-bound at 8192 and
-// 16384 chains (2-4 warps per SM). The emission's bytes set a bound below.
+// and d logit tests; on 8 lanes a chain that is the group value and gradient
+// of HMC's kernels (csrc/group.cuh), once a step.
 //
 // Numerics: --fmad=false, no --use_fast_math (see ops/_build.py); softplus
 // is max(t, 0) + logf(1 + expf(-|t|)) with a NaN-propagating max, as
 // jnp.maximum in the JAX kernel.
 
-#include "common.cuh"
+#include "hmc_group.cuh"
 
 namespace amh {
 
-// 64 threads a block: 8192 chains make 128 blocks, one on each of 128 of the
-// 132 SMs; 128-thread blocks would fill only 64 SMs (on an H100 the ESS
-// kernel then ran 17-25% slower; the others within 5%).
-constexpr int kBarkerBlock = 64;
-
-// The d normals of the step, scaled by sigma.
-template <int D>
-__device__ __forceinline__ void barker_normals(StepWords& s, float sigma, float (&z)[D]) {
-  step_normals<D>(s, z);
-#pragma unroll
-  for (int i = 0; i < D; ++i) z[i] = sigma * z[i];
-}
-
-// One Barker step; returns whether the proposal was accepted.
+// One Barker step of absolute index j for chain c at step size sigma: on
+// entry x, g, lp hold the current state (the lane's coordinates of x and
+// g), on exit the next. Returns whether it accepted, the same in every lane
+// of the chain.
 template <class Density>
-__device__ __forceinline__ bool barker_step(float (&x)[Density::kDim], float& lp,
-                                            float (&g)[Density::kDim], float sigma,
-                                            const float* consts, int n_consts,
-                                            uint64_t j, uint32_t c, uint32_t k0,
-                                            uint32_t k1) {
+__device__ __forceinline__ bool group_barker_step(
+    float (&x)[Density::kDim / GroupForm<Density>::kLanes], float& lp,
+    float (&g)[Density::kDim / GroupForm<Density>::kLanes], float sigma, const float* sh,
+    int n_consts, float* scratch, const Lanes& ln, uint32_t c, uint64_t j, uint32_t k0,
+    uint32_t k1) {
+  using GF = GroupForm<Density>;
   constexpr int D = Density::kDim;
+  constexpr int kLanes = GF::kLanes;
+  constexpr int kJ = D / kLanes;
   constexpr int P = (D + 1) / 2;
-  constexpr int kMasks = (D + 31) / 32;
+  static_assert(kLanes == 1 || kJ % 2 == 0, "a lane holds whole Box-Muller pairs");
   StepWords s(j, c, k0, k1);
-  float y[D], g_y[D];
-  barker_normals<D>(s, sigma, y);  // y holds z, then the proposal
-  uint32_t keep[kMasks];
+  float delta[kJ], y[kJ], g_y[kJ];
+  step_normals<kJ>(s, delta, ln.lane * kJ);  // the lane's coordinates' pairs
 #pragma unroll
-  for (int m = 0; m < kMasks; ++m) keep[m] = 0u;
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    const float u = s.uniform(2 * P + i);
-    const bool k = logf(u) - logf(1.0f - u) < y[i] * g[i];
-    if (k) keep[i / 32] |= 1u << (i % 32);
-    y[i] = x[i] + (k ? y[i] : -y[i]);
+  for (int k = 0; k < kJ; ++k) {
+    delta[k] = sigma * delta[k];
+    const float u = s.uniform(2 * P + ln.lane * kJ + k);
+    const bool keep = logf(u) - logf(1.0f - u) < delta[k] * g[k];
+    delta[k] = keep ? delta[k] : -delta[k];
+    y[k] = x[k] + delta[k];
   }
   const float logu = logf(s.uniform(2 * P + D));
-  const float lp_y = Density::value_and_grad(y, consts, n_consts, g_y);
-  // the Hastings sum, with delta drawn again: the same words give the same z
-  StepWords s2(j, c, k0, k1);
-  float lr = 0.0f;
+  const float lp_y = GF::value_and_grad(y, g_y, sh, n_consts, scratch, ln);
+  float t[kJ];
 #pragma unroll
-  for (int p = 0; p < P; ++p) {
-    float z2[2];
-    const float u1 = s2.uniform(2 * p);
-    const float u2 = s2.uniform(2 * p + 1);
-    const float r = sqrtf(-2.0f * logf(u1));
-    float sn, cs;
-    sincosf(kTwoPi * u2, &sn, &cs);
-    z2[0] = sigma * (r * cs);
-    z2[1] = sigma * (r * sn);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = 2 * p + h;
-      if (i < D) {
-        const float delta = (keep[i / 32] >> (i % 32)) & 1u ? z2[h] : -z2[h];
-        const float term = softplus((-delta) * g[i]) - softplus(delta * g_y[i]);
-        lr = i == 0 ? term : lr + term;
-      }
-    }
-  }
-  const float logalpha = (lp_y - lp) + lr;
+  for (int k = 0; k < kJ; ++k)
+    t[k] = softplus((-delta[k]) * g[k]) - softplus(delta[k] * g_y[k]);
+  const float logalpha = (lp_y - lp) + coord_sum<kLanes, kJ>(t, ln);
   const bool accept = -logu > -logalpha;
-  if (accept) {
 #pragma unroll
-    for (int i = 0; i < D; ++i) {
-      x[i] = y[i];
-      g[i] = g_y[i];
-    }
-    lp = lp_y;
+  for (int k = 0; k < kJ; ++k) {
+    x[k] = accept ? y[k] : x[k];
+    g[k] = accept ? g_y[k] : g[k];
   }
+  lp = accept ? lp_y : lp;
   return accept;
 }
 
@@ -115,7 +92,7 @@ __device__ __forceinline__ bool barker_step(float (&x)[Density::kDim], float& lp
 // is absolute iteration offset + t (t = 1, 2, ...). The gradient at the last
 // state is written to out_grad.
 template <class Density>
-__global__ void __launch_bounds__(kBarkerBlock)
+__global__ void __launch_bounds__(GroupShape<Density>::kThreads, GroupShape<Density>::kMinBlocks)
     barker_sample_kernel(const float* __restrict__ params_t,
                          const float* __restrict__ lp_in,
                          const float* __restrict__ grad_in,
@@ -125,49 +102,31 @@ __global__ void __launch_bounds__(kBarkerBlock)
                          float* __restrict__ samples, float* __restrict__ lps,
                          float* __restrict__ accs, float* __restrict__ out_grad) {
   constexpr int D = Density::kDim;
-  extern __shared__ float sh_consts[];
-  load_consts(sh_consts, consts, n_consts);
-  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  float x[D], g[D];
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    x[i] = params_t[i * C + c];
-    g[i] = grad_in[i * C + c];
-  }
+  constexpr int kJ = GroupShape<Density>::kJ;
+  extern __shared__ __align__(16) float sh[];
+  const GroupChain ch = group_chain<Density>(sh, consts, n_consts);
+  const int64_t c = ch.c;
+  if (c >= C) return;  // the chain's lanes leave together
+  float x[kJ], g[kJ];
+  lane_load<kJ>(params_t, ch, C, x);
+  lane_load<kJ>(grad_in, ch, C, g);
   float lp = lp_in[c];
   uint64_t j = offset;
   for (int64_t t = 0; t < burn; ++t)
-    barker_step<Density>(x, lp, g, sigma, sh_consts, n_consts, ++j, (uint32_t)c, k0, k1);
+    group_barker_step<Density>(x, lp, g, sigma, sh, n_consts, ch.scratch, ch.ln, (uint32_t)c,
+                               ++j, k0, k1);
   for (int64_t e = 0; e < n_samples; ++e) {
     bool accepted = false;
     for (int64_t t = 0; t < thin; ++t)
-      accepted = barker_step<Density>(x, lp, g, sigma, sh_consts, n_consts, ++j,
-                                      (uint32_t)c, k0, k1);
-#pragma unroll
-    for (int i = 0; i < D; ++i) samples[(e * D + i) * C + c] = x[i];
-    lps[e * C + c] = lp;
-    accs[e * C + c] = accepted ? 1.0f : 0.0f;
+      accepted = group_barker_step<Density>(x, lp, g, sigma, sh, n_consts, ch.scratch, ch.ln,
+                                            (uint32_t)c, ++j, k0, k1);
+    lane_store<kJ>(samples + e * D * C, ch, C, x);
+    if (ch.ln.lane == 0) {
+      lps[e * C + c] = lp;
+      accs[e * C + c] = accepted ? 1.0f : 0.0f;
+    }
   }
-#pragma unroll
-  for (int i = 0; i < D; ++i) out_grad[i * C + c] = g[i];
-}
-
-template <class Density>
-int launch_barker(const float* params_t, const float* lp, const float* grad,
-                  const float* consts, int n_consts, float sigma, uint64_t seed,
-                  int64_t burn, int64_t thin, int64_t n_samples, uint64_t offset,
-                  int64_t C, float* samples, float* lps, float* accs, float* out_grad,
-                  cudaStream_t stream) {
-  const size_t smem = n_consts * sizeof(float);
-  const cudaError_t err = allow_shared(barker_sample_kernel<Density>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((C + kBarkerBlock - 1) / kBarkerBlock));
-  barker_sample_kernel<Density><<<grid, kBarkerBlock, smem, stream>>>(
-      params_t, lp, grad, consts, n_consts, sigma, (uint32_t)seed,
-      (uint32_t)(seed >> 32), burn, thin, n_samples, offset, C, samples, lps, accs,
-      out_grad);
-  return (int)cudaGetLastError();
+  lane_store<kJ>(out_grad, ch, C, g);
 }
 
 }  // namespace amh
@@ -189,14 +148,24 @@ int amh_barker_sample(const char* density, int32_t d, const void* params_t,
                       int64_t thin, int64_t n_samples, uint64_t offset, int64_t C,
                       void* samples, void* lps, void* accs, void* out_grad,
                       void* stream) {
-#define X(T)                                                                      \
-  if (amh::matches<T>(density, d))                                                \
-    return amh::launch_barker<T>((const float*)params_t, (const float*)lp,        \
-                                 (const float*)grad, (const float*)consts,        \
-                                 n_consts, sigma, seed, burn, thin, n_samples,    \
-                                 offset, C, (float*)samples, (float*)lps,         \
-                                 (float*)accs, (float*)out_grad,                  \
-                                 (cudaStream_t)stream);
+#define X(T)                                                                           \
+  if (amh::matches<T>(density, d))                                                     \
+    return amh::launch_group<T>(                                                       \
+        amh::barker_sample_kernel<T>, n_consts, C, (cudaStream_t)stream,               \
+        (const float*)params_t, (const float*)lp, (const float*)grad,                  \
+        (const float*)consts, n_consts, sigma, (uint32_t)seed, (uint32_t)(seed >> 32), \
+        burn, thin, n_samples, offset, C, (float*)samples, (float*)lps, (float*)accs,  \
+        (float*)out_grad);
+  AMH_BARKER_DENSITIES(X)
+#undef X
+  return amh::kNoKernel;
+}
+
+// The kernel's launch shape for C chains (csrc/hmc_group.cuh::group_launch_info).
+int amh_barker_info(const char* density, int32_t d, int32_t n_consts, int64_t C, int64_t* out) {
+#define X(T)                       \
+  if (amh::matches<T>(density, d)) \
+    return amh::group_launch_info<T>(amh::barker_sample_kernel<T>, n_consts, C, out);
   AMH_BARKER_DENSITIES(X)
 #undef X
   return amh::kNoKernel;

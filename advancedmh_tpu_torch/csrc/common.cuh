@@ -503,43 +503,68 @@ struct Banana {
   }
 };
 
+// The GP likelihoods' sum over their D points: point i's term into partial
+// i mod 8 (kPartials), each partial from 0 in order, then the partials in
+// order; models/targets.py::_interleaved_sum is the plain order, and
+// csrc/group.cuh's GP form has lane l hold partial l. A partial with no
+// point (D < 8) stays 0.
+template <class Density>
+__device__ __forceinline__ float gp_point_sum(const float* f, const float* c) {
+  constexpr int kP = Density::kPartials;
+  float part[kP];
+#pragma unroll
+  for (int m = 0; m < kP; ++m) part[m] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < Density::kDim; ++i) part[i % kP] = part[i % kP] + Density::term(f[i], c, i);
+  float s = part[0];
+#pragma unroll
+  for (int m = 1; m < kP; ++m) s = s + part[m];
+  return s;
+}
+
 // models/targets.py::gp_regression_tile: the Gaussian log-likelihood of the
 // GP latent field f at its D grid points (the prior is the sampler's, not
 // the density's); consts = y (D), then inv2 = 1/noise^2 and norm =
 // D (log(2 pi)/2 + log noise), each rounded once from float64:
-//   lp = (-0.5 inv2) S - norm,  S = sum_i (y_i - f_i)^2 in order.
+//   lp = (-0.5 inv2) S - norm,  S = sum_i (y_i - f_i)^2 (gp_point_sum's order).
 template <int D>
 struct GPRegression {
   static constexpr const char* kName = "gp_regression";
   static constexpr int kDim = D;
+  static constexpr int kPartials = 8;
+
+  __device__ __forceinline__ static float term(float f_i, const float* c, int i) {
+    const float r = c[i] - f_i;
+    return r * r;
+  }
+
+  __device__ __forceinline__ static float finish(float s, const float* c) {
+    return (-0.5f * c[D]) * s - c[D + 1];
+  }
 
   __device__ static float logp(const float* f, const float* c, int) {
-    float s = 0.0f;
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      const float r = c[i] - f[i];
-      s = i == 0 ? r * r : s + r * r;
-    }
-    return (-0.5f * c[D]) * s - c[D + 1];
+    return finish(gp_point_sum<GPRegression>(f, c), c);
   }
 };
 
 // models/targets.py::gp_classification_tile: GP binary classification,
-// y_i in {-1, +1}; consts = y (D). lp = -sum_i softplus((-y_i) f_i) in
-// order, softplus in the JAX tile's max + log(1 + exp(-|t|)) form.
+// y_i in {-1, +1}; consts = y (D). lp = -sum_i softplus((-y_i) f_i)
+// (gp_point_sum's order), softplus in the JAX tile's max + log(1 + exp(-|t|))
+// form.
 template <int D>
 struct GPClassification {
   static constexpr const char* kName = "gp_classification";
   static constexpr int kDim = D;
+  static constexpr int kPartials = 8;
+
+  __device__ __forceinline__ static float term(float f_i, const float* c, int i) {
+    return softplus((-c[i]) * f_i);
+  }
+
+  __device__ __forceinline__ static float finish(float s, const float*) { return -s; }
 
   __device__ static float logp(const float* f, const float* c, int) {
-    float s = 0.0f;
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      const float sp = softplus((-c[i]) * f[i]);
-      s = i == 0 ? sp : s + sp;
-    }
-    return -s;
+    return finish(gp_point_sum<GPClassification>(f, c), c);
   }
 };
 

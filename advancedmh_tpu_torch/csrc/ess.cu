@@ -14,72 +14,130 @@
 // ops/ess.py::ess_sample_reference; the C entry point at the end is bound
 // there with ctypes.
 //
-// Layout and design as csrc/rwmh.cu: chains on the last axis, one thread per
-// chain, the last block masked. The density's constants, mu and the prior's
-// scale (the d x d factor: 16.4 KB at d = 64) sit in shared memory. At
-// d = 64 a step holds x, nu - mu and a candidate: 192 floats, more than a
-// thread's 255 registers leave once the functor's needs are added. So the
-// kernel carries no copy of the accepted point: it keeps the accepted theta
-// and rebuilds (mu + (x - mu) cos theta) + (nu - mu) sin theta once after the
-// loop, the same operations on the same inputs, hence the same bits; nu - mu
-// is formed in place of the normals (common.cuh::tril_matvec_inplace). The
-// trip loop ends at the first point in the slice (the TPU kernel runs all
-// max_shrink trips because Mosaic runs data-dependent trip counts poorly);
-// trip k's uniform is word 2P+2+k of the step's Philox stream
-// (common.cuh::StepWords), so the trips a chain skips change nothing.
+// Layout: a chain runs on the 8 lanes of its likelihood's group form
+// (csrc/group.cuh::GPGroupForm), coordinate i on lane i mod 8: lane l holds
+// x, nu - mu, mu (and a diagonal scale) at coordinates l, l + 8, .. in
+// registers (8 of each at d = 64, where one thread a chain held 192 floats
+// and spilled), and its running sum is partial l of the likelihood's point
+// sum. 16 chains share a 128-thread block, at least 4 blocks an SM. Shared
+// memory holds the likelihood's constants, L with rows padded to d + 4
+// floats (lane l's rows start 4 l banks apart, so a chain's 8 lanes read 8
+// rows at once without a bank conflict, in aligned float4s) and each chain's
+// staged normals, d + 8 floats apart (the 4 chains of a warp 8 banks apart).
+//
+// A step: each lane draws its own Box-Muller pairs (coordinates
+// [l d/8, (l + 1) d/8), words 2p and 2p + 1 of pair p) and stages them; after
+// a __syncwarp on the chain's mask, lane l forms rows l + 8k of L z, each over
+// the columns 0 .. 8k + 7 in order (the same count in every lane; the entries
+// above the diagonal are exact zeros, and adding them changes no sum, so the
+// bits are the plain version's full rows). Every lane then runs the same
+// trips: the same theta, cos and sin and trip uniform (word 2P + 2 + k of
+// the step's Philox stream, common.cuh::StepWords), the lane's coordinates
+// of the candidate, and the likelihood from the 8 partials in order. The
+// test lp' > log y is the same in all 8 lanes, so a chain's lanes leave the
+// loop together, keeping the accepted candidate; a warp waits only for the
+// slowest of its 4 chains. The trip loop ends at the first point in the
+// slice (the TPU kernel runs all max_shrink trips because Mosaic runs
+// data-dependent trip counts poorly); the trips a chain skips change nothing.
 //
 // What bounds it on this card: at d = 64 a step is the d(d+1)/2 products of
-// L z, the trips' evaluations of the likelihood (4.2 a chain-step on the GP
-// classification, 7.0 on the regression, 64 points each) and one cosf/sinf
-// pair a trip, a dependent chain per thread: latency-bound at 8192 chains
-// (one 64-thread block per SM), and a warp runs as many trips as its slowest
-// chain. The emission's bytes (d + 2 floats a chain and draw) set a bound far
-// below.
+// L z (288 a lane with the zeros), the trips' evaluations of the likelihood
+// (4.2 a chain-step on the GP classification, 7.0 on the regression, 8
+// points a lane each) and one cosf/sinf pair a trip. The emission's bytes
+// (d + 2 floats a chain and draw) set a bound far below.
 //
 // Numerics: --fmad=false, no --use_fast_math (see ops/_build.py); cosf and
 // sinf are the accurate ones, as torch.cos and torch.sin.
 
-#include "common.cuh"
+#include "hmc_group.cuh"
 
 namespace amh {
 
-// 64 threads a block: 8192 chains make 128 blocks, one on each of 128 of the
-// 132 SMs; 128-thread blocks would fill only 64 SMs (on an H100 the ESS
-// kernel then ran 17-25% slower; the others within 5%).
-constexpr int kEssBlock = 64;
-
-// One elliptical slice step; returns whether the chain found a point in the
-// slice. `loc` and `scale` are the prior's mean and scale in shared memory.
+// The block of the kernel is GroupShape's (csrc/hmc_group.cuh: 16 chains of
+// 8 lanes in 128 threads, at least 4 blocks an SM); its dynamic shared
+// memory, in floats: the constants (rounded up to a float4), then L's rows
+// of kRowL floats (a lower-triangular scale), then each chain's staged
+// normals, kZ apart.
 template <class Density, bool kTril>
-__device__ __forceinline__ bool ess_step(float (&x)[Density::kDim], float& lp,
-                                         const float* loc, const float* scale,
-                                         int max_shrink, const float* consts,
-                                         int n_consts, uint64_t j, uint32_t c,
-                                         uint32_t k0, uint32_t k1) {
-  constexpr int D = Density::kDim;
+struct EssShape : GroupShape<Density> {
+  using GF = GroupForm<Density>;
+  static constexpr int D = Density::kDim;
+  static constexpr int kRowL = D + 4;
+  static constexpr int kZ = D + 8;
+  static_assert(D % 8 == 0 && GF::kJ % 2 == 0, "rows in float4s, whole Box-Muller pairs a lane");
+
+  __host__ __device__ static int z_offset(int n_consts) {
+    return GF::consts_floats(n_consts) + (kTril ? D * kRowL : 0);
+  }
+  __host__ __device__ static int smem_floats(int n_consts) {
+    return z_offset(n_consts) + GroupShape<Density>::kChains * kZ;
+  }
+};
+
+// One elliptical slice step of absolute index j for chain c, over the lane's
+// coordinates; returns whether the chain found a point in the slice (the
+// same in every lane). `loc` and `diag` are the lane's coordinates of mu and
+// of a diagonal scale, `L` the padded factor in shared memory, `zs` the
+// chain's staging of the normals.
+template <class Density, bool kTril>
+__device__ __forceinline__ bool ess_step(float (&x)[GroupForm<Density>::kJ], float& lp,
+                                         const float (&loc)[GroupForm<Density>::kJ],
+                                         const float (&diag)[GroupForm<Density>::kJ],
+                                         const float* L, float* zs, int max_shrink,
+                                         const float* sh, const Lanes& ln, uint32_t c,
+                                         uint64_t j, uint32_t k0, uint32_t k1) {
+  using S = EssShape<Density, kTril>;
+  using GF = GroupForm<Density>;
+  constexpr int D = S::D;
+  constexpr int kJ = S::kJ;
   constexpr int P = (D + 1) / 2;
   StepWords s(j, c, k0, k1);
-  float nu[D];  // the normals, then nu - mu
-  step_normals<D>(s, nu);
-  if (kTril) {
-    tril_matvec_inplace<D>(scale, nu);
-  } else {
+  {
+    float z[kJ];  // the normals of coordinates [lane kJ, (lane + 1) kJ), staged
+    step_normals<kJ>(s, z, ln.lane * kJ);
 #pragma unroll
-    for (int i = 0; i < D; ++i) nu[i] = scale[i] * nu[i];
+    for (int k = 0; k < kJ; ++k) zs[ln.lane * kJ + k] = z[k];
   }
+  __syncwarp(ln.mask);
+  float nu[kJ];  // nu - mu at the lane's coordinates
+#pragma unroll
+  for (int k = 0; k < kJ; ++k) {
+    const int i = GF::coord(ln.lane, k);
+    if (kTril) {
+      const float4* row = reinterpret_cast<const float4*>(L + i * S::kRowL);
+      const float4* zv = reinterpret_cast<const float4*>(zs);
+      float4 a = row[0], b = zv[0];
+      float acc = a.x * b.x;
+      acc = acc + a.y * b.y;
+      acc = acc + a.z * b.z;
+      acc = acc + a.w * b.w;
+#pragma unroll 4
+      for (int q = 1; q < 2 * k + 2; ++q) {
+        a = row[q];
+        b = zv[q];
+        acc = acc + a.x * b.x;
+        acc = acc + a.y * b.y;
+        acc = acc + a.z * b.z;
+        acc = acc + a.w * b.w;
+      }
+      nu[k] = acc;
+    } else {
+      nu[k] = diag[k] * zs[i];
+    }
+  }
+  __syncwarp(ln.mask);  // every lane has read z before the next step stages its own
   const float logy = lp + logf(s.uniform(2 * P));
   const float theta0 = kTwoPi * s.uniform(2 * P + 1);
   float theta = theta0, tmin = theta0 - kTwoPi, tmax = theta0;
-  float cand[D];
   for (int trip = 0; trip < max_shrink; ++trip) {
     const float cs = cosf(theta), sn = sinf(theta);
+    float cand[kJ];
 #pragma unroll
-    for (int i = 0; i < D; ++i) cand[i] = (loc[i] + (x[i] - loc[i]) * cs) + nu[i] * sn;
-    const float lp_c = Density::logp(cand, consts, n_consts);
+    for (int k = 0; k < kJ; ++k) cand[k] = (loc[k] + (x[k] - loc[k]) * cs) + nu[k] * sn;
+    const float lp_c = GF::logp(cand, sh, ln);
     if (lp_c > logy) {
-      const float ca = cosf(theta), sa = sinf(theta);
 #pragma unroll
-      for (int i = 0; i < D; ++i) x[i] = (loc[i] + (x[i] - loc[i]) * ca) + nu[i] * sa;
+      for (int k = 0; k < kJ; ++k) x[k] = cand[k];
       lp = lp_c;
       return true;
     }
@@ -93,10 +151,9 @@ __device__ __forceinline__ bool ess_step(float (&x)[Density::kDim], float& lp,
 }
 
 // Sample e is the state after burn + (e+1)*thin steps; step t of the launch
-// is absolute iteration offset + t (t = 1, 2, ...). Shared memory: the
-// density's constants, then mu (d), then the scale (d or d*d).
+// is absolute iteration offset + t (t = 1, 2, ...).
 template <class Density, bool kTril>
-__global__ void __launch_bounds__(kEssBlock)
+__global__ void __launch_bounds__(GroupShape<Density>::kThreads, GroupShape<Density>::kMinBlocks)
     ess_sample_kernel(const float* __restrict__ params_t,
                       const float* __restrict__ lp_in, const float* __restrict__ loc,
                       const float* __restrict__ scale, const float* __restrict__ consts,
@@ -104,34 +161,45 @@ __global__ void __launch_bounds__(kEssBlock)
                       int64_t burn, int64_t thin, int64_t n_samples, uint64_t offset,
                       int64_t C, float* __restrict__ samples, float* __restrict__ lps,
                       float* __restrict__ accs) {
-  constexpr int D = Density::kDim;
-  constexpr int kScale = kTril ? D * D : D;
-  extern __shared__ float sh[];
-  float* sh_loc = sh + n_consts;
-  float* sh_scale = sh_loc + D;
-  for (int i = threadIdx.x; i < n_consts; i += blockDim.x) sh[i] = consts[i];
-  for (int i = threadIdx.x; i < D; i += blockDim.x) sh_loc[i] = loc[i];
-  for (int i = threadIdx.x; i < kScale; i += blockDim.x) sh_scale[i] = scale[i];
+  using S = EssShape<Density, kTril>;
+  using GF = GroupForm<Density>;
+  constexpr int D = S::D;
+  constexpr int kJ = S::kJ;
+  extern __shared__ __align__(16) float sh[];
+  float* L = sh + GF::consts_floats(n_consts);
+  for (int e = threadIdx.x; e < n_consts; e += blockDim.x) sh[e] = consts[e];
+  if (kTril)
+    for (int e = threadIdx.x; e < D * D; e += blockDim.x) L[(e / D) * S::kRowL + e % D] = scale[e];
   __syncthreads();
-  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  float x[D];
+  const int slot = threadIdx.x / S::kLanes;
+  const Lanes ln = chain_lanes<S::kLanes>();
+  const int64_t c = (int64_t)blockIdx.x * S::kChains + slot;
+  if (c >= C) return;  // the chain's lanes leave together
+  float* zs = sh + S::z_offset(n_consts) + slot * S::kZ;
+  float x[kJ], mu[kJ], diag[kJ];
 #pragma unroll
-  for (int i = 0; i < D; ++i) x[i] = params_t[i * C + c];
+  for (int k = 0; k < kJ; ++k) {
+    const int i = GF::coord(ln.lane, k);
+    x[k] = params_t[i * C + c];
+    mu[k] = loc[i];
+    diag[k] = kTril ? 0.0f : scale[i];
+  }
   float lp = lp_in[c];
   uint64_t j = offset;
   for (int64_t t = 0; t < burn; ++t)
-    ess_step<Density, kTril>(x, lp, sh_loc, sh_scale, max_shrink, sh, n_consts, ++j,
-                             (uint32_t)c, k0, k1);
+    ess_step<Density, kTril>(x, lp, mu, diag, L, zs, max_shrink, sh, ln, (uint32_t)c, ++j,
+                             k0, k1);
   for (int64_t e = 0; e < n_samples; ++e) {
     bool done = false;
     for (int64_t t = 0; t < thin; ++t)
-      done = ess_step<Density, kTril>(x, lp, sh_loc, sh_scale, max_shrink, sh, n_consts,
-                                      ++j, (uint32_t)c, k0, k1);
+      done = ess_step<Density, kTril>(x, lp, mu, diag, L, zs, max_shrink, sh, ln,
+                                      (uint32_t)c, ++j, k0, k1);
 #pragma unroll
-    for (int i = 0; i < D; ++i) samples[(e * D + i) * C + c] = x[i];
-    lps[e * C + c] = lp;
-    accs[e * C + c] = done ? 1.0f : 0.0f;
+    for (int k = 0; k < kJ; ++k) samples[(e * D + GF::coord(ln.lane, k)) * C + c] = x[k];
+    if (ln.lane == 0) {
+      lps[e * C + c] = lp;
+      accs[e * C + c] = done ? 1.0f : 0.0f;
+    }
   }
 }
 
@@ -141,15 +209,10 @@ int launch_ess(const float* params_t, const float* lp, const float* loc,
                uint64_t seed, int64_t burn, int64_t thin, int64_t n_samples,
                uint64_t offset, int64_t C, float* samples, float* lps, float* accs,
                cudaStream_t stream) {
-  constexpr int D = Density::kDim;
-  const size_t smem = (n_consts + D + (kTril ? D * D : D)) * sizeof(float);
-  const cudaError_t err = allow_shared(ess_sample_kernel<Density, kTril>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((C + kEssBlock - 1) / kEssBlock));
-  ess_sample_kernel<Density, kTril><<<grid, kEssBlock, smem, stream>>>(
-      params_t, lp, loc, scale, consts, n_consts, max_shrink, (uint32_t)seed,
-      (uint32_t)(seed >> 32), burn, thin, n_samples, offset, C, samples, lps, accs);
-  return (int)cudaGetLastError();
+  return launch_group<Density, EssShape<Density, kTril>>(
+      ess_sample_kernel<Density, kTril>, n_consts, C, stream, params_t, lp, loc, scale,
+      consts, n_consts, max_shrink, (uint32_t)seed, (uint32_t)(seed >> 32), burn, thin,
+      n_samples, offset, C, samples, lps, accs);
 }
 
 }  // namespace amh
@@ -180,6 +243,20 @@ int amh_ess_sample(const char* density, int32_t d, int32_t tril, const void* par
         (const float*)scale, (const float*)consts, n_consts, max_shrink, seed,     \
         burn, thin, n_samples, offset, C, (float*)samples, (float*)lps,            \
         (float*)accs, (cudaStream_t)stream);
+  AMH_ESS_DENSITIES(X)
+#undef X
+  return amh::kNoKernel;
+}
+
+// The kernel's launch shape for C chains (csrc/hmc_group.cuh::group_launch_info).
+int amh_ess_info(const char* density, int32_t d, int32_t tril, int32_t n_consts, int64_t C,
+                 int64_t* out) {
+#define X(T)                                                                        \
+  if (amh::matches<T>(density, d))                                                  \
+    return tril ? amh::group_launch_info<T, amh::EssShape<T, true>>(                \
+                      amh::ess_sample_kernel<T, true>, n_consts, C, out)            \
+                : amh::group_launch_info<T, amh::EssShape<T, false>>(               \
+                      amh::ess_sample_kernel<T, false>, n_consts, C, out);
   AMH_ESS_DENSITIES(X)
 #undef X
   return amh::kNoKernel;

@@ -1,7 +1,8 @@
 // Chains spread over the lanes of a warp: a density's group form, and the
-// per-lane pieces of a step that the MEADS (csrc/meads.cu) kernel and the
+// per-lane pieces of a step that the MEADS (csrc/meads.cu) kernel, the
 // kernels on the group HMC step (csrc/hmc_group.cuh: HMC, ChEES's frozen
-// phase, AdaptiveHMC) share.
+// phase, AdaptiveHMC), Barker (csrc/barker.cu) and elliptical slice
+// sampling (csrc/ess.cu, on the GP likelihoods' form below) share.
 //
 // A density's group form is a compile-time property (GroupForm<Density>):
 // kLanes threads of one warp run one chain, lane l holding its coordinates
@@ -173,6 +174,49 @@ struct GroupForm<LogisticRegression<D>> {
   }
 };
 
+// The GP likelihoods (GPRegression, GPClassification in csrc/common.cuh) on
+// 8 lanes a chain, one lane per partial of their point sum. Coordinate i
+// lies on lane i mod 8 (interleaved, where the logistic regression's lanes
+// hold contiguous ranges): lane l's kJ values are coordinates l, l + 8, ..,
+// so its running sum is partial l of common.cuh::gp_point_sum, and the
+// chain's sum is the 8 partials in order, gathered with shuffles. The
+// values are the one-thread functor's bits. The constants are the
+// functor's own; the 8 lanes of a chain read 8 consecutive points, and the
+// chains of a warp the same ones (a broadcast).
+template <class Density>
+struct GPGroupForm {
+  static constexpr int kLanes = Density::kPartials;  // 8
+  static constexpr int kJ = Density::kDim / kLanes;
+  static_assert(Density::kDim % kLanes == 0, "every lane holds as many coordinates");
+
+  __host__ __device__ static int consts_floats(int n_consts) { return (n_consts + 3) & ~3; }
+
+  // The coordinate of the lane's k-th value.
+  __device__ __forceinline__ static int coord(int lane, int k) { return lane + kLanes * k; }
+
+  // The log-likelihood (the same in every lane) at the lane's values f of
+  // the chain's point.
+  __device__ __forceinline__ static float logp(const float (&f)[kJ], const float* sh,
+                                               const Lanes& ln) {
+    float part = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kJ; ++k) part = part + Density::term(f[k], sh, coord(ln.lane, k));
+    float s;
+#pragma unroll
+    for (int m = 0; m < kLanes; ++m) {
+      const float pm = __shfl_sync(ln.mask, part, m, kLanes);
+      s = m == 0 ? pm : s + pm;
+    }
+    return Density::finish(s, sh);
+  }
+};
+
+template <int D>
+struct GroupForm<GPRegression<D>> : GPGroupForm<GPRegression<D>> {};
+
+template <int D>
+struct GroupForm<GPClassification<D>> : GPGroupForm<GPClassification<D>> {};
+
 // sum_i t_i over the chain's coordinates i = 0..kDim-1 in order (t_0 first),
 // t_i held by lane i / kJ at t[i % kJ]; the same value in every lane.
 template <int kLanes, int kJ>
@@ -188,24 +232,15 @@ __device__ __forceinline__ float coord_sum(const float (&t)[kJ], const Lanes& ln
 
 // The lane's kJ normals of step j's noise for chain c (coordinates
 // [lane kJ, (lane + 1) kJ)) and log u, the bits step_noise<D> gives: pair p
-// from words 2p and 2p + 1, the uniform from word 2 ceil(D/2).
+// from words 2p and 2p + 1 (the lane's pairs start at word lane kJ), the
+// uniform from word 2 ceil(D/2).
 template <int D, int kLanes>
 __device__ __forceinline__ void lane_noise(uint64_t j, uint32_t c, uint32_t k0, uint32_t k1,
                                            int lane, float (&z)[D / kLanes], float& logu) {
   constexpr int kJ = D / kLanes;
   static_assert(kLanes == 1 || kJ % 2 == 0, "a lane holds whole Box-Muller pairs");
   StepWords s(j, c, k0, k1);
-#pragma unroll
-  for (int pp = 0; pp < (kJ + 1) / 2; ++pp) {
-    const int p = lane * (kJ / 2) + pp;
-    const float u1 = s.uniform(2 * p);
-    const float u2 = s.uniform(2 * p + 1);
-    const float r = sqrtf(-2.0f * logf(u1));
-    float sn, cs;
-    sincosf(kTwoPi * u2, &sn, &cs);
-    z[2 * pp] = r * cs;
-    if (2 * pp + 1 < kJ) z[2 * pp + 1] = r * sn;
-  }
+  step_normals<kJ>(s, z, lane * kJ);
   logu = logf(s.uniform(2 * ((D + 1) / 2)));
 }
 

@@ -1,8 +1,10 @@
 // The HMC step with a chain spread over the lanes of its density's group form
-// (csrc/group.cuh), and the block shape, start and launch of the three kernels
-// built on it: HMC (csrc/hmc.cu), ChEES's frozen phase (csrc/chees.cu) and
-// AdaptiveHMC (csrc/hmc_adapt.cu). The plain version of the step is
-// ops/hmc.py::hmc_step: the same arithmetic in the same order.
+// (csrc/group.cuh), and the block shape, start and launch of the kernels
+// built on it: HMC (csrc/hmc.cu), ChEES's frozen phase (csrc/chees.cu),
+// AdaptiveHMC (csrc/hmc_adapt.cu), with its own step Barker (csrc/barker.cu),
+// and with its own step and shared memory ESS (csrc/ess.cu). The plain
+// version of the HMC step is ops/hmc.py::hmc_step: the same arithmetic in the
+// same order.
 //
 // Layout: kLanes threads of a warp run one chain; lane l holds coordinates
 // [l kJ, (l + 1) kJ) of the trajectory (x, p, g), of the state to fall back
@@ -134,11 +136,13 @@ __device__ __forceinline__ void lane_store(float* a, const GroupChain& ch, int64
   for (int k = 0; k < kJ; ++k) a[(ch.j0 + k) * C + ch.c] = v[k];
 }
 
-// Launch `kernel` over C chains in blocks of GroupShape<Density>, on `stream`.
-template <class Density, class... Params, class... Args>
+// Launch `kernel` over C chains in blocks of GroupShape<Density>, on `stream`,
+// with the dynamic shared memory of `Shape` (GroupShape's own layout, or a
+// kernel's that extends it, as csrc/ess.cu's).
+template <class Density, class Shape = GroupShape<Density>, class... Params, class... Args>
 int launch_group(void (*kernel)(Params...), int n_consts, int64_t C, cudaStream_t stream,
                  Args... args) {
-  using S = GroupShape<Density>;
+  using S = Shape;
   const size_t smem = (size_t)S::smem_floats(n_consts) * sizeof(float);
   const cudaError_t err = allow_shared(kernel, smem);
   if (err != cudaSuccess) return (int)err;
@@ -147,24 +151,32 @@ int launch_group(void (*kernel)(Params...), int n_consts, int64_t C, cudaStream_
   return (int)cudaGetLastError();
 }
 
-// The launch shape and occupancy of `kernel` for C chains: out[0..5] = chains
-// a block, lanes a chain, threads a block, blocks, dynamic shared memory
-// bytes, resident blocks an SM.
-template <class Density, class Kernel>
-int group_launch_info(Kernel kernel, int n_consts, int64_t C, int64_t* out) {
-  using S = GroupShape<Density>;
-  const size_t smem = (size_t)S::smem_floats(n_consts) * sizeof(float);
+// The launch shape and occupancy of `kernel` for C chains in blocks of
+// `chains` chains of `lanes` lanes with `smem` bytes of dynamic shared
+// memory: out[0..5] = chains a block, lanes a chain, threads a block,
+// blocks, dynamic shared memory bytes, resident blocks an SM.
+template <class Kernel>
+int launch_info(Kernel kernel, int chains, int lanes, size_t smem, int64_t C, int64_t* out) {
   cudaError_t err = allow_shared(kernel, smem);
   int per_sm = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, S::kThreads, smem);
-  out[0] = S::kChains;
-  out[1] = S::kLanes;
-  out[2] = S::kThreads;
-  out[3] = (C + S::kChains - 1) / S::kChains;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, chains * lanes, smem);
+  out[0] = chains;
+  out[1] = lanes;
+  out[2] = chains * lanes;
+  out[3] = (C + chains - 1) / chains;
   out[4] = (int64_t)smem;
   out[5] = per_sm;
   return (int)err;
+}
+
+// launch_info of a kernel in blocks of GroupShape<Density>, with the dynamic
+// shared memory of `Shape` (as launch_group).
+template <class Density, class Shape = GroupShape<Density>, class Kernel>
+int group_launch_info(Kernel kernel, int n_consts, int64_t C, int64_t* out) {
+  using S = Shape;
+  return launch_info(kernel, S::kChains, S::kLanes,
+                     (size_t)S::smem_floats(n_consts) * sizeof(float), C, out);
 }
 
 }  // namespace amh

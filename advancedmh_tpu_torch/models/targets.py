@@ -195,7 +195,8 @@ def correlated_gaussian_model(cov, device="cuda") -> TileDensityModel:
 # The observation sum of the tile density runs in 8 interleaved partial sums
 # (observation i into partial i mod 8), then the partials in order: the
 # order of LogisticRegression in csrc/common.cuh, where the 8 partials are
-# independent chains of adds for the compiler to overlap.
+# independent chains of adds for the compiler to overlap. The GP
+# likelihoods' point sums (below) take the same order.
 _LOGREG_PARTIALS = 8
 
 
@@ -501,18 +502,21 @@ def gp_regression_tile(f: torch.Tensor, y: torch.Tensor, inv2: torch.Tensor,
                        norm: torch.Tensor) -> torch.Tensor:
     """Tile log-likelihood of the GP regression, ``f`` (d, C), ``y`` (d, 1),
     ``inv2`` = 1/noise² and ``norm`` = d·(½log 2π + log noise) (1, 1):
-    ``(−½·inv2)·Σ(y − f)² − norm``, summed over the points in order, as
-    ``GPRegression`` in csrc/common.cuh."""
+    ``(−½·inv2)·Σ(y − f)² − norm``, the points summed in 8 interleaved
+    partials (point i into partial i mod 8, then the partials in order: the
+    logistic regression's order above, in which 8 lanes of a chain sum them
+    on the card), as ``GPRegression`` in csrc/common.cuh."""
     r = y - f
-    return (-0.5 * inv2) * row_sum(r * r) - norm
+    return (-0.5 * inv2) * _interleaved_sum(r * r) - norm
 
 
 def gp_classification_tile(f: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Tile log-likelihood of GP classification, y ∈ {−1, +1} (d, 1):
-    ``−Σ softplus((−y)·f)`` over the points in order (softplus in the JAX
-    tile's max + log(1 + exp(−|t|)) form, ops/rwmh.py::softplus), as
+    ``−Σ softplus((−y)·f)``, the points summed in 8 interleaved partials as
+    :func:`gp_regression_tile` (softplus in the JAX tile's max +
+    log(1 + exp(−|t|)) form, ops/rwmh.py::softplus), as
     ``GPClassification`` in csrc/common.cuh."""
-    return -row_sum(softplus((-y) * f))
+    return -_interleaved_sum(softplus((-y) * f))
 
 
 def gp_latent_model(

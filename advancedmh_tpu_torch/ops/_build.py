@@ -17,10 +17,11 @@ with it, 3.93 ms without) and the throughput kernel 5% at 16384 x 10000
 version's from 8.9e-7 to 2.6e-7 per chain-step. ``-Xptxas -v`` makes the
 compiler report registers, shared memory and spills for each kernel;
 :func:`build` returns that report. ``--split-compile=0`` compiles the kernels
-of one source in parallel threads: ``ess.cu`` and ``pcn.cu``, whose unrolled
-64 × 64 triangular matvecs make them the slowest sources, took 84-211 s each
-in five builds without it and 87-140 s in two with it on the H100 machine's
-8 cores (the time varies with the machine's load).
+of one source in parallel threads: ``pcn.cu``, whose unrolled 64 × 64
+triangular matvec makes it the slowest source, took 84-211 s in five builds
+without it and 87-140 s with it on the H100 machine's 8 cores (the time
+varies with the machine's load); ``ess.cu``, which had the same matvec, builds
+in ~25 s since it forms L z a row group at a time on 8 lanes a chain.
 
 Which (density, d) pairs each kernel is instantiated for is said once, in
 its source's registry list; the library exports it (:func:`kernel_pairs`)
@@ -136,10 +137,14 @@ _SIGNATURES = {
     # seed, burn, thin, n_samples, offset, C, samples, lps, accs, stream
     "amh_ess_sample": [_S, _I32, _I32, _P, _P, _P, _P, _P, _I32, _I32, _U64, _I64, _I64,
                        _I64, _U64, _I64, _P, _P, _P, _P],
+    # density, d, tril, n_consts, C, out (6 int64)
+    "amh_ess_info": [_S, _I32, _I32, _I32, _I64, _P],
     # density, d, params_t, lp, grad, consts, n_consts, sigma, seed, burn, thin,
     # n_samples, offset, C, samples, lps, accs, out_grad, stream
     "amh_barker_sample": [_S, _I32, _P, _P, _P, _P, _I32, _F, _U64, _I64, _I64, _I64,
                           _U64, _I64, _P, _P, _P, _P, _P],
+    # density, d, n_consts, C, out (6 int64)
+    "amh_barker_info": [_S, _I32, _I32, _I64, _P],
     # density, d, tril, params_t, lp, mean, scale, consts, n_consts, rho, beta,
     # seed, burn, thin, n_samples, offset, C, samples, lps, accs, stream
     "amh_pcn_sample": [_S, _I32, _I32, _P, _P, _P, _P, _P, _I32, _F, _F, _U64, _I64, _I64,
@@ -313,3 +318,24 @@ def check(lib: ctypes.CDLL, code: int, kernel: str, density: Optional[str],
     if code != 0:
         msg = lib.amh_error_string(code).decode()
         raise RuntimeError(f"{kernel} launch failed (code {code}): {msg}")
+
+
+def launch_info(entry: str, kernel: str, cuda_density: str, d: int, n_consts: int,
+                n_chains: int, *flags: int) -> dict:
+    """The launch shape and occupancy on the current card of a kernel launched
+    by ``csrc/hmc_group.cuh::launch_group`` (its C entry point ``entry``,
+    source ``kernel``: HMC, AdaptiveHMC, ChEES frozen, Barker, ESS) for a
+    (density, d) pair: chains a block, lanes a chain, threads a block,
+    blocks for ``n_chains`` chains, dynamic shared memory bytes, resident
+    blocks and warps an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).
+    ``flags`` are the entry point's int arguments after ``d``."""
+    lib = library()
+    out = (ctypes.c_int64 * 6)()
+    code = getattr(lib, entry)(density_arg(cuda_density), d, *flags, n_consts,
+                               n_chains, ctypes.addressof(out))
+    check(lib, code, kernel, cuda_density, d)
+    keys = ("chains_per_block", "lanes_per_chain", "threads", "blocks", "smem_bytes",
+            "blocks_per_sm")
+    info = dict(zip(keys, map(int, out)))
+    info["warps_per_sm"] = info["blocks_per_sm"] * info["threads"] // 32
+    return info

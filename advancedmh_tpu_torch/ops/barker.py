@@ -15,9 +15,12 @@ summed over the coordinates in order, accepted iff ``−log u > −logα``.
 Noise of absolute step j of a chain (csrc/common.cuh::StepWords): the d
 normals' Box-Muller words 0 .. 2P−1, the d sign uniforms at words 2P ..
 2P+d−1, the accept uniform at word 2P+d. Layout: chains on the last axis,
-params and gradient ``(d, C)``, lp ``(1, C)``. The wrapper runs the plain
-version for tensors on the CPU, and for CUDA tensors launches the kernel or
-raises; ``fused_barker_sample.launches`` counts the launches.
+params and gradient ``(d, C)``, lp ``(1, C)``. On the logistic regression
+the kernel runs a chain on 8 lanes, 16 chains a 128-thread block (the group
+step of ``csrc/hmc_group.cuh``); :func:`barker_launch_info` reports the
+shape. The wrapper runs the plain version for tensors on the CPU, and for
+CUDA tensors launches the kernel or raises; ``fused_barker_sample.launches``
+counts the launches.
 """
 from __future__ import annotations
 
@@ -130,3 +133,8 @@ def fused_barker_sample(
 
 
 fused_barker_sample.launches = 0
+
+
+def barker_launch_info(cuda_density: str, d: int, n_consts: int, n_chains: int) -> dict:
+    """:func:`~._build.launch_info` of the kernel."""
+    return _build.launch_info("amh_barker_info", "barker", cuda_density, d, n_consts, n_chains)

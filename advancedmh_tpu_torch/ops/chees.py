@@ -51,7 +51,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from . import _build
-from .hmc import check_hmc_args, f32, group_launch_info, hmc_propose, hmc_step
+from .hmc import check_hmc_args, f32, hmc_propose, hmc_step
 from .pooling import full, n_blocks, nan_max, nan_min, per_chain, tile_sums
 from .rwmh import _noise_chunk, check_cuda_launch, flat_consts, row_sum, step_noise
 
@@ -382,9 +382,9 @@ def fused_chees_frozen_sample(
 
 
 def chees_frozen_launch_info(cuda_density: str, d: int, n_consts: int, n_chains: int) -> dict:
-    """:func:`~.hmc.group_launch_info` of the frozen-phase kernel."""
-    return group_launch_info("amh_chees_frozen_info", "chees", cuda_density, d, n_consts,
-                             n_chains)
+    """:func:`~._build.launch_info` of the frozen-phase kernel."""
+    return _build.launch_info("amh_chees_frozen_info", "chees", cuda_density, d, n_consts,
+                              n_chains)
 
 
 fused_chees_warmup_block.launches = 0

@@ -20,7 +20,9 @@ Noise of absolute step j of a chain (csrc/common.cuh::StepWords): the d
 normals' Box-Muller words 0 .. 2P−1, U (word 2P), U_θ (2P+1), then trip k's
 uniform at word 2P+2+k. Layout: chains on the last axis, params ``(d, C)``,
 lp ``(1, C)``; ``loc`` is ``(d,)`` and ``scale`` ``(d,)`` or ``(d, d)``. The
-wrapper runs the plain version for tensors on the CPU, and for CUDA tensors
+kernel runs a chain on 8 lanes, coordinate i on lane i mod 8, 16 chains a
+128-thread block; :func:`ess_launch_info` reports the shape. The wrapper
+runs the plain version for tensors on the CPU, and for CUDA tensors
 launches the kernel or raises; ``fused_ess_sample.launches`` counts the
 launches.
 """
@@ -74,8 +76,11 @@ def ess_sample_reference(
 ):
     """Plain PyTorch version of the kernel (same signature and outputs as
     :func:`fused_ess_sample`; ``cuda_density`` is unused). ``stats``, if
-    given, receives ``density_evals``: the likelihood evaluations the chains
-    needed, summed over chains and steps."""
+    given, receives ``density_evals``: the likelihood evaluations (trips) the
+    chains needed, summed over chains and steps; and ``max_trips_4`` and
+    ``max_trips_32``: the largest trip count in each group of 4 and of 32
+    consecutive chains (the chains of a warp on 8 lanes a chain and on one
+    thread a chain), averaged over the groups and the steps."""
     d, n_chains = params_t.shape
     f32 = dict(dtype=torch.float32, device=params_t.device)
     samples = torch.empty((n_samples, d, n_chains), **f32)
@@ -87,7 +92,7 @@ def ess_sample_reference(
     ld = lambda pts: tile_fn(pts.T, *consts)[0]
     x, l = params_t.T, lp[0]
     n_steps = burn + n_samples * thin
-    total = 0
+    total, group_max = 0, {4: 0.0, 32: 0.0}
     chunk = _noise_chunk(n_chains, n_words)
     for t0 in range(0, n_steps, chunk):
         n = min(chunk, n_steps - t0)
@@ -99,13 +104,26 @@ def ess_sample_reference(
                 x, l, _perturb(scale_arr, tril, z[t]).T, mu, l + torch.log(u[t, :, 2 * P]),
                 _TWO_PI * u[t, :, 2 * P + 1], u[t, :, 2 * P + 2:].T, ld)
             total += int(evals.sum())
+            if stats is not None:
+                for g in group_max:
+                    group_max[g] += _group_max_mean(evals, g)
             s = t0 + t + 1
             if s > burn and (s - burn) % thin == 0:
                 e = (s - burn) // thin - 1
                 samples[e], lps[e], accs[e] = x.T, l[None], done.to(torch.float32)[None]
     if stats is not None:
         stats["density_evals"] = total
+        for g, v in group_max.items():
+            stats[f"max_trips_{g}"] = v / n_steps
     return samples, lps, accs
+
+
+def _group_max_mean(evals: torch.Tensor, g: int) -> float:
+    """The mean over groups of ``g`` consecutive chains of each group's
+    largest count (the last group may be short)."""
+    pad = (-evals.numel()) % g
+    e = torch.cat([evals, evals.new_zeros(pad)]) if pad else evals
+    return float(e.reshape(-1, g).amax(1).double().mean())
 
 
 def check_prior_step(params_t, lp, consts, burn, thin, n_samples):
@@ -175,3 +193,11 @@ def fused_ess_sample(
 
 
 fused_ess_sample.launches = 0
+
+
+def ess_launch_info(cuda_density: str, d: int, tril: bool, n_consts: int,
+                    n_chains: int) -> dict:
+    """:func:`~._build.launch_info` of the kernel with a lower-triangular
+    (``tril``) or a diagonal prior scale."""
+    return _build.launch_info("amh_ess_info", "ess", cuda_density, d, n_consts, n_chains,
+                              int(tril))

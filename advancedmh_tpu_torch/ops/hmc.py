@@ -24,7 +24,6 @@ launches.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -182,26 +181,6 @@ def fused_hmc_sample(
 fused_hmc_sample.launches = 0
 
 
-def group_launch_info(entry: str, kernel: str, cuda_density: str, d: int, n_consts: int,
-                      n_chains: int, *flags: int) -> dict:
-    """The launch shape and occupancy on the current card of a kernel built on
-    ``csrc/hmc_group.cuh`` (its C entry point ``entry``, source ``kernel``)
-    for a (density, d) pair: chains a block, lanes a chain, threads a block,
-    blocks for ``n_chains`` chains, dynamic shared memory bytes, resident
-    blocks and warps an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).
-    ``flags`` are the entry point's int arguments after ``d``."""
-    lib = _build.library()
-    out = (ctypes.c_int64 * 6)()
-    code = getattr(lib, entry)(_build.density_arg(cuda_density), d, *flags, n_consts,
-                               n_chains, ctypes.addressof(out))
-    _build.check(lib, code, kernel, cuda_density, d)
-    keys = ("chains_per_block", "lanes_per_chain", "threads", "blocks", "smem_bytes",
-            "blocks_per_sm")
-    info = dict(zip(keys, map(int, out)))
-    info["warps_per_sm"] = info["blocks_per_sm"] * info["threads"] // 32
-    return info
-
-
 def hmc_launch_info(cuda_density: str, d: int, n_consts: int, n_chains: int) -> dict:
-    """:func:`group_launch_info` of the HMC kernel."""
-    return group_launch_info("amh_hmc_info", "hmc", cuda_density, d, n_consts, n_chains)
+    """:func:`~._build.launch_info` of the HMC kernel."""
+    return _build.launch_info("amh_hmc_info", "hmc", cuda_density, d, n_consts, n_chains)

@@ -32,7 +32,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from . import _build
-from .hmc import check_hmc_args, f32, group_launch_info, hmc_step
+from .hmc import check_hmc_args, f32, hmc_step
 from .rwmh import _noise_chunk, check_cuda_launch, flat_consts, step_noise
 
 
@@ -218,9 +218,9 @@ def fused_adaptive_hmc_sample(
 
 def adaptive_hmc_launch_info(cuda_density: str, d: int, n_consts: int, n_chains: int,
                              resume: bool = False) -> dict:
-    """:func:`~.hmc.group_launch_info` of the kernel, fresh or resumed."""
-    return group_launch_info("amh_adaptive_hmc_info", "hmc_adapt", cuda_density, d, n_consts,
-                             n_chains, int(resume))
+    """:func:`~._build.launch_info` of the kernel, fresh or resumed."""
+    return _build.launch_info("amh_adaptive_hmc_info", "hmc_adapt", cuda_density, d, n_consts,
+                              n_chains, int(resume))
 
 
 fused_adaptive_hmc_sample.launches = 0

@@ -225,6 +225,7 @@ def sample(
     collect_states: bool = False,
     chain_type: Optional[str] = None,
     param_names=None,
+    vectorized: Optional[bool] = None,
     engine: str = "torch",
 ):
     """Draw ``n_samples`` per chain (≙ AbstractMCMC ``sample``; see
@@ -234,6 +235,13 @@ def sample(
     {None, "chains", "structarray", "namedtuples"} selects the output bundle.
     ``initial_state`` + ``iteration_offset`` continue an earlier run
     bit-exactly (both engines).
+
+    ``vectorized`` (the JAX package's keyword) picks the torch engine's path
+    for ``num_chains`` chains: ``True`` the batched one (the chains a batch
+    dimension), ``False`` the sequential one (chain c from ``fold_in(key,
+    c)``, as ``MCMCSerial()``), ``None`` the one ``chain_method`` names. The
+    two paths agree in distribution, not draw for draw. The fused engine
+    ignores it, as JAX's does.
     """
     # Positional ensemble form ≙ sample(model, spl, MCMCThreads(), N, nchains)
     if isinstance(n_samples, (MCMCSerial, MCMCThreads, MCMCDistributed)):
@@ -263,6 +271,8 @@ def sample(
     )
     master = as_key(key)
     method = _resolve_chain_method(chain_method)
+    if vectorized is not None:
+        method = "batched" if vectorized else "sequential"
     if initial_params is not None:
         initial_params = _on_device(initial_params, model.device)
 

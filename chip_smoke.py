@@ -25,9 +25,10 @@ card-only checks, and slice 8: ``log_evidence`` on the d = 32 logistic
 regression (the likelihood at ``prior_scale=inf``, its N(0, 10²I) prior
 apart) at 16 rungs x 512 chains x (3000 + 3000) on both engines, with the
 conjugate Normal-mean and flat likelihoods, AIS and SMC among the card-only
-checks; slice 9 redesigned MEADS (a thread-block cluster per tile, held here
-also at 65,536 chains) and AdaptiveHMC (8 lanes a chain on the logistic
-regression), whose launch shapes, occupancy and registers it prints. Each path runs
+checks; MEADS runs a thread-block cluster per tile (held here also at 65,536
+chains), AdaptiveHMC, HMC, ChEES's frozen phase and Barker 8 lanes a chain
+on the logistic regression, and ESS 8 lanes a chain on the GP likelihoods:
+their launch shapes, occupancy and registers it prints. Each path runs
 with every launch counter set to 0 just before it and read just after. The
 posteriors are checked against a float64 grid quadrature (the flagship),
 the analytic means (emcee), the ``engine="torch"`` run and the
@@ -1549,7 +1550,9 @@ def phase_kernels_slice5(models, gps, errs, evals):
             ref = ess_sample_reference(*args, max_shrink=24, **kw, stats=st)
             evals[f"ess {name} tril={tril}"] = st["density_evals"] / (C * 64)
             report("ess", f"{name} tril={tril} C={C} 64 steps (likelihood evaluations a "
-                   f"chain-step: {evals[f'ess {name} tril={tril}']:.4f})", got, ref, True)
+                   f"chain-step: {evals[f'ess {name} tril={tril}']:.4f}; the largest of 4 "
+                   f"chains {st['max_trips_4']:.4f}, of 32 {st['max_trips_32']:.4f})", got, ref,
+                   True)
             report("pcn", f"{name} tril={tril} C={C} 64 steps",
                    fused_pcn_sample(*args, beta=PCN_BETA, **kw),
                    pcn_sample_reference(*args, beta=PCN_BETA, **kw), True)
@@ -3399,13 +3402,16 @@ def bound(name: str, C: int, steps: int, emitted: int, warmup: int = 0, d: int =
 # ---- main -------------------------------------------------------------------------------
 
 
-def launch_report(models, ptxas_lines) -> None:
+def launch_report(models, gps, ptxas_lines) -> None:
     """The launch shapes of the kernels redesigned for the card (MEADS: a
-    cluster per tile; AdaptiveHMC, HMC and ChEES's frozen phase: a group of
-    chains a block) at the main paths' widths, with their occupancy and
-    ptxas' registers and spills. Fails if a group kernel of a fresh build
-    spills on the logistic regression."""
+    cluster per tile; AdaptiveHMC, HMC, ChEES's frozen phase and Barker: a
+    group of chains a block; ESS: 8 lanes a chain on the GP likelihoods) at
+    the main paths' widths, with their occupancy and ptxas' registers and
+    spills. Fails if a group kernel of a fresh build spills on the logistic
+    regression, or an ESS kernel on any of its pairs."""
+    from advancedmh_tpu_torch.ops.barker import barker_launch_info
     from advancedmh_tpu_torch.ops.chees import chees_frozen_launch_info
+    from advancedmh_tpu_torch.ops.ess import ess_launch_info
     from advancedmh_tpu_torch.ops.hmc import hmc_launch_info
     from advancedmh_tpu_torch.ops.hmc_adapt import adaptive_hmc_launch_info
     from advancedmh_tpu_torch.ops.meads import meads_launch_info
@@ -3425,7 +3431,7 @@ def launch_report(models, ptxas_lines) -> None:
     m = models["logreg"]
     n_consts = flat_consts(m.tile_consts, DEVICE)[1]
     group = {"adaptive_hmc": adaptive_hmc_launch_info, "hmc_sample": hmc_launch_info,
-             "chees_frozen": chees_frozen_launch_info}
+             "chees_frozen": chees_frozen_launch_info, "barker_sample": barker_launch_info}
     for name, launch_info in group.items():
         info = launch_info(m.cuda_density, 32, n_consts, LOGREG_CHAINS)
         launched = info["blocks"] * info["threads"] / 32 / n_sm
@@ -3433,6 +3439,17 @@ def launch_report(models, ptxas_lines) -> None:
               f"launched per SM {launched:.2f} on {n_sm} SMs")
         check(info["chains_per_block"] == 16 and info["threads"] == 128,
               f"{name}: the logistic regression does not run 16 chains of 8 lanes a block")
+    for key in ("class64", "reg64"):
+        m = gps[key][0]
+        n_consts = flat_consts(m.tile_consts, DEVICE)[1]
+        for tril in (True, False):
+            info = ess_launch_info(m.cuda_density, 64, tril, n_consts, GP_CHAINS)
+            launched = info["blocks"] * info["threads"] / 32 / n_sm
+            print(f"launch ess_sample {m.cuda_density} d=64 tril={tril} C={GP_CHAINS}: {info}; "
+                  f"warps launched per SM {launched:.2f} on {n_sm} SMs")
+            check(info["chains_per_block"] == 16 and info["lanes_per_chain"] == 8
+                  and info["blocks_per_sm"] >= 4,
+                  f"ess: {m.cuda_density} does not run 16 chains of 8 lanes a block, 4 an SM")
     if not ptxas_lines:
         print("  ptxas: the library was built before this run; no register report")
         return
@@ -3444,6 +3461,11 @@ def launch_report(models, ptxas_lines) -> None:
             print(f"  ptxas (redesigned): {line}")
             check(kernel == "meads" or " 0 bytes spill stores" in line,
                   f"{kernel}_kernel on the logistic regression spills")
+    lines = [ln for ln in ptxas_lines if ln.startswith("ess_sample_kernel<")]
+    check(len(lines) == 8, f"ptxas reported {len(lines)} of ESS's 8 kernels")
+    for line in lines:
+        print(f"  ptxas (redesigned): {line}")
+        check(" 0 bytes spill stores" in line, f"{line.split(':')[0]} spills")
 
 
 def ptxas_summary(report: str):
@@ -3566,8 +3588,8 @@ def main() -> None:
         "logreg_lik": logistic_regression_model(256, 32, seed=0, prior_scale=float("inf"),
                                                 device=DEVICE),
     }
-    launch_report(models, ptxas_lines)
     gps = gp_models()
+    launch_report(models, gps, ptxas_lines)
     errs = {name: 0.0 for name in REPLACES}
     evals = {}
     phase_kernels_rwmh(models["flagship"], errs)

@@ -829,6 +829,146 @@ def test_slice5_wrappers_raise_for_what_has_no_kernel(model):
     assert {("gp_regression", 64), ("gp_classification", 16)} <= pairs["ess"] & pairs["pcn"]
 
 
+def _gp_args(lik, d, tril, C, seed):
+    """A GP likelihood, starts drawn from its prior, a prior mean off zero,
+    and the prior's factor (tril) or a diagonal scale."""
+    m, prior, _ = _gp(d, lik)
+    gen = torch.Generator("cuda").manual_seed(seed)
+    x = (prior.scale_tril @ torch.randn(d, C, device="cuda", generator=gen)).contiguous()
+    loc = torch.linspace(-0.2, 0.2, d, device="cuda")
+    scale = prior.scale_tril if tril else torch.linspace(0.5, 1.5, d, device="cuda")
+    return m, (m.tile_density, m.cuda_density, x, m.tile_density(x, *m.tile_consts), loc,
+               scale, m.tile_consts, seed)
+
+
+@pytest.mark.parametrize("C", [8190, 100])
+@pytest.mark.parametrize("lik", ["gaussian", "logistic"])
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("tril", [True, False])
+def test_ess_group_kernel_is_bit_exact(C, lik, d, tril):
+    """ESS on 8 lanes a chain (the GP likelihoods' group form) at every
+    instantiated pair, on chain counts that are not a multiple of its
+    16-chain blocks, burn 5, thin 3, offsets near 2**32: every output equal
+    to the plain version's bits (the points summed in 8 interleaved
+    partials), and a run split in two and resumed equal to the whole run."""
+    from advancedmh_tpu_torch.ops import ess_sample_reference, fused_ess_sample
+
+    _, args = _gp_args(lik, d, tril, C, seed=97 + d)
+    offset = (1 << 32) - 9
+    kw = dict(max_shrink=24, thin=3)
+    before = fused_ess_sample.launches
+    got = fused_ess_sample(*args, burn=5, n_samples=6, iteration_offset=offset, **kw)
+    torch.cuda.synchronize()
+    assert fused_ess_sample.launches == before + 1
+    ref = ess_sample_reference(*args, burn=5, n_samples=6, iteration_offset=offset, **kw)
+    for a, b in zip(got, ref):  # draws, lps, decisions
+        assert _same_bits(a, b)
+    tile, dens, _, _, loc, scale, consts, seed = args
+    first = fused_ess_sample(*args, burn=5, n_samples=2, iteration_offset=offset, **kw)
+    rest = fused_ess_sample(tile, dens, first[0][-1].contiguous(), first[1][-1].contiguous(),
+                            loc, scale, consts, seed, burn=0, n_samples=4,
+                            iteration_offset=offset + 5 + 2 * 3, **kw)
+    for a, b, c in zip(got, first, rest):
+        assert _same_bits(a, torch.cat([b, c]))
+
+
+@pytest.mark.parametrize("lik", ["gaussian", "logistic"])
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("tril", [True, False])
+def test_pcn_kernel_is_bit_exact_in_the_gp_order(lik, d, tril):
+    """pCN (one thread a chain) on the GP likelihoods' one-thread functors,
+    whose point sums take the 8 interleaved partials of the group form:
+    every output equal to the plain version's bits."""
+    from advancedmh_tpu_torch.ops import fused_pcn_sample, pcn_sample_reference
+
+    _, args = _gp_args(lik, d, tril, 2000, seed=131 + d)
+    kw = dict(beta=0.2, burn=3, thin=2, n_samples=16, iteration_offset=(1 << 32) - 7)
+    got = fused_pcn_sample(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, pcn_sample_reference(*args, **kw)):
+        assert _same_bits(a, b)
+
+
+@pytest.mark.parametrize("target,C", [("logreg", 8190), ("logreg", 100), ("flagship", 4001),
+                                      ("corr2", 4001)])
+def test_barker_group_kernel_is_bit_exact(model, target, C):
+    """Barker on the logistic regression's 8-lane group step (chain counts
+    not a multiple of its 16-chain blocks) and on the d = 2 targets at one
+    thread a chain, burn 5, thin 3, offsets near 2**32: every output equal
+    to the plain version's bits, the final gradient included, and a run
+    split in two and resumed equal to the whole run."""
+    from advancedmh_tpu_torch.ops import barker_sample_reference, fused_barker_sample
+
+    m = _slice3_model(model, target)
+    p = _slice3_start(m, C, seed=C + 5)
+    lp, g = m.tile_value_and_grad(p, *m.tile_consts)
+    vg, consts, seed = m.tile_value_and_grad, m.tile_consts, 53
+    offset = (1 << 32) - 20
+    kw = dict(step_size={"logreg": 0.05, "flagship": 0.05, "corr2": 0.9}[target], thin=3)
+    before = fused_barker_sample.launches
+    got = fused_barker_sample(vg, m.cuda_density, p, lp, g, consts, seed, burn=5, n_samples=6,
+                              iteration_offset=offset, **kw)
+    torch.cuda.synchronize()
+    assert fused_barker_sample.launches == before + 1
+    ref = barker_sample_reference(vg, m.cuda_density, p, lp, g, consts, seed, burn=5,
+                                  n_samples=6, iteration_offset=offset, **kw)
+    for a, b in zip(got, ref):  # draws, lps, decisions, final gradient
+        assert _same_bits(a, b)
+    first = fused_barker_sample(vg, m.cuda_density, p, lp, g, consts, seed, burn=5,
+                                n_samples=2, iteration_offset=offset, **kw)
+    rest = fused_barker_sample(vg, m.cuda_density, first[0][-1].contiguous(),
+                               first[1][-1].contiguous(), first[3], consts, seed, burn=0,
+                               n_samples=4, iteration_offset=offset + 5 + 2 * 3, **kw)
+    _assert_split_resumes(got, first, rest)
+
+
+@pytest.mark.parametrize("kernel,target,lanes", [
+    ("barker", "logreg", 8), ("barker", "flagship", 1), ("ess", "gaussian", 8),
+    ("ess", "logistic", 8),
+])
+@pytest.mark.parametrize("tril", [True, False])
+def test_barker_and_ess_launch_shape(model, kernel, target, lanes, tril):
+    """Barker on csrc/hmc_group.cuh's blocks (16 chains of 8 lanes, 4
+    resident an SM, on the logistic regression; 64 chains of one thread on
+    the flagship) and ESS on the GP likelihoods' 8 lanes a chain, 16 chains
+    a block, at least 4 resident an SM, with either prior scale."""
+    from advancedmh_tpu_torch.ops.barker import barker_launch_info
+    from advancedmh_tpu_torch.ops.ess import ess_launch_info
+    from advancedmh_tpu_torch.ops.rwmh import flat_consts
+
+    if kernel == "barker":
+        m = _slice3_model(model, target)
+        info = barker_launch_info(m.cuda_density, m.dimension,
+                                  flat_consts(m.tile_consts, "cuda")[1], 8190)
+    else:
+        m, _, _ = _gp(64, target)
+        info = ess_launch_info(m.cuda_density, 64, tril, flat_consts(m.tile_consts, "cuda")[1],
+                               8190)
+    threads = 128 if lanes == 8 else 64
+    assert info["lanes_per_chain"] == lanes and info["threads"] == threads
+    assert info["chains_per_block"] * lanes == threads
+    assert info["blocks"] == -(-8190 // info["chains_per_block"])
+    assert info["blocks_per_sm"] >= (4 if lanes == 8 else 1)
+
+
+@pytest.mark.parametrize("source,n_kernels", [("barker.cu", 3), ("ess.cu", 8)])
+def test_barker_and_ess_do_not_spill(tmp_path, source, n_kernels):
+    """ptxas' report for every kernel of the source: no spill stores or
+    loads (one thread a chain spilled 456 B on Barker's logistic regression,
+    and ESS's d = 64 kernels at 255 registers)."""
+    import re
+    import subprocess
+
+    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-c", "-o",
+                        str(tmp_path / "k.o"), str(_build.CSRC_DIR / source)],
+                       capture_output=True, text=True)
+    assert r.returncode == 0, r.stdout + r.stderr
+    report = r.stdout + r.stderr
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", report)
+    assert len(spills) >= n_kernels, report
+    assert all(a == "0" and b == "0" for a, b in spills), report
+
+
 # ---- slice 6: Adaptive Metropolis, delayed rejection, DRAM ---------------------------
 
 

@@ -90,6 +90,39 @@ def test_gp_model_matches_jax(n, lik, noise, seed):
                                    float(jm.logdensity_fn(jnp.asarray(f[:, c]))), **tol)
 
 
+@pytest.mark.parametrize("n", [3, 16, 64])
+@pytest.mark.parametrize("lik,noise,seed", LIKS)
+def test_gp_tile_sums_in_eight_interleaved_partials(n, lik, noise, seed):
+    """The tile density sums its points as the kernels do: point i into
+    partial i mod 8 (from 0, in order), then the 8 partials in order (at
+    n = 3 five stay empty); bit for bit against that order written out in
+    float32, and within float32 rounding of a float64 sum."""
+    from advancedmh_tpu_torch.ops.rwmh import softplus
+
+    m, prior, _ = gp_latent_model(n, likelihood=lik, noise=noise, seed=seed, device="cpu")
+    rng = np.random.default_rng(n)
+    f = torch.as_tensor((np.asarray(prior.scale_tril, np.float64) @ rng.normal(size=(n, 16))
+                         * rng.uniform(0.2, 3.0, size=16)).astype(np.float32))
+    y = m.tile_consts[0]
+    terms = ((y - f) ** 2 if lik == "gaussian" else softplus((-y) * f)).numpy()
+    part = np.zeros((8, terms.shape[1]), np.float32)
+    for i in range(n):
+        part[i % 8] = part[i % 8] + terms[i]
+    s = part[0]
+    for k in range(1, 8):
+        s = s + part[k]
+    s = torch.as_tensor(s[None])
+    if lik == "gaussian":
+        _, inv2, norm = m.tile_consts
+        want = (-0.5 * inv2) * s - norm
+        exact = -0.5 * float(inv2) * terms.astype(np.float64).sum(0) - float(norm)
+    else:
+        want, exact = -s, -terms.astype(np.float64).sum(0)
+    got = m.tile_density(f, *m.tile_consts)
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(got[0].numpy(), exact, rtol=1e-6, atol=1e-5)
+
+
 def test_gp_unknown_likelihood_raises():
     with pytest.raises(ValueError, match="likelihood"):
         gp_latent_model(8, likelihood="poisson", device="cpu")
@@ -259,6 +292,39 @@ def test_fused_ess_thinning_and_logistic():
     agree = (np.sign(draws.mean(0)[confident]) == np.sign(aux["f_true"][confident])).mean()
     assert agree > 0.95
     assert tuple(res.final_state.params.shape) == (1024, 16)
+
+
+def test_plain_version_counts_the_trips_of_a_warp():
+    """``stats``: the trips summed over chains and steps, and the mean over
+    steps of the largest count in each group of 4 and of 32 consecutive
+    chains (the last group short), recounted here from one-step runs."""
+    from advancedmh_tpu_torch.ops import ess_sample_reference
+    from advancedmh_tpu_torch.ops.ess import _group_max_mean
+
+    assert _group_max_mean(torch.tensor([1, 5, 2, 3, 7, 1], dtype=torch.int32), 4) == 6.0
+    model, prior, _ = gp_latent_model(16, likelihood="logistic", seed=5, device="cpu")
+    C = 100
+    x = prior.sample(torch.Generator().manual_seed(0), (C,)).T.contiguous()
+    lp = model.tile_density(x, *model.tile_consts)
+    args = (model.tile_density, model.cuda_density)
+    kw = dict(max_shrink=24, burn=0, thin=1)
+    st = {}
+    ess_sample_reference(*args, x, lp, 0.0, prior.scale_tril, model.tile_consts, 9,
+                         n_samples=3, stats=st, **kw)
+    want = {"density_evals": 0, 4: 0.0, 32: 0.0}
+    for step in range(3):
+        one = {}
+        out = ess_sample_reference(*args, x, lp, 0.0, prior.scale_tril, model.tile_consts, 9,
+                                   n_samples=1, iteration_offset=step, stats=one, **kw)
+        assert one["density_evals"] >= C
+        want["density_evals"] += one["density_evals"]
+        for g in (4, 32):
+            want[g] += one[f"max_trips_{g}"] / 3
+        x, lp = out[0][0], out[1][0]
+    assert st["density_evals"] == want["density_evals"]
+    for g in (4, 32):
+        assert st[f"max_trips_{g}"] == pytest.approx(want[g], rel=1e-12)
+    assert st["density_evals"] / (3 * C) <= st["max_trips_4"] <= st["max_trips_32"] <= 24
 
 
 def test_fused_split_run_is_bit_exact():

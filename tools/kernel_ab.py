@@ -12,8 +12,12 @@ paths at chip_smoke.py's shapes: AdaptiveHMC (8192 x (500 + 4000), L = 8),
 HMC at the median adapted (eps-bar, M^-1) of that run (8192 x (499 + 4000)),
 the ChEES frozen launch after its warmup (8192 x 4000), MEADS (8192 x (499 +
 4000), K = 2, and the same launch on the d = 2 correlated Gaussian), Barker
-(8192 x (499 + 4000) at a fixed eps = 0.03) and the evidence kernel (16 x 512
-chains x (3000 + 3000)). The inputs are the same in every turn. It prints
+(8192 x (499 + 4000) at a fixed eps = 0.03), the evidence kernel (16 x 512
+chains x (3000 + 3000)), elliptical slice sampling on the d = 64 GP
+classification and regression (8192 x (499 + 4000), the prior's factor,
+max_shrink 24, from prior draws) and pCN on the regression (8192 x (1999 +
+4000), beta 0.2); these last three through the public fused_ess_sample and
+fused_pcn_sample only. The inputs are the same in every turn. It prints
 the card's name and power limit, one line per turn, and a table of each
 kernel's times with the mean of each side. Needs one CUDA GPU; it imports
 nothing of JAX.
@@ -32,6 +36,7 @@ C = 8192
 N_WARM, N_DRAWS = 500, 4000
 BARKER_EPS = 0.03
 EV_CHAINS, EV_STEPS, EV_PRIOR_SCALE = 512, 3000, 10.0
+PCN_WARM, PCN_BETA = 2000, 0.2
 
 
 def _time_in(root: str) -> dict:
@@ -41,11 +46,13 @@ def _time_in(root: str) -> dict:
     import torch
 
     from advancedmh_tpu_torch import ChEESHMC, power_ladder
-    from advancedmh_tpu_torch.models import correlated_gaussian_model, logistic_regression_model
+    from advancedmh_tpu_torch.models import (correlated_gaussian_model, gp_latent_model,
+                                             logistic_regression_model)
     from advancedmh_tpu_torch.ops import (DualAveraging, MeadsParams, _build,
                                           fused_adaptive_hmc_sample, fused_barker_sample,
-                                          fused_chees_frozen_sample, fused_hmc_sample,
-                                          fused_meads_sample, fused_power_rwmh_sample,
+                                          fused_chees_frozen_sample, fused_ess_sample,
+                                          fused_hmc_sample, fused_meads_sample,
+                                          fused_pcn_sample, fused_power_rwmh_sample,
                                           gaussian_prior_lp, minv_column)
     from advancedmh_tpu_torch.runtime.fused import (MAX_TILE, MEADS_BUDGET, fused_tile,
                                                     sample_fused_chees)
@@ -126,6 +133,17 @@ def _time_in(root: str) -> dict:
              torch.full((1, Ce), 0.5, device=dev), loc, scale, lik.tile_consts, KEY)
     ms["evidence"], _ = best(lambda: fused_power_rwmh_sample(*eargs, n_samples=EV_STEPS,
                                                              burn=EV_STEPS, adapt=True))
+
+    for name, kw in (("ess_class64", dict(likelihood="logistic", seed=5)),
+                     ("ess_reg64", dict(noise=0.3, seed=3))):
+        m, prior, _ = gp_latent_model(64, **kw, device=dev)
+        x = prior.sample(torch.Generator(device=dev).manual_seed(123), (C,)).T.contiguous()
+        gargs = (m.tile_density, m.cuda_density, x, m.tile_density(x, *m.tile_consts),
+                 torch.zeros(64, device=dev), prior.scale_tril, m.tile_consts, KEY)
+        ms[name], _ = best(lambda: fused_ess_sample(*gargs, max_shrink=24, burn=N_WARM - 1,
+                                                    thin=1, n_samples=N_DRAWS))
+    ms["pcn"], _ = best(lambda: fused_pcn_sample(*gargs, beta=PCN_BETA, burn=PCN_WARM - 1,
+                                                 thin=1, n_samples=N_DRAWS))
     return ms
 
 
