@@ -81,21 +81,6 @@ __device__ __forceinline__ void tril_matvec(const float* L, const float (&z)[D],
   }
 }
 
-// z <- L z in place for a lower-triangular L: row i sums k = 0..i in order
-// and rows run from the last up, so each reads only z[k <= i] not yet
-// overwritten. The entries above the diagonal are exact zeros, so the bits
-// are those of tril_matvec's full rows (adding +-0 changes no sum).
-template <int D>
-__device__ __forceinline__ void tril_matvec_inplace(const float* L, float (&z)[D]) {
-#pragma unroll
-  for (int i = D - 1; i >= 0; --i) {
-    float acc = L[i * D] * z[0];
-#pragma unroll
-    for (int k = 1; k <= i; ++k) acc = acc + L[i * D + k] * z[k];
-    z[i] = acc;
-  }
-}
-
 // jnp.maximum / jnp.minimum: NaN if either side is NaN (fmaxf would drop it).
 __device__ __forceinline__ float nan_max(float a, float b) {
   return a != a ? a : (b != b ? b : fmaxf(a, b));

@@ -14,31 +14,24 @@
 // ops/ess.py::ess_sample_reference; the C entry point at the end is bound
 // there with ctypes.
 //
-// Layout: a chain runs on the 8 lanes of its likelihood's group form
-// (csrc/group.cuh::GPGroupForm), coordinate i on lane i mod 8: lane l holds
+// Layout: the block shape, start and prior draw of csrc/gp_group.cuh, shared
+// with pCN: a chain on the 8 lanes of its likelihood's group form
+// (csrc/group.cuh::GPGroupForm), coordinate i on lane i mod 8, lane l holding
 // x, nu - mu, mu (and a diagonal scale) at coordinates l, l + 8, .. in
 // registers (8 of each at d = 64, where one thread a chain held 192 floats
-// and spilled), and its running sum is partial l of the likelihood's point
-// sum. 16 chains share a 128-thread block, at least 4 blocks an SM. Shared
-// memory holds the likelihood's constants, L with rows padded to d + 4
-// floats (lane l's rows start 4 l banks apart, so a chain's 8 lanes read 8
-// rows at once without a bank conflict, in aligned float4s) and each chain's
-// staged normals, d + 8 floats apart (the 4 chains of a warp 8 banks apart).
+// and spilled); 16 chains a 128-thread block, at least 4 blocks an SM; L's
+// padded rows and each chain's staged normals in shared memory.
 //
-// A step: each lane draws its own Box-Muller pairs (coordinates
-// [l d/8, (l + 1) d/8), words 2p and 2p + 1 of pair p) and stages them; after
-// a __syncwarp on the chain's mask, lane l forms rows l + 8k of L z, each over
-// the columns 0 .. 8k + 7 in order (the same count in every lane; the entries
-// above the diagonal are exact zeros, and adding them changes no sum, so the
-// bits are the plain version's full rows). Every lane then runs the same
-// trips: the same theta, cos and sin and trip uniform (word 2P + 2 + k of
-// the step's Philox stream, common.cuh::StepWords), the lane's coordinates
-// of the candidate, and the likelihood from the 8 partials in order. The
-// test lp' > log y is the same in all 8 lanes, so a chain's lanes leave the
-// loop together, keeping the accepted candidate; a warp waits only for the
-// slowest of its 4 chains. The trip loop ends at the first point in the
-// slice (the TPU kernel runs all max_shrink trips because Mosaic runs
-// data-dependent trip counts poorly); the trips a chain skips change nothing.
+// A step: nu - mu = L z from the step's normals (gp_group.cuh::prior_draw).
+// Every lane then runs the same trips: the same theta, cos and sin and trip
+// uniform (word 2P + 2 + k of the step's Philox stream,
+// common.cuh::StepWords), the lane's coordinates of the candidate, and the
+// likelihood from the 8 partials in order. The test lp' > log y is the same
+// in all 8 lanes, so a chain's lanes leave the loop together, keeping the
+// accepted candidate; a warp waits only for the slowest of its 4 chains. The
+// trip loop ends at the first point in the slice (the TPU kernel runs all
+// max_shrink trips because Mosaic runs data-dependent trip counts poorly);
+// the trips a chain skips change nothing.
 //
 // What bounds it on this card: at d = 64 a step is the d(d+1)/2 products of
 // L z (288 a lane with the zeros), the trips' evaluations of the likelihood
@@ -49,83 +42,26 @@
 // Numerics: --fmad=false, no --use_fast_math (see ops/_build.py); cosf and
 // sinf are the accurate ones, as torch.cos and torch.sin.
 
-#include "hmc_group.cuh"
+#include "gp_group.cuh"
 
 namespace amh {
-
-// The block of the kernel is GroupShape's (csrc/hmc_group.cuh: 16 chains of
-// 8 lanes in 128 threads, at least 4 blocks an SM); its dynamic shared
-// memory, in floats: the constants (rounded up to a float4), then L's rows
-// of kRowL floats (a lower-triangular scale), then each chain's staged
-// normals, kZ apart.
-template <class Density, bool kTril>
-struct EssShape : GroupShape<Density> {
-  using GF = GroupForm<Density>;
-  static constexpr int D = Density::kDim;
-  static constexpr int kRowL = D + 4;
-  static constexpr int kZ = D + 8;
-  static_assert(D % 8 == 0 && GF::kJ % 2 == 0, "rows in float4s, whole Box-Muller pairs a lane");
-
-  __host__ __device__ static int z_offset(int n_consts) {
-    return GF::consts_floats(n_consts) + (kTril ? D * kRowL : 0);
-  }
-  __host__ __device__ static int smem_floats(int n_consts) {
-    return z_offset(n_consts) + GroupShape<Density>::kChains * kZ;
-  }
-};
 
 // One elliptical slice step of absolute index j for chain c, over the lane's
 // coordinates; returns whether the chain found a point in the slice (the
 // same in every lane). `loc` and `diag` are the lane's coordinates of mu and
-// of a diagonal scale, `L` the padded factor in shared memory, `zs` the
-// chain's staging of the normals.
+// of a diagonal scale.
 template <class Density, bool kTril>
 __device__ __forceinline__ bool ess_step(float (&x)[GroupForm<Density>::kJ], float& lp,
                                          const float (&loc)[GroupForm<Density>::kJ],
                                          const float (&diag)[GroupForm<Density>::kJ],
-                                         const float* L, float* zs, int max_shrink,
-                                         const float* sh, const Lanes& ln, uint32_t c,
+                                         int max_shrink, const float* sh, const PriorChain& ch,
                                          uint64_t j, uint32_t k0, uint32_t k1) {
-  using S = EssShape<Density, kTril>;
   using GF = GroupForm<Density>;
-  constexpr int D = S::D;
-  constexpr int kJ = S::kJ;
-  constexpr int P = (D + 1) / 2;
-  StepWords s(j, c, k0, k1);
-  {
-    float z[kJ];  // the normals of coordinates [lane kJ, (lane + 1) kJ), staged
-    step_normals<kJ>(s, z, ln.lane * kJ);
-#pragma unroll
-    for (int k = 0; k < kJ; ++k) zs[ln.lane * kJ + k] = z[k];
-  }
-  __syncwarp(ln.mask);
+  constexpr int kJ = GF::kJ;
+  constexpr int P = (Density::kDim + 1) / 2;
+  StepWords s(j, (uint32_t)ch.c, k0, k1);
   float nu[kJ];  // nu - mu at the lane's coordinates
-#pragma unroll
-  for (int k = 0; k < kJ; ++k) {
-    const int i = GF::coord(ln.lane, k);
-    if (kTril) {
-      const float4* row = reinterpret_cast<const float4*>(L + i * S::kRowL);
-      const float4* zv = reinterpret_cast<const float4*>(zs);
-      float4 a = row[0], b = zv[0];
-      float acc = a.x * b.x;
-      acc = acc + a.y * b.y;
-      acc = acc + a.z * b.z;
-      acc = acc + a.w * b.w;
-#pragma unroll 4
-      for (int q = 1; q < 2 * k + 2; ++q) {
-        a = row[q];
-        b = zv[q];
-        acc = acc + a.x * b.x;
-        acc = acc + a.y * b.y;
-        acc = acc + a.z * b.z;
-        acc = acc + a.w * b.w;
-      }
-      nu[k] = acc;
-    } else {
-      nu[k] = diag[k] * zs[i];
-    }
-  }
-  __syncwarp(ln.mask);  // every lane has read z before the next step stages its own
+  prior_draw<Density, kTril>(s, diag, ch, nu);
   const float logy = lp + logf(s.uniform(2 * P));
   const float theta0 = kTwoPi * s.uniform(2 * P + 1);
   float theta = theta0, tmin = theta0 - kTwoPi, tmax = theta0;
@@ -134,7 +70,7 @@ __device__ __forceinline__ bool ess_step(float (&x)[GroupForm<Density>::kJ], flo
     float cand[kJ];
 #pragma unroll
     for (int k = 0; k < kJ; ++k) cand[k] = (loc[k] + (x[k] - loc[k]) * cs) + nu[k] * sn;
-    const float lp_c = GF::logp(cand, sh, ln);
+    const float lp_c = GF::logp(cand, sh, ch.ln);
     if (lp_c > logy) {
 #pragma unroll
       for (int k = 0; k < kJ; ++k) x[k] = cand[k];
@@ -161,42 +97,29 @@ __global__ void __launch_bounds__(GroupShape<Density>::kThreads, GroupShape<Dens
                       int64_t burn, int64_t thin, int64_t n_samples, uint64_t offset,
                       int64_t C, float* __restrict__ samples, float* __restrict__ lps,
                       float* __restrict__ accs) {
-  using S = EssShape<Density, kTril>;
   using GF = GroupForm<Density>;
-  constexpr int D = S::D;
-  constexpr int kJ = S::kJ;
+  constexpr int D = Density::kDim;
+  constexpr int kJ = GF::kJ;
   extern __shared__ __align__(16) float sh[];
-  float* L = sh + GF::consts_floats(n_consts);
-  for (int e = threadIdx.x; e < n_consts; e += blockDim.x) sh[e] = consts[e];
-  if (kTril)
-    for (int e = threadIdx.x; e < D * D; e += blockDim.x) L[(e / D) * S::kRowL + e % D] = scale[e];
-  __syncthreads();
-  const int slot = threadIdx.x / S::kLanes;
-  const Lanes ln = chain_lanes<S::kLanes>();
-  const int64_t c = (int64_t)blockIdx.x * S::kChains + slot;
+  const PriorChain ch = prior_chain<Density, kTril>(sh, consts, n_consts, scale);
+  const int64_t c = ch.c;
   if (c >= C) return;  // the chain's lanes leave together
-  float* zs = sh + S::z_offset(n_consts) + slot * S::kZ;
   float x[kJ], mu[kJ], diag[kJ];
+  lane_column<Density>(params_t, ch, C, x);
+  lane_vector<Density>(loc, ch, mu);
 #pragma unroll
-  for (int k = 0; k < kJ; ++k) {
-    const int i = GF::coord(ln.lane, k);
-    x[k] = params_t[i * C + c];
-    mu[k] = loc[i];
-    diag[k] = kTril ? 0.0f : scale[i];
-  }
+  for (int k = 0; k < kJ; ++k) diag[k] = kTril ? 0.0f : scale[GF::coord(ch.ln.lane, k)];
   float lp = lp_in[c];
   uint64_t j = offset;
   for (int64_t t = 0; t < burn; ++t)
-    ess_step<Density, kTril>(x, lp, mu, diag, L, zs, max_shrink, sh, ln, (uint32_t)c, ++j,
-                             k0, k1);
+    ess_step<Density, kTril>(x, lp, mu, diag, max_shrink, sh, ch, ++j, k0, k1);
   for (int64_t e = 0; e < n_samples; ++e) {
     bool done = false;
     for (int64_t t = 0; t < thin; ++t)
-      done = ess_step<Density, kTril>(x, lp, mu, diag, L, zs, max_shrink, sh, ln,
-                                      (uint32_t)c, ++j, k0, k1);
+      done = ess_step<Density, kTril>(x, lp, mu, diag, max_shrink, sh, ch, ++j, k0, k1);
 #pragma unroll
-    for (int k = 0; k < kJ; ++k) samples[(e * D + GF::coord(ln.lane, k)) * C + c] = x[k];
-    if (ln.lane == 0) {
+    for (int k = 0; k < kJ; ++k) samples[(e * D + GF::coord(ch.ln.lane, k)) * C + c] = x[k];
+    if (ch.ln.lane == 0) {
       lps[e * C + c] = lp;
       accs[e * C + c] = done ? 1.0f : 0.0f;
     }
@@ -209,7 +132,7 @@ int launch_ess(const float* params_t, const float* lp, const float* loc,
                uint64_t seed, int64_t burn, int64_t thin, int64_t n_samples,
                uint64_t offset, int64_t C, float* samples, float* lps, float* accs,
                cudaStream_t stream) {
-  return launch_group<Density, EssShape<Density, kTril>>(
+  return launch_group<Density, PriorShape<Density, kTril>>(
       ess_sample_kernel<Density, kTril>, n_consts, C, stream, params_t, lp, loc, scale,
       consts, n_consts, max_shrink, (uint32_t)seed, (uint32_t)(seed >> 32), burn, thin,
       n_samples, offset, C, samples, lps, accs);
@@ -253,9 +176,9 @@ int amh_ess_info(const char* density, int32_t d, int32_t tril, int32_t n_consts,
                  int64_t* out) {
 #define X(T)                                                                        \
   if (amh::matches<T>(density, d))                                                  \
-    return tril ? amh::group_launch_info<T, amh::EssShape<T, true>>(                \
+    return tril ? amh::group_launch_info<T, amh::PriorShape<T, true>>(              \
                       amh::ess_sample_kernel<T, true>, n_consts, C, out)            \
-                : amh::group_launch_info<T, amh::EssShape<T, false>>(               \
+                : amh::group_launch_info<T, amh::PriorShape<T, false>>(             \
                       amh::ess_sample_kernel<T, false>, n_consts, C, out);
   AMH_ESS_DENSITIES(X)
 #undef X

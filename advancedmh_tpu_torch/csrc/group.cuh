@@ -1,14 +1,17 @@
 // Chains spread over the lanes of a warp: a density's group form, and the
 // per-lane pieces of a step that the MEADS (csrc/meads.cu) kernel, the
 // kernels on the group HMC step (csrc/hmc_group.cuh: HMC, ChEES's frozen
-// phase, AdaptiveHMC), Barker (csrc/barker.cu) and elliptical slice
-// sampling (csrc/ess.cu, on the GP likelihoods' form below) share.
+// phase, AdaptiveHMC), Barker (csrc/barker.cu), the power-posterior RWMH
+// of the evidence estimators (csrc/evidence.cu, on the value alone), and
+// elliptical slice sampling and pCN (csrc/gp_group.cuh, on the GP
+// likelihoods' form below) share.
 //
 // A density's group form is a compile-time property (GroupForm<Density>):
 // kLanes threads of one warp run one chain, lane l holding its coordinates
 // [l kJ, (l + 1) kJ), kJ = kDim / kLanes. kLanes = 1 is one thread per chain,
-// and the density's own value_and_grad runs there. The logistic regression
-// has the group form with kLanes = 8, one lane per log-likelihood partial:
+// and the density's own logp and value_and_grad run there. The logistic
+// regression has the group form with kLanes = 8, one lane per
+// log-likelihood partial:
 //
 //   - X (n x D) sits in shared memory with rows padded to D + 4 floats (16-byte
 //     aligned rows, and lane l's row starts 4 l banks on, so that the 8 lanes
@@ -20,7 +23,8 @@
 //     order, for its own coordinates j;
 //   - ll = the 8 partials in order, b.b in order, g_j - b_j inv_var.
 //
-// That is the order of LogisticRegression<D>::eval in csrc/common.cuh, which
+// Its logp is the z pass alone: no r scratch, no gradient pass. That is the
+// order of LogisticRegression<D>::eval in csrc/common.cuh, which
 // one thread runs for a whole chain, and of its plain twin in
 // models/targets.py: the values are the same bits, 8 threads compute them.
 // A chain's lanes exchange values through __shfl_sync and __syncwarp on
@@ -56,6 +60,11 @@ struct GroupForm {
 
   __device__ static void load(float* sh, const float* consts, int n_consts) {
     load_consts(sh, consts, n_consts);
+  }
+
+  __device__ __forceinline__ static float logp(const float (&x)[Density::kDim], const float* sh,
+                                               int n_consts, float*, const Lanes&) {
+    return Density::logp(x, sh, n_consts);
   }
 
   __device__ __forceinline__ static float value_and_grad(const float (&x)[Density::kDim],
@@ -94,6 +103,72 @@ struct GroupForm<LogisticRegression<D>> {
     __syncthreads();
   }
 
+  // The chain's whole position b in every lane, from the lanes' coordinates
+  // x staged in the chain's scratch.
+  __device__ __forceinline__ static void gather(const float (&x)[kJ], float* scratch,
+                                                const Lanes& ln, float (&b)[D]) {
+#pragma unroll
+    for (int k = 0; k < kJ; ++k) scratch[ln.lane * kJ + k] = x[k];
+    __syncwarp(ln.mask);
+#pragma unroll
+    for (int q = 0; q < D / 4; ++q) {
+      const float4 v = reinterpret_cast<const float4*>(scratch)[q];
+      b[4 * q] = v.x;
+      b[4 * q + 1] = v.y;
+      b[4 * q + 2] = v.z;
+      b[4 * q + 3] = v.w;
+    }
+  }
+
+  // z_i = X_i . b, j in order, from observation i's padded row.
+  __device__ __forceinline__ static float row_dot(const float* sh, int i, const float (&b)[D]) {
+    const float4* xi = reinterpret_cast<const float4*>(sh + i * kRow);
+    float z;
+#pragma unroll
+    for (int q = 0; q < D / 4; ++q) {
+      const float4 v = xi[q];
+      z = q == 0 ? v.x * b[0] : z + v.x * b[4 * q];
+      z = z + v.y * b[4 * q + 1];
+      z = z + v.z * b[4 * q + 2];
+      z = z + v.w * b[4 * q + 3];
+    }
+    return z;
+  }
+
+  // The log density from the lanes' partials: their sum in order, minus
+  // (0.5 inv_var) b.b with b.b in order.
+  __device__ __forceinline__ static float finish(float part, const float (&b)[D],
+                                                 float inv_var, const Lanes& ln) {
+    float ll;
+#pragma unroll
+    for (int m = 0; m < kLanes; ++m) {
+      const float pm = __shfl_sync(ln.mask, part, m, kLanes);
+      ll = m == 0 ? pm : ll + pm;
+    }
+    float bb = b[0] * b[0];
+#pragma unroll
+    for (int j = 1; j < D; ++j) bb = bb + b[j] * b[j];
+    return ll - (0.5f * inv_var) * bb;
+  }
+
+  // The log density (the same in every lane) at the lane's coordinates x of
+  // the chain's position; the chain's scratch holds the staged position.
+  __device__ __forceinline__ static float logp(const float (&x)[kJ], const float* sh,
+                                               int n_consts, float* scratch, const Lanes& ln) {
+    const int n = n_obs(n_consts);
+    const float* yv = sh + n * kRow;
+    float b[D];
+    gather(x, scratch, ln, b);
+    __syncwarp(ln.mask);  // every lane has read b before the chain stages its next one
+    float part = 0.0f;
+#pragma unroll 4
+    for (int i = ln.lane; i < n; i += kLanes) {
+      const float z = row_dot(sh, i, b);
+      part = part + (yv[i] * z - (fmaxf(z, 0.0f) + log1pf(expf(-fabsf(z)))));
+    }
+    return finish(part, b, yv[n], ln);
+  }
+
   // The log density (the same in every lane) and the lane's kJ gradient
   // coordinates at the lane's coordinates x of the chain's position; the
   // chain's scratch holds the staged position and r.
@@ -104,18 +179,8 @@ struct GroupForm<LogisticRegression<D>> {
     const float* yv = sh + n * kRow;
     const float inv_var = yv[n];
     float* rs = scratch + kR;
-#pragma unroll
-    for (int k = 0; k < kJ; ++k) scratch[ln.lane * kJ + k] = x[k];
-    __syncwarp(ln.mask);
     float b[D];
-#pragma unroll
-    for (int q = 0; q < D / 4; ++q) {
-      const float4 v = reinterpret_cast<const float4*>(scratch)[q];
-      b[4 * q] = v.x;
-      b[4 * q + 1] = v.y;
-      b[4 * q + 2] = v.z;
-      b[4 * q + 3] = v.w;
-    }
+    gather(x, scratch, ln, b);
     float part = 0.0f;
     float gl[kJ];
 #pragma unroll
@@ -127,16 +192,7 @@ struct GroupForm<LogisticRegression<D>> {
         const int ii = ln.lane + kLanes * m;
         if (ii < cn) {
           const int i = i0 + ii;
-          const float4* xi = reinterpret_cast<const float4*>(sh + i * kRow);
-          float z;
-#pragma unroll
-          for (int q = 0; q < D / 4; ++q) {
-            const float4 v = xi[q];
-            z = q == 0 ? v.x * b[0] : z + v.x * b[4 * q];
-            z = z + v.y * b[4 * q + 1];
-            z = z + v.z * b[4 * q + 2];
-            z = z + v.w * b[4 * q + 3];
-          }
+          const float z = row_dot(sh, i, b);
           const float e = expf(-fabsf(z));
           part = part + (yv[i] * z - (fmaxf(z, 0.0f) + log1pf(e)));
           const float h = z > 0.0f ? 1.0f : (z == 0.0f ? 0.5f : 0.0f);
@@ -159,18 +215,9 @@ struct GroupForm<LogisticRegression<D>> {
       }
       __syncwarp(ln.mask);
     }
-    float ll;
-#pragma unroll
-    for (int m = 0; m < kLanes; ++m) {
-      const float pm = __shfl_sync(ln.mask, part, m, kLanes);
-      ll = m == 0 ? pm : ll + pm;
-    }
-    float bb = b[0] * b[0];
-#pragma unroll
-    for (int j = 1; j < D; ++j) bb = bb + b[j] * b[j];
 #pragma unroll
     for (int k = 0; k < kJ; ++k) g[k] = gl[k] - x[k] * inv_var;
-    return ll - (0.5f * inv_var) * bb;
+    return finish(part, b, inv_var, ln);
   }
 };
 

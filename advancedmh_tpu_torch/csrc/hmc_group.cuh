@@ -1,8 +1,9 @@
 // The HMC step with a chain spread over the lanes of its density's group form
 // (csrc/group.cuh), and the block shape, start and launch of the kernels
 // built on it: HMC (csrc/hmc.cu), ChEES's frozen phase (csrc/chees.cu),
-// AdaptiveHMC (csrc/hmc_adapt.cu), with its own step Barker (csrc/barker.cu),
-// and with its own step and shared memory ESS (csrc/ess.cu). The plain
+// AdaptiveHMC (csrc/hmc_adapt.cu), with their own steps Barker
+// (csrc/barker.cu) and the evidence kernel (csrc/evidence.cu), and with their
+// own steps and shared memory ESS and pCN (csrc/gp_group.cuh). The plain
 // version of the HMC step is ops/hmc.py::hmc_step: the same arithmetic in the
 // same order.
 //
@@ -138,7 +139,7 @@ __device__ __forceinline__ void lane_store(float* a, const GroupChain& ch, int64
 
 // Launch `kernel` over C chains in blocks of GroupShape<Density>, on `stream`,
 // with the dynamic shared memory of `Shape` (GroupShape's own layout, or a
-// kernel's that extends it, as csrc/ess.cu's).
+// kernel's that extends it, as csrc/gp_group.cuh::PriorShape).
 template <class Density, class Shape = GroupShape<Density>, class... Params, class... Args>
 int launch_group(void (*kernel)(Params...), int n_consts, int64_t C, cudaStream_t stream,
                  Args... args) {

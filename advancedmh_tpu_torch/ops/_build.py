@@ -17,11 +17,10 @@ with it, 3.93 ms without) and the throughput kernel 5% at 16384 x 10000
 version's from 8.9e-7 to 2.6e-7 per chain-step. ``-Xptxas -v`` makes the
 compiler report registers, shared memory and spills for each kernel;
 :func:`build` returns that report. ``--split-compile=0`` compiles the kernels
-of one source in parallel threads: ``pcn.cu``, whose unrolled 64 × 64
-triangular matvec makes it the slowest source, took 84-211 s in five builds
-without it and 87-140 s with it on the H100 machine's 8 cores (the time
-varies with the machine's load); ``ess.cu``, which had the same matvec, builds
-in ~25 s since it forms L z a row group at a time on 8 lanes a chain.
+of one source in parallel threads. No source unrolls a 64 × 64 triangular
+matvec any more (ESS and pCN form L z a row group at a time on 8 lanes a
+chain, ``csrc/gp_group.cuh``): on the H100 machine's 8 cores every source
+builds in 14-29 s, ``meads.cu`` the slowest, and the build takes ~29 s.
 
 Which (density, d) pairs each kernel is instantiated for is said once, in
 its source's registry list; the library exports it (:func:`kernel_pairs`)
@@ -149,6 +148,8 @@ _SIGNATURES = {
     # seed, burn, thin, n_samples, offset, C, samples, lps, accs, stream
     "amh_pcn_sample": [_S, _I32, _I32, _P, _P, _P, _P, _P, _I32, _F, _F, _U64, _I64, _I64,
                        _I64, _U64, _I64, _P, _P, _P, _P],
+    # density, d, tril, n_consts, C, out (6 int64)
+    "amh_pcn_info": [_S, _I32, _I32, _I32, _I64, _P],
     # density, d, x, lp, mean, L, n, consts, n_consts, beta, fs, os,
     # adapt_start, seed, burn, thin, n_samples, offset, C, samples, lps, accs,
     # mean_out, L_out, n_out, stream
@@ -186,6 +187,8 @@ _SIGNATURES = {
     # C, lls, accs, eps_out, stream
     "amh_power_rwmh_sample": [_S, _I32, _I32, _P, _P, _P, _P, _P, _P, _I32, _F, _F, _F, _F,
                               _U64, _I64, _I64, _I64, _U64, _I64, _P, _P, _P, _P],
+    # density, d, adapt, n_consts, C, out (6 int64)
+    "amh_evidence_info": [_S, _I32, _I32, _I32, _I64, _P],
 }
 
 # An H100 block may use at most 227 KB of shared memory; the density's
@@ -293,11 +296,13 @@ def density_arg(cuda_density: Optional[str]) -> Optional[bytes]:
 
 
 def check_shared_memory(n_floats: int) -> None:
-    """Raise before any launch when ``n_floats`` float32 constants exceed
-    the shared memory one block can use."""
+    """Raise before any launch when ``n_floats`` float32 values (a density's
+    constants, or a kernel's whole layout) exceed the shared memory one
+    block can use."""
     if n_floats * 4 > MAX_SHARED_BYTES:
         raise ValueError(
-            f"the density's constants take {n_floats * 4} bytes of shared memory; "
+            f"the density's constants (with the kernel's staging) take {n_floats * 4} bytes "
+            f"of shared memory; "
             f"a block on this card may use at most {MAX_SHARED_BYTES} bytes (227 KB)"
         )
 
@@ -324,15 +329,19 @@ def launch_info(entry: str, kernel: str, cuda_density: str, d: int, n_consts: in
                 n_chains: int, *flags: int) -> dict:
     """The launch shape and occupancy on the current card of a kernel launched
     by ``csrc/hmc_group.cuh::launch_group`` (its C entry point ``entry``,
-    source ``kernel``: HMC, AdaptiveHMC, ChEES frozen, Barker, ESS) for a
-    (density, d) pair: chains a block, lanes a chain, threads a block,
-    blocks for ``n_chains`` chains, dynamic shared memory bytes, resident
-    blocks and warps an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).
-    ``flags`` are the entry point's int arguments after ``d``."""
+    source ``kernel``: HMC, AdaptiveHMC, ChEES frozen, Barker, ESS, pCN,
+    evidence) for a (density, d) pair: chains a block, lanes a chain,
+    threads a block, blocks for ``n_chains`` chains, dynamic shared memory
+    bytes, resident blocks and warps an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). ``flags`` are the
+    entry point's int arguments after ``d``. Raises as :func:`check` does,
+    and as :func:`check_shared_memory` when the kernel's shared memory
+    layout exceeds a block's."""
     lib = library()
     out = (ctypes.c_int64 * 6)()
     code = getattr(lib, entry)(density_arg(cuda_density), d, *flags, n_consts,
                                n_chains, ctypes.addressof(out))
+    check_shared_memory(out[4] // 4)
     check(lib, code, kernel, cuda_density, d)
     keys = ("chains_per_block", "lanes_per_chain", "threads", "blocks", "smem_bytes",
             "blocks_per_sm")

@@ -176,7 +176,8 @@ def fused_ess_sample(
     p, l = params_t.contiguous(), lp.contiguous()
     d, n_chains = p.shape
     flat, n_consts = flat_consts(consts, p.device)
-    _build.check_shared_memory(n_consts + mu.numel() + scale_arr.numel())
+    # raises before a launch the card would refuse
+    ess_launch_info(cuda_density, d, tril, n_consts, n_chains)
     f32 = dict(dtype=torch.float32, device=p.device)
     samples = torch.empty((n_samples, d, n_chains), **f32)
     lps = torch.empty((n_samples, 1, n_chains), **f32)

@@ -25,9 +25,13 @@ thinned draws at the frozen ``ε̄ = exp(log ε̄)`` (or ε₀), draw k after
 step's. Step j's noise is RWMH's (ops/rwmh.py::step_noise) of its absolute
 index, so the plain version equals the kernel given the same seed.
 
-Layout: chains on the last axis, x ``(d, B)``. The wrapper runs the plain
-version for tensors on the CPU, and for CUDA tensors launches the kernel or
-raises; ``fused_power_rwmh_sample.launches`` counts the launches.
+Layout: chains on the last axis, x ``(d, B)``. The kernel runs a chain of
+the logistic regression on 8 lanes, 16 chains a 128-thread block, with the
+likelihood's value alone (``csrc/group.cuh``), and the conjugate and flat
+likelihoods one thread a chain; :func:`evidence_launch_info` reports the
+shape. The wrapper runs the plain version for tensors on the CPU, and for
+CUDA tensors launches the kernel or raises;
+``fused_power_rwmh_sample.launches`` counts the launches.
 """
 from __future__ import annotations
 
@@ -164,7 +168,8 @@ def fused_power_rwmh_sample(
     lib = _build.library()
     d, n_chains = x_t.shape
     n_consts = sum(c.numel() for c in consts)
-    _build.check_shared_memory(n_consts + 3 * d)
+    # raises before a launch the card would refuse
+    evidence_launch_info(cuda_density, d, adapt, n_consts, n_chains)
     flat = torch.cat([c.reshape(-1).to(torch.float32) for c in consts] + [loc, scale]).contiguous()
     ins = [t.contiguous() for t in (x_t, ll, plp, beta, eps0)]
     f = dict(dtype=torch.float32, device=x_t.device)
@@ -185,3 +190,11 @@ def fused_power_rwmh_sample(
 
 
 fused_power_rwmh_sample.launches = 0
+
+
+def evidence_launch_info(cuda_density: str, d: int, adapt: bool, n_consts: int,
+                         n_chains: int) -> dict:
+    """:func:`~._build.launch_info` of the kernel with (``adapt``) or
+    without the dual averaging."""
+    return _build.launch_info("amh_evidence_info", "evidence", cuda_density, d, n_consts,
+                              n_chains, int(adapt))

@@ -16,9 +16,11 @@ from one Box-Muller draw, a layout choice not carried over).
 
 Layout: chains on the last axis, params ``(d, C)``, lp ``(1, C)``; ``loc``
 ``(d,)``, ``scale`` ``(d,)`` or the lower Cholesky factor ``(d, d)``. The
-wrapper runs the plain version for tensors on the CPU, and for CUDA tensors
-launches the kernel or raises; ``fused_pcn_sample.launches`` counts the
-launches.
+kernel runs a chain on 8 lanes, coordinate i on lane i mod 8, 16 chains a
+128-thread block, with ESS's prior draw (``csrc/gp_group.cuh``);
+:func:`pcn_launch_info` reports the shape. The wrapper runs the plain
+version for tensors on the CPU, and for CUDA tensors launches the kernel or
+raises; ``fused_pcn_sample.launches`` counts the launches.
 """
 from __future__ import annotations
 
@@ -102,7 +104,8 @@ def fused_pcn_sample(
     p, l = params_t.contiguous(), lp.contiguous()
     d, n_chains = p.shape
     flat, n_consts = flat_consts(consts, p.device)
-    _build.check_shared_memory(n_consts + mu.numel() + scale_arr.numel())
+    # raises before a launch the card would refuse
+    pcn_launch_info(cuda_density, d, tril, n_consts, n_chains)
     f32 = dict(dtype=torch.float32, device=p.device)
     samples = torch.empty((n_samples, d, n_chains), **f32)
     lps = torch.empty((n_samples, 1, n_chains), **f32)
@@ -119,3 +122,11 @@ def fused_pcn_sample(
 
 
 fused_pcn_sample.launches = 0
+
+
+def pcn_launch_info(cuda_density: str, d: int, tril: bool, n_consts: int,
+                    n_chains: int) -> dict:
+    """:func:`~._build.launch_info` of the kernel with a lower-triangular
+    (``tril``) or a diagonal prior scale."""
+    return _build.launch_info("amh_pcn_info", "pcn", cuda_density, d, n_consts, n_chains,
+                              int(tril))

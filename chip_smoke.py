@@ -3404,17 +3404,20 @@ def bound(name: str, C: int, steps: int, emitted: int, warmup: int = 0, d: int =
 
 def launch_report(models, gps, ptxas_lines) -> None:
     """The launch shapes of the kernels redesigned for the card (MEADS: a
-    cluster per tile; AdaptiveHMC, HMC, ChEES's frozen phase and Barker: a
-    group of chains a block; ESS: 8 lanes a chain on the GP likelihoods) at
-    the main paths' widths, with their occupancy and ptxas' registers and
-    spills. Fails if a group kernel of a fresh build spills on the logistic
-    regression, or an ESS kernel on any of its pairs."""
+    cluster per tile; AdaptiveHMC, HMC, ChEES's frozen phase, Barker and
+    the evidence kernel: a group of chains a block; ESS and pCN: 8 lanes a
+    chain on the GP likelihoods) at the main paths' widths, with their
+    occupancy and ptxas' registers and spills. Fails if a group kernel of a
+    fresh build spills on the logistic regression, or an ESS or pCN kernel
+    on any of its pairs."""
     from advancedmh_tpu_torch.ops.barker import barker_launch_info
     from advancedmh_tpu_torch.ops.chees import chees_frozen_launch_info
     from advancedmh_tpu_torch.ops.ess import ess_launch_info
+    from advancedmh_tpu_torch.ops.evidence import evidence_launch_info
     from advancedmh_tpu_torch.ops.hmc import hmc_launch_info
     from advancedmh_tpu_torch.ops.hmc_adapt import adaptive_hmc_launch_info
     from advancedmh_tpu_torch.ops.meads import meads_launch_info
+    from advancedmh_tpu_torch.ops.pcn import pcn_launch_info
     from advancedmh_tpu_torch.ops.rwmh import flat_consts
     from advancedmh_tpu_torch.runtime.fused import MAX_TILE, MEADS_BUDGET, fused_tile
 
@@ -3439,21 +3442,35 @@ def launch_report(models, gps, ptxas_lines) -> None:
               f"launched per SM {launched:.2f} on {n_sm} SMs")
         check(info["chains_per_block"] == 16 and info["threads"] == 128,
               f"{name}: the logistic regression does not run 16 chains of 8 lanes a block")
+    m = models["logreg_lik"]
+    n_consts = flat_consts(m.tile_consts, DEVICE)[1]
+    for adapt in (True, False):
+        info = evidence_launch_info(m.cuda_density, 32, adapt, n_consts, 16 * EV_CHAINS)
+        launched = info["blocks"] * info["threads"] / 32 / n_sm
+        print(f"launch power_rwmh logistic_regression d=32 adapt={adapt} C={16 * EV_CHAINS}: "
+              f"{info}; warps launched per SM {launched:.2f} on {n_sm} SMs")
+        check(info["chains_per_block"] == 16 and info["lanes_per_chain"] == 8
+              and info["blocks_per_sm"] >= 4,
+              "evidence: the logistic regression does not run 16 chains of 8 lanes a block, "
+              "4 an SM")
     for key in ("class64", "reg64"):
         m = gps[key][0]
         n_consts = flat_consts(m.tile_consts, DEVICE)[1]
-        for tril in (True, False):
-            info = ess_launch_info(m.cuda_density, 64, tril, n_consts, GP_CHAINS)
-            launched = info["blocks"] * info["threads"] / 32 / n_sm
-            print(f"launch ess_sample {m.cuda_density} d=64 tril={tril} C={GP_CHAINS}: {info}; "
-                  f"warps launched per SM {launched:.2f} on {n_sm} SMs")
-            check(info["chains_per_block"] == 16 and info["lanes_per_chain"] == 8
-                  and info["blocks_per_sm"] >= 4,
-                  f"ess: {m.cuda_density} does not run 16 chains of 8 lanes a block, 4 an SM")
+        for name, launch_info in (("ess_sample", ess_launch_info),
+                                  ("pcn_sample", pcn_launch_info)):
+            for tril in (True, False):
+                info = launch_info(m.cuda_density, 64, tril, n_consts, GP_CHAINS)
+                launched = info["blocks"] * info["threads"] / 32 / n_sm
+                print(f"launch {name} {m.cuda_density} d=64 tril={tril} C={GP_CHAINS}: "
+                      f"{info}; warps launched per SM {launched:.2f} on {n_sm} SMs")
+                check(info["chains_per_block"] == 16 and info["lanes_per_chain"] == 8
+                      and info["blocks_per_sm"] >= 4,
+                      f"{name}: {m.cuda_density} does not run 16 chains of 8 lanes a block, "
+                      f"4 an SM")
     if not ptxas_lines:
         print("  ptxas: the library was built before this run; no register report")
         return
-    for kernel in ("meads", *group):
+    for kernel in ("meads", *group, "power_rwmh"):
         lines = [ln for ln in ptxas_lines
                  if ln.startswith(f"{kernel}_kernel<LogisticRegression<32>")]
         check(bool(lines), f"ptxas reported no {kernel}_kernel on the logistic regression")
@@ -3461,11 +3478,12 @@ def launch_report(models, gps, ptxas_lines) -> None:
             print(f"  ptxas (redesigned): {line}")
             check(kernel == "meads" or " 0 bytes spill stores" in line,
                   f"{kernel}_kernel on the logistic regression spills")
-    lines = [ln for ln in ptxas_lines if ln.startswith("ess_sample_kernel<")]
-    check(len(lines) == 8, f"ptxas reported {len(lines)} of ESS's 8 kernels")
-    for line in lines:
-        print(f"  ptxas (redesigned): {line}")
-        check(" 0 bytes spill stores" in line, f"{line.split(':')[0]} spills")
+    for kernel in ("ess_sample", "pcn_sample"):
+        lines = [ln for ln in ptxas_lines if ln.startswith(f"{kernel}_kernel<")]
+        check(len(lines) == 8, f"ptxas reported {len(lines)} of {kernel}'s 8 kernels")
+        for line in lines:
+            print(f"  ptxas (redesigned): {line}")
+            check(" 0 bytes spill stores" in line, f"{line.split(':')[0]} spills")
 
 
 def ptxas_summary(report: str):
@@ -3556,10 +3574,12 @@ def main() -> None:
     path, build_s, report = _build.build()
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True).stdout.strip().splitlines()
-    print(f"build: {path.name} in {build_s:.2f} s ({nvcc[-1] if nvcc else 'nvcc'})")
-    for line in report.splitlines():
-        if line.startswith("amh build:"):
-            print(f"  {line}")
+    sources = [line for line in report.splitlines() if line.startswith("amh build:")]
+    slowest = max(sources, key=lambda line: float(line.split()[-2]), default=None)
+    print(f"build: {path.name} in {build_s:.2f} s ({nvcc[-1] if nvcc else 'nvcc'}); slowest "
+          f"source: {slowest.split(': ')[1] if slowest else 'none (built before this run)'}")
+    for line in sources:
+        print(f"  {line}")
     ptxas_lines = ptxas_summary(report)
     for line in ptxas_lines:
         print(f"  ptxas: {line}")

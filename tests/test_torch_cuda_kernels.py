@@ -872,21 +872,35 @@ def test_ess_group_kernel_is_bit_exact(C, lik, d, tril):
         assert _same_bits(a, torch.cat([b, c]))
 
 
+@pytest.mark.parametrize("C", [2000, 8190, 100])
 @pytest.mark.parametrize("lik", ["gaussian", "logistic"])
 @pytest.mark.parametrize("d", [16, 64])
 @pytest.mark.parametrize("tril", [True, False])
-def test_pcn_kernel_is_bit_exact_in_the_gp_order(lik, d, tril):
-    """pCN (one thread a chain) on the GP likelihoods' one-thread functors,
-    whose point sums take the 8 interleaved partials of the group form:
-    every output equal to the plain version's bits."""
+def test_pcn_kernel_is_bit_exact_in_the_gp_order(C, lik, d, tril):
+    """pCN on 8 lanes a chain (ESS's prior draw, csrc/gp_group.cuh) at every
+    instantiated pair, the points summed in the 8 interleaved partials of
+    the group form, on chain counts that are not a multiple of its 16-chain
+    blocks: every output equal to the plain version's bits, and a run split
+    in two and resumed through its draws and lp equal to the whole run."""
     from advancedmh_tpu_torch.ops import fused_pcn_sample, pcn_sample_reference
 
-    _, args = _gp_args(lik, d, tril, 2000, seed=131 + d)
-    kw = dict(beta=0.2, burn=3, thin=2, n_samples=16, iteration_offset=(1 << 32) - 7)
-    got = fused_pcn_sample(*args, **kw)
+    _, args = _gp_args(lik, d, tril, C, seed=131 + d)
+    offset = (1 << 32) - 7
+    kw = dict(beta=0.2, thin=2)
+    before = fused_pcn_sample.launches
+    got = fused_pcn_sample(*args, burn=3, n_samples=16, iteration_offset=offset, **kw)
     torch.cuda.synchronize()
-    for a, b in zip(got, pcn_sample_reference(*args, **kw)):
+    assert fused_pcn_sample.launches == before + 1
+    ref = pcn_sample_reference(*args, burn=3, n_samples=16, iteration_offset=offset, **kw)
+    for a, b in zip(got, ref):  # draws, lps, decisions
         assert _same_bits(a, b)
+    tile, dens, _, _, loc, scale, consts, seed = args
+    first = fused_pcn_sample(*args, burn=3, n_samples=5, iteration_offset=offset, **kw)
+    rest = fused_pcn_sample(tile, dens, first[0][-1].contiguous(), first[1][-1].contiguous(),
+                            loc, scale, consts, seed, burn=0, n_samples=11,
+                            iteration_offset=offset + 3 + 5 * 2, **kw)
+    for a, b, c in zip(got, first, rest):
+        assert _same_bits(a, torch.cat([b, c]))
 
 
 @pytest.mark.parametrize("target,C", [("logreg", 8190), ("logreg", 100), ("flagship", 4001),
@@ -951,11 +965,9 @@ def test_barker_and_ess_launch_shape(model, kernel, target, lanes, tril):
     assert info["blocks_per_sm"] >= (4 if lanes == 8 else 1)
 
 
-@pytest.mark.parametrize("source,n_kernels", [("barker.cu", 3), ("ess.cu", 8)])
-def test_barker_and_ess_do_not_spill(tmp_path, source, n_kernels):
-    """ptxas' report for every kernel of the source: no spill stores or
-    loads (one thread a chain spilled 456 B on Barker's logistic regression,
-    and ESS's d = 64 kernels at 255 registers)."""
+def _ptxas_report(tmp_path, source, n_kernels):
+    """ptxas' report for every kernel of the source, which spills nothing:
+    (mangled name, registers) of each kernel."""
     import re
     import subprocess
 
@@ -967,6 +979,59 @@ def test_barker_and_ess_do_not_spill(tmp_path, source, n_kernels):
     spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", report)
     assert len(spills) >= n_kernels, report
     assert all(a == "0" and b == "0" for a, b in spills), report
+    return re.findall(r"Compiling entry function '(\w+)'.*?Used (\d+) registers", report,
+                      re.S)
+
+
+@pytest.mark.parametrize("source,n_kernels", [("barker.cu", 3), ("ess.cu", 8)])
+def test_barker_and_ess_do_not_spill(tmp_path, source, n_kernels):
+    """ptxas' report for every kernel of the source: no spill stores or
+    loads (one thread a chain spilled 456 B on Barker's logistic regression,
+    and ESS's d = 64 kernels at 255 registers)."""
+    _ptxas_report(tmp_path, source, n_kernels)
+
+
+@pytest.mark.parametrize("source,n_kernels", [("evidence.cu", 6), ("pcn.cu", 8)])
+def test_evidence_and_pcn_do_not_spill(tmp_path, source, n_kernels):
+    """ptxas' report for every kernel of the source: no spills, and at most
+    128 registers in every kernel on 8 lanes a chain (the logistic
+    regression's evidence kernels, every pCN kernel), so that 4 blocks of
+    128 threads fit an SM (one thread a chain held pCN's d = 64 state at
+    203-214 registers)."""
+    kernels = _ptxas_report(tmp_path, source, n_kernels)
+    lanes8 = [(name, int(regs)) for name, regs in kernels
+              if "LogisticRegression" in name or source == "pcn.cu"]
+    assert len(lanes8) == (2 if source == "evidence.cu" else 8), kernels
+    assert all(regs <= 128 for _, regs in lanes8), kernels
+
+
+@pytest.mark.parametrize("kernel,target", [("evidence", "logreg"), ("evidence", "conjugate"),
+                                           ("pcn", "gaussian"), ("pcn", "logistic")])
+@pytest.mark.parametrize("flag", [True, False])
+def test_evidence_and_pcn_launch_shape(kernel, target, flag):
+    """The evidence kernel (``flag`` adapt) on the logistic regression's 8
+    lanes a chain and pCN (``flag`` tril) on the d = 64 GP likelihoods' 8
+    lanes: 16 chains a 128-thread block, at least 4 resident an SM; the
+    conjugate likelihood 64 chains of one thread a block."""
+    from advancedmh_tpu_torch.ops.evidence import evidence_launch_info
+    from advancedmh_tpu_torch.ops.pcn import pcn_launch_info
+    from advancedmh_tpu_torch.ops.rwmh import flat_consts
+
+    if kernel == "evidence":
+        m = _evidence_inputs(target, 64, 0)[0]
+        info = evidence_launch_info(m.cuda_density, m.dimension, flag,
+                                    flat_consts(m.tile_consts, "cuda")[1], 8190)
+        lanes = 8 if target == "logreg" else 1
+    else:
+        m, _, _ = _gp(64, target)
+        info = pcn_launch_info(m.cuda_density, 64, flag, flat_consts(m.tile_consts, "cuda")[1],
+                               8190)
+        lanes = 8
+    threads = 128 if lanes == 8 else 64
+    assert info["lanes_per_chain"] == lanes and info["threads"] == threads
+    assert info["chains_per_block"] * lanes == threads
+    assert info["blocks"] == -(-8190 // info["chains_per_block"])
+    assert info["blocks_per_sm"] >= (4 if lanes == 8 else 1)
 
 
 # ---- slice 6: Adaptive Metropolis, delayed rejection, DRAM ---------------------------
@@ -1305,6 +1370,62 @@ def test_evidence_kernel_matches_plain(target, adapt, per_rung, C, burn, thin, n
     ok = dec.all(dim=0) & _close(got[0], ref[0]).all(dim=0)[0] & _close(got[2], ref[2])[0]
     assert float(dec.float().mean()) >= 0.999 and float(ok.float().mean()) >= 0.999
     assert torch.all(got[1][:, 0, 0] == 0) and torch.all(got[0][:, 0, 0] == -float("inf"))
+
+
+def _evidence_steps(m, x, ll, plp, beta, eps, loc, scale, seed, offset, n):
+    """The plain version's state (x, ll, plp) after n steps at a fixed ε."""
+    from advancedmh_tpu_torch.ops.evidence import gaussian_prior_lp, power_step
+    from advancedmh_tpu_torch.ops.rwmh import step_noise
+
+    lo, sc = loc[:, None], scale[:, None]
+    prior = lambda y: gaussian_prior_lp(y, lo, sc, torch.log(sc))
+    lik = lambda y: m.tile_density(y, *m.tile_consts)
+    z, logu = step_noise(seed, offset + 1, n, x.shape[1], x.shape[0], x.device)
+    for i in range(n):
+        x, ll, plp, _ = power_step(x, ll, plp, beta, eps, z[i], logu[i][None], lik, prior)
+    return x.contiguous(), ll.contiguous(), plp.contiguous()
+
+
+@pytest.mark.parametrize("target,C", [("logreg", 8190), ("logreg", 100), ("conjugate", 4001),
+                                      ("flat", 4001)])
+@pytest.mark.parametrize("adapt", [True, False])
+def test_evidence_group_kernel_is_bit_exact(target, C, adapt):
+    """The evidence kernel on the logistic regression's 8 lanes a chain (its
+    value alone, csrc/group.cuh) on chain counts that are not a multiple of
+    its 16-chain blocks, and on the conjugate and flat likelihoods at one
+    thread a chain; per-chain ε₀, burn 5, thin 3, offsets near 2**32: every
+    output (log-likelihoods, decisions, ε̄) equal to the plain version's
+    bits, the β = 0 chain beside ll = -inf never accepting, and without
+    adaptation a run resumed from the plain steps' (x, ll, plp) equal to
+    the whole run."""
+    from advancedmh_tpu_torch.ops import fused_power_rwmh_sample, power_rwmh_reference
+
+    m, x, ll, plp, beta, loc, scale = _evidence_inputs(target, C, C + 11)
+    eps0 = torch.tensor(np.random.default_rng(C).uniform(0.02, 0.6, (1, C)),
+                        dtype=torch.float32, device="cuda")
+    seed, offset = 67, (1 << 32) - 9
+    args = (m.tile_density, m.cuda_density, x, ll, plp, beta, eps0, loc, scale, m.tile_consts,
+            seed)
+    kw = dict(burn=5, thin=3, adapt=adapt)
+    before = fused_power_rwmh_sample.launches
+    got = fused_power_rwmh_sample(*args, n_samples=6, iteration_offset=offset, **kw)
+    torch.cuda.synchronize()
+    assert fused_power_rwmh_sample.launches == before + 1
+    ref = power_rwmh_reference(*args, n_samples=6, iteration_offset=offset, **kw)
+    for a, b in zip(got, ref):  # log-likelihoods, decisions, ε̄
+        assert _same_bits(a, b)
+    assert torch.all(got[1][:, 0, 0] == 0) and torch.all(got[0][:, 0, 0] == -float("inf"))
+    if adapt:
+        return
+    first = fused_power_rwmh_sample(*args, n_samples=2, iteration_offset=offset, **kw)
+    state = _evidence_steps(m, x, ll, plp, beta, eps0, loc, scale, seed, offset, 5 + 2 * 3)
+    rest = fused_power_rwmh_sample(m.tile_density, m.cuda_density, *state, beta, eps0, loc,
+                                   scale, m.tile_consts, seed, n_samples=4, burn=0, thin=3,
+                                   adapt=False, iteration_offset=offset + 5 + 2 * 3)
+    assert _same_bits(first[0][-1], state[1])
+    for a, b, c in zip(got[:2], first[:2], rest[:2]):
+        assert _same_bits(a, torch.cat([b, c]))
+    assert _same_bits(got[2], rest[2])
 
 
 def test_evidence_wrapper_raises_for_what_has_no_kernel():

@@ -18,8 +18,9 @@ classification and regression (8192 x (499 + 4000), the prior's factor,
 max_shrink 24, from prior draws) and pCN on the regression (8192 x (1999 +
 4000), beta 0.2); these last three through the public fused_ess_sample and
 fused_pcn_sample only. The inputs are the same in every turn. It prints
-the card's name and power limit, one line per turn, and a table of each
-kernel's times with the mean of each side. Needs one CUDA GPU; it imports
+the card's name and power limit, one line per turn (with the seconds the
+turn spent building its checkout's kernels), and a table of each kernel's
+times with the mean of each side. Needs one CUDA GPU; it imports
 nothing of JAX.
 """
 from __future__ import annotations
@@ -40,7 +41,9 @@ PCN_WARM, PCN_BETA = 2000, 0.2
 
 
 def _time_in(root: str) -> dict:
-    """The kernels' best-of-3 milliseconds in the checkout at ``root``."""
+    """The kernels' best-of-3 milliseconds in the checkout at ``root``, and
+    the seconds its kernels took to build in this turn (0 when built
+    before)."""
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
     import torch
@@ -57,6 +60,7 @@ def _time_in(root: str) -> dict:
     from advancedmh_tpu_torch.runtime.fused import (MAX_TILE, MEADS_BUDGET, fused_tile,
                                                     sample_fused_chees)
 
+    _, build_s, _ = _build.build()
     _build.library()
     dev = "cuda"
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -144,7 +148,7 @@ def _time_in(root: str) -> dict:
                                                     thin=1, n_samples=N_DRAWS))
     ms["pcn"], _ = best(lambda: fused_pcn_sample(*gargs, beta=PCN_BETA, burn=PCN_WARM - 1,
                                                  thin=1, n_samples=N_DRAWS))
-    return ms
+    return {"build_s": build_s, "ms": ms}
 
 
 def _card() -> str:
@@ -175,9 +179,10 @@ def main() -> None:
                            capture_output=True, text=True)
         if r.returncode != 0:
             sys.exit(f"kernel_ab: the turn in {root} failed:\n{r.stdout}\n{r.stderr}")
-        ms = json.loads(r.stdout.strip().splitlines()[-1])
-        print(f"turn {side} ({root}, {time.perf_counter() - t0:.1f} s): {json.dumps(ms)}",
-              flush=True)
+        out = json.loads(r.stdout.strip().splitlines()[-1])
+        ms = out["ms"]
+        print(f"turn {side} ({root}, {time.perf_counter() - t0:.1f} s, build "
+              f"{out['build_s']:.1f} s): {json.dumps(ms)}", flush=True)
         turns.append((side, ms))
     print(f"[{card}] kernel ms, best of 3 a turn, turns A B B A")
     for name in turns[0][1]:
