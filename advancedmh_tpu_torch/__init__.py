@@ -104,6 +104,7 @@ from .runtime import (
 )
 from .output import Chains, StructArray, chainscat
 from .diagnostics import ess, ess_bulk, ess_tail, mcse, rhat, rhat_rank
+from .utils.trace import tracing
 
 __version__ = "0.1.0"
 
@@ -137,4 +138,6 @@ __all__ = [
     # output / diagnostics
     "Chains", "StructArray", "chainscat", "ess", "ess_bulk", "ess_tail",
     "rhat", "rhat_rank", "mcse",
+    # tracing
+    "tracing",
 ]

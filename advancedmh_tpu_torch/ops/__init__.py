@@ -37,6 +37,7 @@ from .tempering import (fused_tempering_sample, ladder_constants, tempering_samp
                         tempering_step)
 
 # Every kernel wrapper, by its name in chip_smoke.py's report.
+# Each call of one is the span ``kernel.<name>`` (utils/trace.py).
 KERNEL_WRAPPERS = {
     "rwmh_sample": fused_rwmh_sample,
     "rwmh": fused_rwmh,

@@ -24,6 +24,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from ..utils.trace import traced
 from . import _build
 from .hmc_adapt import DualAveraging, dual_average_step
 from .rwmh import _check, _noise_chunk, check_cuda_launch, flat_consts, step_noise
@@ -76,6 +77,7 @@ def adapt_rwmh_reference(
     return samples, lps, accs, leb
 
 
+@traced("kernel.adapt_rwmh")
 def fused_adapt_rwmh_sample(
     tile_fn: Callable, cuda_density: Optional[str], params_t: torch.Tensor,
     lp: torch.Tensor, consts: Sequence[torch.Tensor], seed: int, *, warmup: int,

@@ -29,6 +29,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.trace import traced
 from . import _build
 from .cholesky import chol_rank1_update_batched
 from .rwmh import _noise_chunk, box_muller, check_cuda_launch, flat_consts, philox_uniforms
@@ -192,6 +193,7 @@ def launch_am_family(lib_fn, kernel, cuda_density, params_t, lp, mean, L, n, con
     return outs
 
 
+@traced("kernel.am")
 def fused_am_sample(
     tile_fn: Callable, cuda_density: Optional[str], params_t: torch.Tensor,
     lp: torch.Tensor, mean: torch.Tensor, L: torch.Tensor, n: torch.Tensor,

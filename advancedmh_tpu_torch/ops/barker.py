@@ -29,6 +29,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils.trace import traced
 from . import _build
 from .rwmh import (_noise_chunk, box_muller, check_cuda_launch, flat_consts, philox_uniforms,
                    row_sum, softplus)
@@ -82,6 +83,7 @@ def barker_sample_reference(
     return samples, lps, accs, g
 
 
+@traced("kernel.barker")
 def fused_barker_sample(
     value_and_grad: Callable, cuda_density: Optional[str], params_t: torch.Tensor,
     lp: torch.Tensor, grad: torch.Tensor, consts: Sequence[torch.Tensor], seed: int, *,

@@ -50,6 +50,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
+from ..utils.trace import traced
 from . import _build
 from .hmc import check_hmc_args, f32, hmc_propose, hmc_step
 from .pooling import full, n_blocks, nan_max, nan_min, per_chain, tile_sums
@@ -232,6 +233,7 @@ def chees_warmup_reference(
     return x, l, g, acc.to(torch.float32), sv_tiles, sum1, sum2
 
 
+@traced("kernel.chees_warmup")
 def fused_chees_warmup_block(
     value_and_grad: Callable, cuda_density: Optional[str],
     params_t: torch.Tensor, lp: torch.Tensor, grad: torch.Tensor,
@@ -328,6 +330,7 @@ def chees_frozen_reference(
     return samples, lps, accs, g
 
 
+@traced("kernel.chees_frozen")
 def fused_chees_frozen_sample(
     value_and_grad: Callable, cuda_density: Optional[str],
     params_t: torch.Tensor, lp: torch.Tensor, grad: torch.Tensor,

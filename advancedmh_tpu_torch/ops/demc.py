@@ -36,6 +36,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from ..utils.trace import traced
 from . import _build
 from .rwmh import _noise_chunk, box_muller, check_cuda_launch, flat_consts, philox_uniforms, row_sum
 
@@ -176,6 +177,7 @@ def demc_sample_reference(
     return samples, lps, accs
 
 
+@traced("kernel.demc")
 def fused_demc_sample(
     tile_fn: Callable, cuda_density: Optional[str], params_t: torch.Tensor,
     lp: torch.Tensor, consts: Sequence[torch.Tensor], seed: int, *, params: DemcParams,

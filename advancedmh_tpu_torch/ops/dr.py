@@ -25,6 +25,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from ..utils.trace import traced
 from . import _build
 from .rwmh import (_noise_chunk, box_muller, check_cuda_launch, flat_consts, philox_uniforms,
                    row_sum, scale_block)
@@ -112,6 +113,7 @@ def dr_sample_reference(
     return samples, lps, accs
 
 
+@traced("kernel.dr")
 def fused_dr_sample(
     tile_fn: Callable, cuda_density: Optional[str], params_t: torch.Tensor,
     lp: torch.Tensor, scale1, scale2, consts: Sequence[torch.Tensor], seed: int, *,

@@ -30,6 +30,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.trace import traced
 from .am import check_am_family, launch_am_family, run_am_family, tri_rows, welford_advance
 from .dr import log1m_exp
 from .rwmh import box_muller, row_sum
@@ -89,6 +90,7 @@ def dram_sample_reference(
                          n_samples, iteration_offset)
 
 
+@traced("kernel.dram")
 def fused_dram_sample(
     tile_fn: Callable, cuda_density: Optional[str], params_t: torch.Tensor,
     lp: torch.Tensor, mean: torch.Tensor, L: torch.Tensor, n: torch.Tensor,

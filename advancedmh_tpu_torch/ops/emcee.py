@@ -26,6 +26,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from ..utils.trace import traced
 from . import _build
 from .rwmh import (_MASK32, check_cuda_launch, flat_consts, philox4x32_reference,
                    uniform_from_bits)
@@ -133,6 +134,7 @@ def emcee_sample_reference(
     return samples, lps, accs
 
 
+@traced("kernel.emcee")
 def fused_emcee_sample(
     tile_fn: Callable, cuda_density: Optional[str], params_t: torch.Tensor,
     lp: torch.Tensor, consts: Sequence[torch.Tensor], seed: int, *,

@@ -32,6 +32,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from ..utils.trace import traced
 from . import _build
 from .rwmh import (_TWO_PI, _noise_chunk, _perturb, box_muller, check_cuda_launch,
                    flat_consts, philox_uniforms, scale_block)
@@ -151,6 +152,7 @@ def prior_args(params_t, loc, scale):
     return mu.expand(d).contiguous(), scale_arr, tril
 
 
+@traced("kernel.ess")
 def fused_ess_sample(
     tile_fn: Callable, cuda_density: Optional[str], params_t: torch.Tensor,
     lp: torch.Tensor, loc, scale, consts: Sequence[torch.Tensor], seed: int, *,

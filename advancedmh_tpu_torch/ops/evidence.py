@@ -41,6 +41,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from ..utils.trace import traced
 from . import _build
 from .hmc import f32
 from .hmc_adapt import dual_average_step
@@ -144,6 +145,7 @@ def power_rwmh_reference(
     return lls, accs, eps.clone()
 
 
+@traced("kernel.evidence")
 def fused_power_rwmh_sample(
     tile_fn: Callable, cuda_density: Optional[str], x_t: torch.Tensor, ll: torch.Tensor,
     plp: torch.Tensor, beta: torch.Tensor, eps0: torch.Tensor, loc: torch.Tensor,

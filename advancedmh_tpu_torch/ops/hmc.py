@@ -29,6 +29,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils.trace import traced
 from . import _build
 from .rwmh import _noise_chunk, check_cuda_launch, flat_consts, row_sum, step_noise
 
@@ -129,6 +130,7 @@ def check_hmc_args(params_t, lp, grad, consts, counts, n_leapfrog):
             raise ValueError("params_t, lp, grad and consts must be on one device")
 
 
+@traced("kernel.hmc")
 def fused_hmc_sample(
     value_and_grad: Callable, cuda_density: Optional[str],
     params_t: torch.Tensor, lp: torch.Tensor, grad: torch.Tensor,

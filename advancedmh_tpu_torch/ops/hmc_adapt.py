@@ -31,6 +31,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from ..utils.trace import traced
 from . import _build
 from .hmc import check_hmc_args, f32, hmc_step
 from .rwmh import _noise_chunk, check_cuda_launch, flat_consts, step_noise
@@ -148,6 +149,7 @@ def adaptive_hmc_reference(
     return samples, lps, accs, leb, minv, g
 
 
+@traced("kernel.adaptive_hmc")
 def fused_adaptive_hmc_sample(
     value_and_grad: Callable, cuda_density: Optional[str],
     params_t: torch.Tensor, lp: torch.Tensor, grad: torch.Tensor,

@@ -24,6 +24,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.trace import traced
 from . import _build
 from .rwmh import _noise_chunk, check_cuda_launch, flat_consts, row_sum, step_noise
 
@@ -88,6 +89,7 @@ def mala_sample_reference(
     return samples, lps, accs, g
 
 
+@traced("kernel.mala")
 def fused_mala_sample(
     value_and_grad: Callable, cuda_density: Optional[str],
     params_t: torch.Tensor, lp: torch.Tensor, grad: torch.Tensor,

@@ -40,6 +40,7 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from ..utils.trace import traced
 from . import _build
 from .hmc import f32
 from .pooling import cluster_sum, full, nan_max, nan_min, tile_groups, tree_sum
@@ -252,6 +253,7 @@ def meads_reference(
     return samples, lps, accs, x, l, g, pp, uu
 
 
+@traced("kernel.meads")
 def fused_meads_sample(
     value_and_grad: Callable, cuda_density: Optional[str],
     params_t: torch.Tensor, lp: torch.Tensor, grad: torch.Tensor, p: torch.Tensor,

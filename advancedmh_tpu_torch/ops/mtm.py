@@ -38,6 +38,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from ..utils.trace import traced
 from . import _build
 from .rwmh import _check, _cuda_args, _noise_chunk, _perturb, box_muller, philox_uniforms, scale_block
 
@@ -165,6 +166,7 @@ def _check_k(k) -> int:
     return int(k)
 
 
+@traced("kernel.mtm_sample")
 def fused_mtm_sample(
     tile_fn: Callable, cuda_density: Optional[str], params_t: torch.Tensor,
     lp: torch.Tensor, scale, consts: Sequence[torch.Tensor], seed: int, *,
@@ -197,6 +199,7 @@ def fused_mtm_sample(
     return samples, lps, accs
 
 
+@traced("kernel.mtm")
 def fused_mtm(
     tile_fn: Callable, cuda_density: Optional[str], params_t: torch.Tensor,
     lp: torch.Tensor, scale, consts: Sequence[torch.Tensor], seed: int, *,

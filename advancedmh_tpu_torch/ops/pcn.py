@@ -30,6 +30,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.trace import traced
 from . import _build
 from .ess import check_prior_step, prior_args
 from .rwmh import _noise_chunk, _perturb, check_cuda_launch, flat_consts, step_noise
@@ -82,6 +83,7 @@ def pcn_sample_reference(
     return samples, lps, accs
 
 
+@traced("kernel.pcn")
 def fused_pcn_sample(
     tile_fn: Callable, cuda_density: Optional[str], params_t: torch.Tensor,
     lp: torch.Tensor, loc, scale, consts: Sequence[torch.Tensor], seed: int, *,

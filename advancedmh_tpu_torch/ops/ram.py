@@ -25,6 +25,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils.trace import traced
 from . import _build
 from .cholesky import chol_rank1_update_batched
 from .rwmh import _noise_chunk, check_cuda_launch, flat_consts, row_sum, step_noise
@@ -122,6 +123,7 @@ def ram_sample_reference(
     return samples, lps, accs, s_rows
 
 
+@traced("kernel.ram")
 def fused_ram_sample(
     tile_fn: Callable, cuda_density: Optional[str], params_t: torch.Tensor,
     lp: torch.Tensor, S: torch.Tensor, consts: Sequence[torch.Tensor],

@@ -29,6 +29,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
+from ..utils.trace import traced
 from . import _build
 
 _TWO_PI = 6.283185307179586
@@ -277,6 +278,7 @@ def _cuda_args(params_t, lp, scale, consts, seed, iteration_offset):
             scale_arr, flat, n_consts)
 
 
+@traced("kernel.rwmh_sample")
 def fused_rwmh_sample(
     tile_fn: Callable, cuda_density: Optional[str], params_t: torch.Tensor,
     lp: torch.Tensor, scale, consts: Sequence[torch.Tensor], seed: int, *,
@@ -312,6 +314,7 @@ def fused_rwmh_sample(
     return samples, lps, accs
 
 
+@traced("kernel.rwmh")
 def fused_rwmh(
     tile_fn: Callable, cuda_density: Optional[str], params_t: torch.Tensor,
     lp: torch.Tensor, scale, consts: Sequence[torch.Tensor], seed: int, *,

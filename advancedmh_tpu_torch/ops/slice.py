@@ -29,6 +29,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from ..utils.trace import traced
 from . import _build
 from .rwmh import _noise_chunk, box_muller, check_cuda_launch, flat_consts, philox_uniforms
 
@@ -150,6 +151,7 @@ def _check(params_t, lp, consts, width, max_stepout, max_shrink, burn, thin, n_s
             raise ValueError("params_t, lp and consts must be on one device")
 
 
+@traced("kernel.slice")
 def fused_slice_sample(
     tile_fn: Callable, cuda_density: Optional[str], params_t: torch.Tensor,
     lp: torch.Tensor, consts: Sequence[torch.Tensor], seed: int, *, width: float,

@@ -34,6 +34,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils.trace import traced
 from . import _build
 from .rwmh import _noise_chunk, box_muller, check_cuda_launch, flat_consts, philox_uniforms
 
@@ -133,6 +134,7 @@ def tempering_sample_reference(
     return samples, lps, accs, torch.cat(x), torch.cat(el), sw
 
 
+@traced("kernel.tempering")
 def fused_tempering_sample(
     tile_fn: Callable, cuda_density: Optional[str], x_t: torch.Tensor, ell: torch.Tensor,
     consts: Sequence[torch.Tensor], seed: int, *, betas, scale, replica_scales=None,

@@ -7,6 +7,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils.trace import traced
 from .chains import Chains
 from .flatten import flatten_params
 
@@ -18,6 +19,7 @@ def _is_ensemble(result) -> bool:
     return bool(getattr(result.sampler, "is_population", False))
 
 
+@traced("bundle")
 def bundle_chains(result, param_names: Optional[Sequence[str]] = None) -> Chains:
     params = result.transitions.params
     lp = result.transitions.lp

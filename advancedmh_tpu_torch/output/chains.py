@@ -10,6 +10,17 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from ..diagnostics import ess, mcse, rhat
+from ..utils.trace import host_sync, span, traced
+
+
+def _std(x: torch.Tensor) -> torch.Tensor:
+    return torch.std(x, correction=0)
+
+
+def _statistic(name: str, fn, x: torch.Tensor) -> float:
+    """``float(fn(x))`` as the span ``name``."""
+    with span(name):
+        return host_sync("summary", float, fn(x))
 
 
 class Chains:
@@ -82,21 +93,23 @@ class Chains:
         flat = self.values.permute(0, 2, 1).reshape(-1, self.n_params)
         return torch.cov(flat.T)
 
+    @traced("summary")
     def summary(self) -> Dict[str, Dict[str, float]]:
         """Per-parameter mean/std/naive_se/mcse/ess/rhat (≙ MCMCChains
-        summarystats)."""
+        summarystats). Each statistic is the span ``summary.<statistic>``,
+        its host read the sync ``summary``."""
         out: Dict[str, Dict[str, float]] = {}
         for i, name in enumerate(self.names):
             x = self.values[:, i, :]
             n_total = x.shape[0] * x.shape[1]
-            std = float(torch.std(x, correction=0))
+            std = _statistic("summary.std", _std, x)
             out[name] = {
-                "mean": float(torch.mean(x)),
+                "mean": _statistic("summary.mean", torch.mean, x),
                 "std": std,
                 "naive_se": std / n_total**0.5,
-                "mcse": float(mcse(x)),
-                "ess": float(ess(x)),
-                "rhat": float(rhat(x)),
+                "mcse": _statistic("summary.mcse", mcse, x),
+                "ess": _statistic("summary.ess", ess, x),
+                "rhat": _statistic("summary.rhat", rhat, x),
             }
         return out
 

@@ -89,6 +89,7 @@ from ..samplers.mtm import MultipleTryMetropolis
 from ..samplers.ram import RobustAdaptiveMetropolisState
 from ..samplers.tempering import ReplicaExchangeState
 from ..utils.keys import fold_in, splitmix64, step_generator
+from ..utils.trace import host_sync, span, traced
 from ..utils.tree import tree_flatten
 
 _NOT_PORTED = (
@@ -105,9 +106,10 @@ _NOT_PORTED = (
 )
 
 
-def _numpy(v) -> np.ndarray:
+def _numpy(v, site: str) -> np.ndarray:
+    """``v`` as a host array; a tensor's read is a host sync at ``site``."""
     if isinstance(v, torch.Tensor):
-        return v.detach().cpu().numpy()
+        return host_sync(site, lambda: v.detach().cpu().numpy())
     return np.asarray(v)
 
 
@@ -125,16 +127,22 @@ def _rw_leaf_scale(p, d: int) -> np.ndarray:
         raise ValueError(_NOT_PORTED.format(what="the proposal is not a single RandomWalkProposal leaf"))
     payload = p.payload
     if isinstance(payload, (MvNormal, Normal)):
-        if not np.allclose(_numpy(payload.loc), 0.0):
+        if not np.allclose(_numpy(payload.loc, "proposal"), 0.0):
             raise ValueError(_NOT_PORTED.format(what="the increment is not zero-mean"))
         if isinstance(payload, MvNormal) and payload.scale_tril is not None:
-            return np.tril(_numpy(payload.scale_tril).astype(np.float32))
+            return np.tril(_numpy(payload.scale_tril, "proposal").astype(np.float32))
         if isinstance(payload, MvNormal) and payload.scale_diag is not None:
-            return np.broadcast_to(_numpy(payload.scale_diag), (d,))
-        return np.broadcast_to(_numpy(payload.scale), (d,))
+            return np.broadcast_to(_numpy(payload.scale_diag, "proposal"), (d,))
+        return np.broadcast_to(_numpy(payload.scale, "proposal"), (d,))
     raise ValueError(
         _NOT_PORTED.format(what=f"payload {type(payload).__name__} is not Normal or MvNormal")
     )
+
+
+def _rw_scale_on_device(sampler, d: int, device) -> torch.Tensor:
+    """:func:`_extract_rw_scale` copied to ``device`` (a blocking copy)."""
+    return host_sync("scale", torch.as_tensor, np.ascontiguousarray(_extract_rw_scale(sampler, d)),
+                     dtype=torch.float32, device=device)
 
 
 def fused_seed(master: int) -> int:
@@ -154,7 +162,7 @@ def _tile(model, attr: str = "tile_density"):
     return fn, tuple(model.tile_consts)
 
 
-def _chain_block(model, initial_params, num_chains: int):
+def _block_of(model, initial_params, num_chains: int):
     """Initial params as the kernels' (d, C) block on the model's device:
     one point broadcast to every chain, or one row per chain."""
     if initial_params is None:
@@ -167,10 +175,16 @@ def _chain_block(model, initial_params, num_chains: int):
     return init.T.contiguous()
 
 
-def _chains_layout(samples, lps, accs):
+_chain_block = traced("fused.start")(_block_of)
+
+
+def _layout(samples, lps, accs):
     """(N, d, C), (N, 1, C) → (C, N, d), (C, N), (C, N) bool. Views:
     bundling into Chains permutes back to the kernel's contiguous layout."""
     return samples.permute(2, 0, 1), lps[:, 0, :].T, accs[:, 0, :].T > 0.5
+
+
+_chains_layout = traced("fused.layout")(_layout)
 
 
 def sample_fused(
@@ -201,20 +215,22 @@ def sample_fused(
                   iteration_offset=iteration_offset)
     if isinstance(sampler, DelayedRejection):
         # a full-covariance stage raises in ops/dr.py::stage_scales
-        s1, s2 = (torch.as_tensor(np.array(_rw_leaf_scale(p, d), np.float32),
-                                  device=model.device) for p in (sampler.first, sampler.second))
+        with span("fused.prepare"):
+            s1, s2 = (host_sync("scale", torch.as_tensor,
+                                np.array(_rw_leaf_scale(p, d), np.float32), device=model.device)
+                      for p in (sampler.first, sampler.second))
         samples, lps, accs = fused_dr_sample(
             tile_fn, model.cuda_density, params_t, lp0, s1, s2, consts, fused_seed(key),
             **common)
     elif isinstance(sampler, MultipleTryMetropolis):  # before RWMH: an MTM is an MH
-        scale = torch.as_tensor(np.ascontiguousarray(_extract_rw_scale(sampler, d)),
-                                dtype=torch.float32, device=model.device)
+        with span("fused.prepare"):
+            scale = _rw_scale_on_device(sampler, d, model.device)
         samples, lps, accs = fused_mtm_sample(
             tile_fn, model.cuda_density, params_t, lp0, scale, consts, fused_seed(key),
             k=int(sampler.k), **common)
     else:
-        scale = torch.as_tensor(np.ascontiguousarray(_extract_rw_scale(sampler, d)),
-                                dtype=torch.float32, device=model.device)
+        with span("fused.prepare"):
+            scale = _rw_scale_on_device(sampler, d, model.device)
         samples, lps, accs = fused_rwmh_sample(
             tile_fn, model.cuda_density, params_t, lp0, scale, consts, fused_seed(key), **common)
     return _finish_plain(samples, lps, accs)
@@ -567,7 +583,7 @@ def _diagonal_inverse_mass(inverse_mass):
     if isinstance(inverse_mass, dict):
         raise ValueError(msg)
     try:
-        m = np.asarray(_numpy(inverse_mass), np.float32)
+        m = np.asarray(_numpy(inverse_mass, "inverse_mass"), np.float32)
     except (TypeError, ValueError):
         raise ValueError(msg) from None
     if m.ndim > 1:
@@ -1063,20 +1079,21 @@ def _extract_ess_prior(sampler, d: int):
     engine='torch')."""
     p = sampler.prior
     if isinstance(p, MvNormal):
-        loc = np.broadcast_to(_numpy(p.loc).astype(np.float32), (d,))
+        loc = np.broadcast_to(_numpy(p.loc, "prior").astype(np.float32), (d,))
         if p.scale_tril is not None:
-            return loc, np.tril(_numpy(p.scale_tril).astype(np.float32))
+            return loc, np.tril(_numpy(p.scale_tril, "prior").astype(np.float32))
         if p.scale_diag is not None:
-            return loc, np.broadcast_to(_numpy(p.scale_diag), (d,))
-        return loc, np.broadcast_to(_numpy(p.scale), (d,))
+            return loc, np.broadcast_to(_numpy(p.scale_diag, "prior"), (d,))
+        return loc, np.broadcast_to(_numpy(p.scale, "prior"), (d,))
     if isinstance(p, Normal):
-        return (np.broadcast_to(_numpy(p.loc).astype(np.float32), (d,)),
-                np.broadcast_to(_numpy(p.scale).astype(np.float32), (d,)))
+        return (np.broadcast_to(_numpy(p.loc, "prior").astype(np.float32), (d,)),
+                np.broadcast_to(_numpy(p.scale, "prior").astype(np.float32), (d,)))
     raise ValueError(
         "engine='fused' EllipticalSlice needs a single Normal/MvNormal prior leaf "
         "(pytree priors: use engine='torch').")
 
 
+@traced("fused.start")
 def _start_block(model, num_chains: int, initial_params, initial_state, tile_fn, consts,
                  prior_start=None):
     """The kernels' (d, C) start and its lp (1, C): a resumed state's own
@@ -1089,12 +1106,13 @@ def _start_block(model, num_chains: int, initial_params, initial_state, tile_fn,
     if initial_params is None and prior_start is not None:
         params_t = prior_start().T.contiguous()
     else:
-        params_t = _chain_block(model, initial_params, num_chains)
+        params_t = _block_of(model, initial_params, num_chains)
     return params_t, tile_fn(params_t, *consts)
 
 
+@traced("fused.layout")
 def _finish_plain(samples, lps, accs):
-    params, lp, accepted = _chains_layout(samples, lps, accs)
+    params, lp, accepted = _layout(samples, lps, accs)
     return (Transition(params, lp, accepted),
             Transition(params[:, -1, :], lp[:, -1], accepted[:, -1]))
 
@@ -1141,9 +1159,10 @@ def _prior_sampler_start(model, sampler, key, num_chains, initial_params, initia
             raise ValueError("engine='fused' ESS and pCN need model.dimension or "
                              "initial_params")
         src = initial_state.params if initial_state is not None else initial_params
-        d = int(np.asarray(_numpy(src)).shape[-1])
-    as_t = lambda a: torch.as_tensor(np.array(a, np.float32), device=dev)
-    loc, scale = (as_t(a) for a in _extract_ess_prior(sampler, d))
+        d = int(np.asarray(_numpy(src, "initial")).shape[-1])
+    as_t = lambda a: host_sync("prior", torch.as_tensor, np.array(a, np.float32), device=dev)
+    with span("fused.prepare"):
+        loc, scale = (as_t(a) for a in _extract_ess_prior(sampler, d))
 
     def prior_start():
         z = torch.randn((num_chains, d), generator=step_generator(key, 0, dev), device=dev)

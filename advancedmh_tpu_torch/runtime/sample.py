@@ -28,6 +28,7 @@ import torch
 from ..models.density import as_model
 from ..samplers.base import Sampler
 from ..utils.keys import as_key, fold_in, step_generator
+from ..utils.trace import host_sync, traced
 from ..utils.tree import tree_flatten, tree_map
 from .schedule import Schedule
 
@@ -197,16 +198,24 @@ class SamplingResult:
 
 def _on_device(tree, device):
     """Initial params as float32 tensors on ``device``; a flat list of
-    numbers is one vector, as ``jnp.asarray`` would make it."""
+    numbers is one vector, as ``jnp.asarray`` would make it. A leaf from the
+    host is a blocking copy, counted at the site ``initial``."""
     if isinstance(tree, (list, tuple)) and all(
         isinstance(v, (int, float, np.number)) for v in tree
     ):
         tree = np.asarray(tree, np.float32)
-    return tree_map(
-        lambda x: torch.as_tensor(x, dtype=torch.float32).to(device), tree
-    )
+    kind = torch.device(device).type
+
+    def put(x):
+        convert = lambda: torch.as_tensor(x, dtype=torch.float32).to(device)  # noqa: E731
+        if isinstance(x, torch.Tensor) and x.device.type == kind:
+            return convert()
+        return host_sync("initial", convert)
+
+    return tree_map(put, tree)
 
 
+@traced("sample")
 def sample(
     model,
     sampler: Sampler,
