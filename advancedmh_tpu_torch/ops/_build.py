@@ -43,7 +43,8 @@ from typing import FrozenSet, Optional, Tuple
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-# each csrc/<name>.cu exports amh_pairs_<name>
+# each csrc/<name>.cu instantiated for (density, d) pairs exports
+# amh_pairs_<name>; csrc/autocov.cu takes no density and is not listed
 KERNELS = ("rwmh", "mala", "ram", "emcee", "adapt", "hmc", "hmc_adapt", "chees", "meads",
            "slice", "ess", "barker", "pcn", "am", "dr", "dram", "mtm", "tempering", "demc",
            "evidence")
@@ -189,6 +190,8 @@ _SIGNATURES = {
                               _U64, _I64, _I64, _I64, _U64, _I64, _P, _P, _P, _P],
     # density, d, adapt, n_consts, C, out (6 int64)
     "amh_evidence_info": [_S, _I32, _I32, _I32, _I64, _P],
+    # x, row_stride, means, N, C, K, partials, out, stream
+    "amh_autocov_window": [_P, _I64, _P, _I64, _I64, _I32, _P, _P, _P],
 }
 
 # An H100 block may use at most 227 KB of shared memory; the density's
@@ -277,6 +280,8 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int32
     for name in KERNELS:
         getattr(lib, f"amh_pairs_{name}").restype = ctypes.c_char_p
+    lib.amh_autocov_blocks.argtypes = [_I64, _I64]
+    lib.amh_autocov_blocks.restype = _I64
     lib.amh_error_string.argtypes = [ctypes.c_int32]
     lib.amh_error_string.restype = ctypes.c_char_p
     return lib

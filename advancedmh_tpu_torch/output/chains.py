@@ -5,11 +5,13 @@ with an ``lp`` internals column and ``start``/``thin`` iteration labels.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import contextlib
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from ..diagnostics import ess, mcse, rhat
+from ..diagnostics import rhat
+from ..diagnostics.ess import _ess_fft, _ess_window, fft_fallback
 from ..utils.trace import host_sync, span, traced
 
 
@@ -17,10 +19,29 @@ def _std(x: torch.Tensor) -> torch.Tensor:
     return torch.std(x, correction=0)
 
 
-def _statistic(name: str, fn, x: torch.Tensor) -> float:
-    """``float(fn(x))`` as the span ``name``."""
+def _statistic(name: str, fn, *args) -> Tuple[torch.Tensor, float]:
+    """``fn(*args)`` and its value read to the host, as the span ``name``."""
     with span(name):
-        return host_sync("summary", float, fn(x))
+        t = fn(*args)
+        return t, host_sync("summary", float, t)
+
+
+def _ess(x: torch.Tensor) -> Tuple[torch.Tensor, float]:
+    """ESS of ``x`` and its value, as the span ``summary.ess``: float32 draws
+    from the lag window, its ESS and whether it decided read in one host
+    read, and from the FFT, read again, only where it did not."""
+    with span("summary.ess"):
+        fft = contextlib.nullcontext()
+        if x.dtype == torch.float32:
+            t, decided = _ess_window(x)
+            value, decided = host_sync("summary", torch.Tensor.tolist,
+                                       torch.stack([t.double(), decided.double()]))
+            if decided:
+                return t, value
+            fft = fft_fallback()
+        with fft:
+            t = _ess_fft(x)
+            return t, host_sync("summary", float, t)
 
 
 class Chains:
@@ -97,20 +118,19 @@ class Chains:
     def summary(self) -> Dict[str, Dict[str, float]]:
         """Per-parameter mean/std/naive_se/mcse/ess/rhat (≙ MCMCChains
         summarystats). Each statistic is the span ``summary.<statistic>``,
-        its host read the sync ``summary``."""
+        its host read the sync ``summary``. ESS is computed once a parameter:
+        mcse is std / √ESS of the same tensors."""
         out: Dict[str, Dict[str, float]] = {}
         for i, name in enumerate(self.names):
             x = self.values[:, i, :]
             n_total = x.shape[0] * x.shape[1]
-            std = _statistic("summary.std", _std, x)
-            out[name] = {
-                "mean": _statistic("summary.mean", torch.mean, x),
-                "std": std,
-                "naive_se": std / n_total**0.5,
-                "mcse": _statistic("summary.mcse", mcse, x),
-                "ess": _statistic("summary.ess", ess, x),
-                "rhat": _statistic("summary.rhat", rhat, x),
-            }
+            std_t, std = _statistic("summary.std", _std, x)
+            _, mean = _statistic("summary.mean", torch.mean, x)
+            ess_t, ess = _ess(x)
+            _, mcse = _statistic("summary.mcse", lambda: std_t / torch.sqrt(ess_t))
+            _, rhat_value = _statistic("summary.rhat", rhat, x)
+            out[name] = {"mean": mean, "std": std, "naive_se": std / n_total**0.5,
+                         "mcse": mcse, "ess": ess, "rhat": rhat_value}
         return out
 
     @staticmethod

@@ -27,6 +27,9 @@ The program's spans:
 - ``summary`` and, for each statistic of each parameter with its host read,
   ``summary.mean``, ``summary.std``, ``summary.mcse``, ``summary.ess``,
   ``summary.rhat``;
+- ``ess.fft_fallback``: the FFT ESS that runs where the lag window did not
+  decide Geyer's sequence (``diagnostics/ess.py``), with its host read
+  inside ``summary()``;
 - ``sync.<site>``: a host sync, below.
 
 Host syncs. The host reads device data (``float()``, ``int()``,

@@ -34,7 +34,9 @@ posteriors are checked against a float64 grid quadrature (the flagship),
 the analytic means (emcee), the ``engine="torch"`` run and the
 correlated-Gaussian checks of the JAX package's tests. Then it times each
 kernel at its main path's shape against its plain version, and the whole
-call with ESS/s. The timed kernel outputs are held against the plain
+call with ESS/s, and the lag-window autocovariance of ``summary()``'s ESS
+(``csrc/autocov.cu``, no TPU counterpart) beside its bound, its plain
+version and the FFT path. The timed kernel outputs are held against the plain
 versions' (emcee and DE-MC: their decisions over the whole run, their first
 64 draws element-wise, and their means). Every phase that fails exits non-zero. The last
 line of stdout is one JSON object: ``{"ok": true, "device": {...}}``; the
@@ -3187,6 +3189,97 @@ def phase_timing_rwmh(model, spl, p0, lp0, label, errs, times):
     times["rwmh"] = (t_b500, t_b500_plain, bound("rwmh", C=N_CHAINS, steps=n_plain, emitted=0))
 
 
+def cuda_ms(fn, n: int = 20) -> float:
+    """Device ms a call of ``fn`` over ``n`` calls after one warm-up, by CUDA
+    events (each call's inputs exceed the 50 MB L2, so none starts warm)."""
+    fn()
+    sync()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    sync()
+    return start.elapsed_time(end) / n
+
+
+def bound_autocov(N: int, C: int, K: int):
+    """(bound in seconds, "bytes" or "operations") of one lag-window launch:
+    a multiply and an add for each draw and lag, one read of the draws and
+    means, K float64 sums written."""
+    return _bound(N * C * 4 + C * 4 + K * 8, 2.0 * N * C * K)
+
+
+def truncation_lag(x: torch.Tensor):
+    """The lag of the first pair that Geyer's running min leaves
+    non-positive in the lag window of draws ``x`` (None: not in the window)."""
+    from advancedmh_tpu_torch.diagnostics.ess import _geyer_tau, _window_rho
+
+    rho = _window_rho(x)
+    _, pair_sums = _geyer_tau(rho, rho.shape[0] // 2)
+    cut = (pair_sums <= 0).nonzero()
+    return None if cut.numel() == 0 else 2 * int(cut[0])
+
+
+def phase_timing_autocov(model, label, errs, times):
+    """The lag-window autocovariance kernel (no TPU counterpart) on each
+    parameter's (N, C) view of the flagship's Chains.values (4000 x 2 x
+    16384, row stride 2 C), beside its bound, its plain version and the FFT
+    ESS it spares; and the window's ESS against the FFT's."""
+    from advancedmh_tpu_torch import MvNormal, RWMH, sample
+    from advancedmh_tpu_torch.diagnostics.ess import LAG_WINDOW, _ess_fft, _ess_window
+    from advancedmh_tpu_torch.ops.autocov import autocov_window, autocov_window_reference
+
+    spl = RWMH(MvNormal(torch.zeros(2, device=DEVICE), scale=SCALE))
+    chains = sample(model, spl, N_DRAWS, num_chains=N_CHAINS, engine="fused",
+                    discard_initial=N_WARM, initial_params=[0.0, 1.0], key=KEY,
+                    chain_type="chains", param_names=["μ", "σ"])
+    bound_s, bound_by = bound_autocov(N_DRAWS, N_CHAINS, LAG_WINDOW)
+    worst = 0.0
+    per_param = []
+    for i, name in enumerate(chains.names):
+        x = chains.values[:, i, :]
+        check(x.stride() == (2 * N_CHAINS, 1), f"autocov: {name}'s view is not strided in place")
+        m = torch.mean(x, dim=0)
+        before = autocov_window.launches
+        got = autocov_window(x, m, LAG_WINDOW)
+        again = autocov_window(x, m, LAG_WINDOW)
+        sync()
+        check(autocov_window.launches == before + 2, "autocov: a CUDA view took the plain version")
+        check(torch.equal(got, again), "autocov: two launches differ")
+        t_plain, ref = best_of(lambda: autocov_window_reference(x, m, LAG_WINDOW), PLAIN_REPEATS)
+        err = float((got - ref).abs().max() / ref[0])
+        check(err <= 1e-5, f"autocov {name}: sums {err:.3e} of S_0 off the plain version")
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: autocov_window(x, m, LAG_WINDOW))
+        ms_mean = cuda_ms(lambda: torch.mean(x, dim=0))
+        ms_window = cuda_ms(lambda: _ess_window(x))
+        ms_fft = cuda_ms(lambda: _ess_fft(x), n=5)
+        e_w, decided = _ess_window(x)
+        e_f = _ess_fft(x)
+        rel = abs(float(e_w) / float(e_f) - 1.0)
+        lag = truncation_lag(x)
+        print(f"[{label}] autocov_window {name} ({N_DRAWS} x {N_CHAINS}, row stride "
+              f"{x.stride(0)}, K = {LAG_WINDOW}): kernel {ms:.4f} ms ({ms / (bound_s * 1e3):.2f}x "
+              f"its bound {bound_s * 1e3:.4f} ms by {bound_by}, {bound_s * 1e3 / ms * 100:.1f}% of it), chain "
+              f"means {ms_mean:.4f} ms, _ess_window {ms_window:.4f} ms, _ess_fft {ms_fft:.4f} ms, "
+              f"plain {t_plain * 1e3:.2f} ms; sums within {err:.3e} of S_0; Geyer ends at lag "
+              f"{lag}; decided {bool(decided)}; ESS window {float(e_w):.2f} FFT {float(e_f):.2f} "
+              f"(rel {rel:.2e})")
+        check(bool(decided), f"autocov {name}: the flagship's sequence runs past the window")
+        check(rel <= 1e-5, f"autocov {name}: window ESS {rel:.2e} off the FFT's")
+        per_param.append((ms, t_plain))
+    before = autocov_window.launches
+    chains.summary()
+    sync()
+    n_launches = autocov_window.launches - before
+    check(n_launches == len(chains.names),
+          f"autocov: summary() launched the window {n_launches} times for 2 parameters")
+    errs["autocov"] = worst
+    ms, t_plain = max(per_param)
+    times["autocov"] = (ms / 1e3, t_plain, (bound_s, bound_by), n_launches)
+
+
 def time_path(label, name, run, param):
     """sample(...) + Chains.summary(), best of 3, and ESS/s on ``param``."""
     from advancedmh_tpu_torch import ess_bulk
@@ -3652,6 +3745,7 @@ def main() -> None:
     phase_timing_slice6(models, label, errs, times)
     phase_timing_slice7(models, label, errs, times)
     phase_timing_slice8(models, label, errs, times)
+    phase_timing_autocov(models["flagship"], label, errs, times)
     print(f"[{label}] chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -3663,6 +3757,13 @@ def main() -> None:
             "ms": ms * 1e3, "plain_ms": plain_s * 1e3, "bound_ms": bound_s * 1e3,
             "bound_by": bound_by, "library_ms": None,
         })
+    ms, plain_s, (bound_s, bound_by), n_launches = times["autocov"]
+    kernels.append({
+        "name": "autocov", "route": "cuda", "source": "advancedmh_tpu_torch/csrc/autocov.cu",
+        "replaces": None, "launches": n_launches, "max_abs_err": errs["autocov"],
+        "ms": ms * 1e3, "plain_ms": plain_s * 1e3, "bound_ms": bound_s * 1e3,
+        "bound_by": bound_by, "library_ms": None,
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1444,3 +1444,80 @@ def test_evidence_wrapper_raises_for_what_has_no_kernel():
         call("flat", torch.zeros(3, 64, device="cuda"), z3, z3 + 1.0)
     pairs = _build.kernel_pairs(_build.library(), "evidence")
     assert {("normal_mean", 1), ("flat", 2), ("logistic_regression", 32)} <= pairs
+
+
+# ---- the lag-window autocovariance of summary()'s ESS (csrc/autocov.cu) -------------------
+
+
+def _ar1_draws(n, p, c, phi, seed):
+    """(n, p, c) float32 AR(1) draws on the card, laid out as Chains.values."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    e = torch.randn((n, p, c), generator=gen, device="cuda")
+    x = torch.empty_like(e)
+    x[0] = e[0]
+    for t in range(1, n):
+        x[t] = phi * x[t - 1] + e[t]
+    return x
+
+
+@pytest.mark.parametrize("n, p, c", [(4000, 2, 16384), (7, 1, 3), (300, 3, 33), (1000, 1, 1),
+                                     (257, 2, 95), (129, 2, 4096)])
+def test_autocov_window_matches_plain(n, p, c):
+    """The sums within 1e-5 of S_0 (the sums of later lags are small beside
+    it, and each side rounds its products and partial sums differently);
+    two launches give the same bits; the wrapper reads Chains.values'
+    strided (N, C) view in place."""
+    from advancedmh_tpu_torch.diagnostics.ess import LAG_WINDOW
+    from advancedmh_tpu_torch.ops.autocov import autocov_window, autocov_window_reference
+
+    values = _ar1_draws(n, p, c, 0.9, seed=n + c)
+    for i in range(p):
+        x = values[:, i, :]
+        m = torch.mean(x, dim=0)
+        before = autocov_window.launches
+        got = autocov_window(x, m, LAG_WINDOW)
+        again = autocov_window(x, m, LAG_WINDOW)
+        torch.cuda.synchronize()
+        assert autocov_window.launches == before + 2
+        ref = autocov_window_reference(x, m, LAG_WINDOW)
+        assert got.shape == ref.shape == (min(LAG_WINDOW, n),)
+        assert float((got - ref).abs().max()) <= 1e-5 * float(ref[0])
+        assert torch.equal(got, again)
+
+
+def test_autocov_window_refuses_strided_chains():
+    from advancedmh_tpu_torch.ops.autocov import autocov_window
+
+    x = torch.zeros(64, 8, device="cuda").T.contiguous().T
+    with pytest.raises(ValueError, match="contiguously"):
+        autocov_window(x, torch.zeros(8, device="cuda"), 16)
+
+
+@pytest.mark.parametrize("phi, n, c", [(0.5, 4000, 16384), (0.9, 1000, 64), (0.0, 100, 4)])
+def test_ess_window_on_the_card_equals_the_fft(phi, n, c):
+    from advancedmh_tpu_torch.diagnostics.ess import _ess_fft, _ess_window, ess
+
+    x = _ar1_draws(n, 1, c, phi, seed=7)[:, 0, :]
+    got, decided = _ess_window(x)
+    want = _ess_fft(x)
+    assert bool(decided)
+    assert abs(float(got) / float(want) - 1.0) <= 1e-5
+    assert float(ess(x)) == float(got)
+
+
+def test_ess_window_on_the_card_keeps_the_nan_rule_and_falls_back():
+    """Constant draws whose mean the card's reduction gives exactly take the
+    floor by the NaN rule. Where it rounds the mean (1.5 over 1000 draws),
+    the centred draws are a constant of a few ulp: no pair sum truncates,
+    and ess() gives the FFT's bits."""
+    from advancedmh_tpu_torch.diagnostics.ess import _ess_fft, _ess_window, ess
+
+    flat = torch.full((1000, 4), 2.0, device="cuda")
+    got, decided = _ess_window(flat)
+    assert bool(decided) and float(got) == float(_ess_fft(flat)) == 4000 / 1e-6
+    near = torch.full((1000, 4), 1.5, device="cuda")
+    assert torch.equal(ess(near), _ess_fft(near))
+    slow = _ar1_draws(4000, 1, 4, 0.995, seed=3)[:, 0, :]
+    assert not bool(_ess_window(slow)[1])
+    before = ess.fft_fallbacks
+    assert torch.equal(ess(slow), _ess_fft(slow)) and ess.fft_fallbacks == before + 1
