@@ -61,13 +61,16 @@ _F = ctypes.c_float
 _I32, _I64, _U64 = ctypes.c_int32, ctypes.c_int64, ctypes.c_uint64
 _SIGNATURES = {
     # density, d, tril, params_t, lp, scale, consts, n_consts, seed, burn,
-    # thin, n_samples, offset, C, samples, lps, accs, stream
+    # thin, n_samples, offset, C, samples, lps, accs, lanes (out: lanes a
+    # chain launched), stream
     "amh_rwmh_sample": [_S, _I32, _I32, _P, _P, _P, _P, _I32, _U64, _I64,
-                        _I64, _I64, _U64, _I64, _P, _P, _P, _P],
+                        _I64, _I64, _U64, _I64, _P, _P, _P, _P, _P],
     # density, d, tril, params_t, lp, scale, consts, n_consts, seed, n_steps,
-    # offset, C, out_params, out_lp, out_acc, stream
+    # offset, C, out_params, out_lp, out_acc, lanes (as above), stream
     "amh_rwmh": [_S, _I32, _I32, _P, _P, _P, _P, _I32, _U64, _I64, _U64,
-                 _I64, _P, _P, _P, _P],
+                 _I64, _P, _P, _P, _P, _P],
+    # density, d, tril, n_consts, C, out (7 int64: the 6 of launch_info, registers)
+    "amh_rwmh_info": [_S, _I32, _I32, _I32, _I64, _P],
     # density, d, params_t, lp, grad, consts, n_consts, sigma, half_s2,
     # inv_2s2, seed, burn, thin, n_samples, offset, C, samples, lps, accs,
     # out_grad, stream
@@ -335,15 +338,16 @@ def launch_info(entry: str, kernel: str, cuda_density: str, d: int, n_consts: in
     """The launch shape and occupancy on the current card of a kernel launched
     by ``csrc/hmc_group.cuh::launch_group`` (its C entry point ``entry``,
     source ``kernel``: HMC, AdaptiveHMC, ChEES frozen, Barker, ESS, pCN,
-    evidence) for a (density, d) pair: chains a block, lanes a chain,
-    threads a block, blocks for ``n_chains`` chains, dynamic shared memory
-    bytes, resident blocks and warps an SM
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). ``flags`` are the
-    entry point's int arguments after ``d``. Raises as :func:`check` does,
-    and as :func:`check_shared_memory` when the kernel's shared memory
-    layout exceeds a block's."""
+    evidence; RWMH in the form it takes) for a (density, d) pair: chains a
+    block, lanes a chain, threads a block, blocks for ``n_chains`` chains,
+    dynamic shared memory bytes, resident blocks and warps an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), and ``registers``
+    a thread where the entry point reports them (a seventh value).
+    ``flags`` are the entry point's int arguments after ``d``. Raises as
+    :func:`check` does, and as :func:`check_shared_memory` when the
+    kernel's shared memory layout exceeds a block's."""
     lib = library()
-    out = (ctypes.c_int64 * 6)()
+    out = (ctypes.c_int64 * 7)()
     code = getattr(lib, entry)(density_arg(cuda_density), d, *flags, n_consts,
                                n_chains, ctypes.addressof(out))
     check_shared_memory(out[4] // 4)
@@ -352,4 +356,6 @@ def launch_info(entry: str, kernel: str, cuda_density: str, d: int, n_consts: in
             "blocks_per_sm")
     info = dict(zip(keys, map(int, out)))
     info["warps_per_sm"] = info["blocks_per_sm"] * info["threads"] // 32
+    if out[6]:
+        info["registers"] = int(out[6])
     return info

@@ -19,12 +19,21 @@ The noise of a step therefore depends only on (seed, j, chain):
 ``rwmh_sample_reference`` and ``rwmh_reference`` draw the same normals and
 uniforms as the kernels, up to the last ulp of log / sin / cos.
 
+The kernels run the flagship (``cuda_density`` ``"gaussian_mean_scale"``)
+on a group of lanes a chain where its observations fit the lanes' registers,
+and every other density one thread a chain; ``csrc/rwmh.cu`` alone decides
+(:func:`rwmh_launch_info` reports its choice). The group's lanes sum the
+observations in another order than the plain versions' tile density, so the
+two differ in the last bits of lp, as CUDA's logf differs from PyTorch's.
+
 Each public wrapper runs its plain version for tensors on the CPU, and for
 CUDA tensors launches its kernel or raises. ``<wrapper>.launches`` counts
-the kernel launches.
+the kernel launches, ``<wrapper>.group_launches`` those the kernels made in
+the group form.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
@@ -302,15 +311,18 @@ def fused_rwmh_sample(
     samples = torch.empty((n_samples, d, n_chains), **f32)
     lps = torch.empty((n_samples, 1, n_chains), **f32)
     accs = torch.empty((n_samples, 1, n_chains), **f32)
+    lanes = ctypes.c_int32(0)  # the lanes a chain the kernel launched with
     with torch.cuda.device(p.device):
         code = lib.amh_rwmh_sample(
             _build.density_arg(cuda_density), d, int(tril), p.data_ptr(), l.data_ptr(), s.data_ptr(),
             flat.data_ptr(), n_consts, seed, burn, thin, n_samples,
             iteration_offset, n_chains, samples.data_ptr(), lps.data_ptr(),
-            accs.data_ptr(), torch.cuda.current_stream(p.device).cuda_stream,
+            accs.data_ptr(), ctypes.addressof(lanes),
+            torch.cuda.current_stream(p.device).cuda_stream,
         )
     _build.check(lib, code, "rwmh", cuda_density, d)
     fused_rwmh_sample.launches += 1
+    fused_rwmh_sample.group_launches += int(lanes.value > 1)
     return samples, lps, accs
 
 
@@ -335,17 +347,29 @@ def fused_rwmh(
     out_p = torch.empty_like(p)
     out_l = torch.empty_like(l)
     out_a = torch.empty_like(l)
+    lanes = ctypes.c_int32(0)  # the lanes a chain the kernel launched with
     with torch.cuda.device(p.device):
         code = lib.amh_rwmh(
             _build.density_arg(cuda_density), d, int(tril), p.data_ptr(), l.data_ptr(), s.data_ptr(),
             flat.data_ptr(), n_consts, seed, n_steps, iteration_offset, n_chains,
-            out_p.data_ptr(), out_l.data_ptr(), out_a.data_ptr(),
+            out_p.data_ptr(), out_l.data_ptr(), out_a.data_ptr(), ctypes.addressof(lanes),
             torch.cuda.current_stream(p.device).cuda_stream,
         )
     _build.check(lib, code, "rwmh", cuda_density, d)
     fused_rwmh.launches += 1
+    fused_rwmh.group_launches += int(lanes.value > 1)
     return out_p, out_l, out_a
 
 
-fused_rwmh_sample.launches = 0
-fused_rwmh.launches = 0
+def rwmh_launch_info(cuda_density: str, d: int, tril: bool, n_consts: int,
+                     n_chains: int) -> dict:
+    """:func:`~._build.launch_info` of the sampling kernel in the form it
+    takes for these arguments (the throughput kernel takes the same), with
+    its ``registers`` a thread; ``lanes_per_chain`` above 1 is the group
+    form."""
+    return _build.launch_info("amh_rwmh_info", "rwmh", cuda_density, d, n_consts, n_chains,
+                              int(tril))
+
+
+fused_rwmh_sample.launches = fused_rwmh_sample.group_launches = 0
+fused_rwmh.launches = fused_rwmh.group_launches = 0

@@ -382,13 +382,14 @@ def posterior_check(path, summary, mu_q, sig_q, names=("μ", "σ")):
 
 def phase_main_rwmh(model, label, launches):
     from advancedmh_tpu_torch import MvNormal, RWMH, ess_bulk, sample
-    from advancedmh_tpu_torch.ops import fused_rwmh
+    from advancedmh_tpu_torch.ops import fused_rwmh, fused_rwmh_sample
 
     spl = RWMH(MvNormal(torch.zeros(2, device=DEVICE), scale=SCALE))
     p0 = torch.tensor([[0.0], [1.0]], device=DEVICE).expand(2, N_CHAINS).contiguous()
     lp0 = model.tile_density(p0, *model.tile_consts)
 
     reset_launches()
+    fused_rwmh_sample.group_launches = fused_rwmh.group_launches = 0
     sync()
     t0 = time.perf_counter()
     result = sample(model, spl, N_DRAWS, num_chains=N_CHAINS, engine="fused",
@@ -402,6 +403,9 @@ def phase_main_rwmh(model, label, launches):
     sync()
     got = read_launches()
     check_launches("rwmh main path", got, {"rwmh_sample": 1, "rwmh": 1})
+    groups = (fused_rwmh_sample.group_launches, fused_rwmh.group_launches)
+    print(f"rwmh main path group launches: {groups}")
+    check(groups == (1, 1), "rwmh main path: a kernel left the flagship's group form")
     launches.update(rwmh_sample=got["rwmh_sample"], rwmh=got["rwmh"])
 
     check(chains.values.shape == (N_DRAWS, 2, N_CHAINS), "Chains shape")
@@ -3499,10 +3503,11 @@ def launch_report(models, gps, ptxas_lines) -> None:
     """The launch shapes of the kernels redesigned for the card (MEADS: a
     cluster per tile; AdaptiveHMC, HMC, ChEES's frozen phase, Barker and
     the evidence kernel: a group of chains a block; ESS and pCN: 8 lanes a
-    chain on the GP likelihoods) at the main paths' widths, with their
-    occupancy and ptxas' registers and spills. Fails if a group kernel of a
-    fresh build spills on the logistic regression, or an ESS or pCN kernel
-    on any of its pairs."""
+    chain on the GP likelihoods; RWMH: the flagship's lanes a chain) at the
+    main paths' widths, with their occupancy and ptxas' registers and
+    spills. Fails if a group kernel of a fresh build spills on the logistic
+    regression, an ESS or pCN kernel on any of its pairs, or an RWMH kernel
+    in the flagship's group form with a per-dimension scale."""
     from advancedmh_tpu_torch.ops.barker import barker_launch_info
     from advancedmh_tpu_torch.ops.chees import chees_frozen_launch_info
     from advancedmh_tpu_torch.ops.ess import ess_launch_info
@@ -3511,10 +3516,19 @@ def launch_report(models, gps, ptxas_lines) -> None:
     from advancedmh_tpu_torch.ops.hmc_adapt import adaptive_hmc_launch_info
     from advancedmh_tpu_torch.ops.meads import meads_launch_info
     from advancedmh_tpu_torch.ops.pcn import pcn_launch_info
-    from advancedmh_tpu_torch.ops.rwmh import flat_consts
+    from advancedmh_tpu_torch.ops.rwmh import flat_consts, rwmh_launch_info
     from advancedmh_tpu_torch.runtime.fused import MAX_TILE, MEADS_BUDGET, fused_tile
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    m = models["flagship"]
+    n_consts = flat_consts(m.tile_consts, DEVICE)[1]
+    for tril in (False, True):
+        info = rwmh_launch_info(m.cuda_density, 2, tril, n_consts, N_CHAINS)
+        launched = info["blocks"] * info["threads"] / 32 / n_sm
+        print(f"launch rwmh_sample gaussian_mean_scale d=2 tril={tril} C={N_CHAINS}: {info}; "
+              f"warps launched per SM {launched:.2f} on {n_sm} SMs")
+        check(info["lanes_per_chain"] > 1 and info["smem_bytes"] == 0,
+              "rwmh: the flagship does not run its group form")
     for key, C in (("logreg", LOGREG_CHAINS), ("logreg", MEADS_WIDE_CHAINS),
                    ("funnel", LOGREG_CHAINS), ("corr", LOGREG_CHAINS)):
         m = models[key]
@@ -3576,6 +3590,17 @@ def launch_report(models, gps, ptxas_lines) -> None:
         check(len(lines) == 8, f"ptxas reported {len(lines)} of {kernel}'s 8 kernels")
         for line in lines:
             print(f"  ptxas (redesigned): {line}")
+            check(" 0 bytes spill stores" in line, f"{line.split(':')[0]} spills")
+    lines = [ln for ln in ptxas_lines
+             if ln.startswith(("rwmh_sample_kernel<GaussianMeanScale,",
+                               "rwmh_kernel<GaussianMeanScale,"))
+             and ln.split(":")[0].endswith(", true>")]
+    check(len(lines) == 4, f"ptxas reported {len(lines)} of the flagship's 4 group RWMH kernels")
+    for line in lines:
+        print(f"  ptxas (redesigned): {line}")
+        # the main path's scale is per dimension (tril false); a full factor
+        # is reported, not gated
+        if ", false, true>" in line:
             check(" 0 bytes spill stores" in line, f"{line.split(':')[0]} spills")
 
 

@@ -69,15 +69,20 @@ def _close(a, b):
 @pytest.mark.parametrize("form", ["diag", "tril"])
 @pytest.mark.parametrize("C,burn,thin,n,offset", [
     (4096, 0, 1, 64, 0), (4001, 5, 3, 11, 9), (4099, 3, 1, 33, (1 << 32) - 10),
+    (4003, 0, 10, 9, 77), (4001, 7, 10, 5, 0),
 ])
 def test_sample_kernel_matches_plain(model, form, C, burn, thin, n, offset):
+    """The flagship in the group form (C not a multiple of a block's chains,
+    step counts not a multiple of the lanes), against the plain version on
+    the ordered tile density; one launch, counted as a group launch."""
     p, lp = _start(model, C, seed=C)
     args = _args(model, p, lp, form)
     kw = dict(burn=burn, thin=thin, n_samples=n, iteration_offset=offset)
-    before = fused_rwmh_sample.launches
+    before = (fused_rwmh_sample.launches, fused_rwmh_sample.group_launches)
     s, l, a = fused_rwmh_sample(*args, **kw)
     torch.cuda.synchronize()
-    assert fused_rwmh_sample.launches == before + 1
+    assert (fused_rwmh_sample.launches, fused_rwmh_sample.group_launches) == (
+        before[0] + 1, before[1] + 1)
     s_r, l_r, a_r = rwmh_sample_reference(*args, **kw)
     dec = (a == a_r)[:, 0, :]
     assert float(dec.float().mean()) >= 0.999
@@ -86,14 +91,62 @@ def test_sample_kernel_matches_plain(model, form, C, burn, thin, n, offset):
 
 
 @pytest.mark.parametrize("form", ["diag", "tril"])
-@pytest.mark.parametrize("n_steps", [1, 63])
+@pytest.mark.parametrize("n_steps", [1, 8, 63])
 def test_step_kernel_matches_plain(model, form, n_steps):
-    p, lp = _start(model, 4000, seed=n_steps)
+    p, lp = _start(model, 4001, seed=n_steps)
     args = _args(model, p, lp, form)
+    before = (fused_rwmh.launches, fused_rwmh.group_launches)
     x, l, acc = fused_rwmh(*args, n_steps=n_steps, iteration_offset=5)
+    assert (fused_rwmh.launches, fused_rwmh.group_launches) == (before[0] + 1, before[1] + 1)
     x_r, l_r, acc_r = rwmh_reference(*args, n_steps=n_steps, iteration_offset=5)
     ok = (acc == acc_r)[0] & _close(x, x_r).all(0) & _close(l, l_r)[0]
     assert float(ok.float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("target,lanes", [
+    ("flagship", 2), ("flagship300", 1), ("corr2", 1), ("corr4", 1), ("corr8", 1),
+    ("emcee", 1), ("logreg", 1),
+])
+def test_rwmh_form_and_group_launches(model, target, lanes):
+    """The form csrc/rwmh.cu picks: the flagship (30 observations) runs 2
+    lanes a chain, 64 chains a block, no shared memory, and each kernel
+    counts a group launch; the other five densities and the flagship with
+    300 observations (more than the lanes' registers hold) run one thread a
+    chain with the constants in shared memory and count none. Both forms
+    agree with their plain versions."""
+    from advancedmh_tpu_torch.models import logistic_regression_model
+    from advancedmh_tpu_torch.ops.rwmh import flat_consts, rwmh_launch_info
+
+    make = {
+        "flagship": lambda: model,
+        "flagship300": lambda: gaussian_mean_scale_model(n_obs=300, device="cuda"),
+        "corr2": lambda: correlated_gaussian_model(CORR, device="cuda"),
+        "corr4": lambda: correlated_gaussian_model(CORR4, device="cuda"),
+        "corr8": lambda: correlated_gaussian_model(
+            (0.5 * np.ones((8, 8)) + 0.5 * np.eye(8)).tolist(), device="cuda"),
+        "emcee": lambda: emcee_demo_model(device="cuda"),
+        "logreg": lambda: logistic_regression_model(256, 32, seed=0, device="cuda"),
+    }
+    m = make[target]()
+    d, C, n_consts = m.dimension, 1001, flat_consts(m.tile_consts, "cuda")[1]
+    for tril in (False, True):
+        info = rwmh_launch_info(m.cuda_density, d, tril, n_consts, C)
+        assert info["lanes_per_chain"] == lanes and info["threads"] == 128
+        assert 0 < info["registers"] <= 255
+        assert info["chains_per_block"] == 128 // lanes
+        assert info["smem_bytes"] == (0 if lanes > 1 else 4 * n_consts)
+    p = (_start(m, C, seed=3)[0] if target.startswith("flagship") else
+         0.5 * _gauss_start(d, C, seed=3).abs() + (0.5 if target == "emcee" else 0.0))
+    lp = m.tile_density(p, *m.tile_consts)
+    args = (m.tile_density, m.cuda_density, p, lp, 0.3, m.tile_consts, 19)
+    before = (fused_rwmh_sample.group_launches, fused_rwmh.group_launches)
+    got = fused_rwmh_sample(*args, burn=2, thin=3, n_samples=9)
+    fused_rwmh(*args, n_steps=5)
+    counted = int(lanes > 1)
+    assert (fused_rwmh_sample.group_launches, fused_rwmh.group_launches) == (
+        before[0] + counted, before[1] + counted)
+    dec, chains = _agree(got, rwmh_sample_reference(*args, burn=2, thin=3, n_samples=9))
+    assert dec >= 0.999 and chains >= 0.999
 
 
 def _agree(got, ref):

@@ -164,3 +164,125 @@ def test_fused_slice_matches_jax_and_quadrature():
         assert abs(s[name]["mean"] - float(r.mean(name))) < 0.05
         assert abs(s[name]["mean"] - q) < 0.05
         assert s[name]["rhat"] < 1.01
+
+
+# ---- the flagship's group form (csrc/rwmh.cu::RwmhGroup) ----------------------
+#
+# The kernels sum the flagship's observations over a group of lanes; the plain
+# versions keep the ordered tile density. These tests hold the group's order
+# to float64 and show that it only moves lp's last bits.
+
+def _lanes_density(p, obs, lanes):
+    """The flagship's tile density (``p`` (2, C), ``obs`` (n, 1)) with the
+    observations summed as a group of ``lanes`` lanes (a power of 2) sums
+    them in csrc/rwmh.cu::RwmhGroup: partial l adds the terms (w z_i) z_i
+    of observations l, l + lanes, .. in order from +0, w = -0.5, and the
+    partials combine pairwise, ((p0 + p1) + (p2 + p3)) at 4 lanes. Slots
+    past the last observation hold 0 with w = 0: their term +-0 changes no
+    partial."""
+    n = obs.shape[0]
+    mu, sigma = p[0:1], p[1:2]
+    inv = 1.0 / torch.clamp(sigma, min=0.1)
+    rounds = -(-n // lanes)
+    pad = rounds * lanes - n
+    obs = torch.cat([obs, obs.new_zeros(pad, 1)])
+    w = torch.cat([obs.new_full((n, 1), -0.5), obs.new_zeros(pad, 1)])
+    z = (obs - mu) * inv
+    t = (w * z * z).view(rounds, lanes, -1)
+    part = torch.zeros_like(t[0])
+    for row in t:
+        part = part + row
+    while part.shape[0] > 1:
+        part = part[0::2] + part[1::2]
+    lp = part + n * torch.log(inv) - n * 0.5 * np.log(2.0 * np.pi)
+    return torch.where(sigma >= 0, lp, torch.full_like(lp, -torch.inf))
+
+
+def _by_hand_lanes(p, obs, lanes):
+    """The group form's lp of each chain in numpy float32 scalars: partial l
+    adds observations l, l + lanes, .. in order from +0, the partials
+    combine pairwise, then (sum + n log inv) - n log(2 pi)/2."""
+    f = np.float32
+    obs = obs.numpy().ravel().astype(f)
+    n = obs.size
+    out = []
+    for mu, sigma in p.numpy().T.astype(f):
+        inv = f(1.0) / max(sigma, f(0.1))
+        part = [f(0.0)] * lanes
+        for i in range(n):
+            z = (obs[i] - mu) * inv
+            part[i % lanes] = part[i % lanes] + f(-0.5) * z * z
+        while len(part) > 1:
+            part = [part[k] + part[k + 1] for k in range(0, len(part), 2)]
+        log_inv = f(torch.log(torch.tensor(inv)))  # torch's logf, not numpy's
+        lp = (part[0] + f(n) * log_inv) - f(n * 0.5 * np.log(2.0 * np.pi))
+        out.append(lp if sigma >= 0 else -np.inf)
+    return np.array(out, dtype=f)
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8])
+@pytest.mark.parametrize("n_obs", [30, 32, 7])
+def test_group_density_sums_in_the_lanes_order(lanes, n_obs):
+    """The group's order is the by-hand float32 sum of the same partials in
+    the same tree, bit for bit, and within 1e-6 relative of the float64
+    density."""
+    obs = torch.tensor(np.random.default_rng(n_obs).normal(size=n_obs),
+                       dtype=torch.float32).reshape(-1, 1)
+    p, _ = _start(64, seed=n_obs)
+    got = _lanes_density(p, obs, lanes)[0]
+    want = torch.from_numpy(_by_hand_lanes(p, obs, lanes))
+    inside = p[1] >= 0
+    assert torch.equal(torch.isneginf(got), ~inside)
+    assert torch.equal(got[inside], want[inside])
+    p64, obs64 = p.double(), obs.double()
+    inv = 1.0 / torch.clamp(p64[1], min=0.1)
+    lp64 = (-0.5 * ((obs64 - p64[0]) * inv) ** 2).sum(0) + n_obs * torch.log(inv) \
+        - n_obs * 0.5 * np.log(2.0 * np.pi)
+    rel = ((got.double() - lp64).abs() / lp64.abs())[inside]
+    assert float(rel.max()) < 1e-6
+
+
+@pytest.mark.parametrize("lanes", [2, 4, 8])
+@pytest.mark.parametrize("base", [17, (1 << 32) - 3])
+def test_lane_draws_its_steps_noise(lanes, base):
+    """Lane l of a group draws step base + l's noise from the counter (low
+    word of base + l, chain, 0, high word): the words step_noise reads, so
+    the noise drawn ahead is the noise of that step (across the counter's
+    32-bit carry too)."""
+    from advancedmh_tpu_torch.ops.rwmh import box_muller
+
+    seed, C = 0x1234_5678_9ABC, 6
+    for lane in range(lanes):
+        j = base + lane
+        c = torch.arange(C, dtype=torch.int64)
+        counter = torch.stack([torch.full_like(c, j & 0xFFFFFFFF), c, torch.zeros_like(c),
+                               torch.full_like(c, j >> 32)], dim=-1)
+        u = uniform_from_bits(philox4x32_reference(counter, (seed & 0xFFFFFFFF, seed >> 32)))
+        z, logu = step_noise(seed, j, 1, C, 2, "cpu")
+        assert torch.equal(box_muller(u[None, :, :2], 2), z)
+        assert torch.equal(torch.log(u[:, 2]), logu[0])
+
+
+@pytest.mark.parametrize("reference", ["sample", "steps"])
+def test_group_order_takes_the_plain_decisions(reference):
+    """The plain versions run on the group's order of the flagship's sum
+    take the same decisions as on the ordered tile density they keep, with
+    lp within float32 rounding of it: the group form changes lp's last bits
+    only."""
+    def group(x, obs):
+        return _lanes_density(x, obs, 2)
+
+    p, lp = _start(256, seed=8)
+    args = (MODEL.tile_density, MODEL.cuda_density, p, lp, 0.35, MODEL.tile_consts, 5)
+    grouped = (group, *args[1:])
+    if reference == "sample":
+        kw = dict(burn=3, thin=2, n_samples=6)
+        (s, l, a), (s_g, l_g, a_g) = (rwmh_sample_reference(*args, **kw),
+                                      rwmh_sample_reference(*grouped, **kw))
+    else:
+        (s, l, a), (s_g, l_g, a_g) = (rwmh_reference(*args, n_steps=9),
+                                      rwmh_reference(*grouped, n_steps=9))
+    assert torch.equal(a, a_g) and torch.equal(s, s_g)
+    fin = torch.isfinite(l)
+    assert torch.equal(fin, torch.isfinite(l_g))
+    assert torch.allclose(l_g[fin], l[fin], rtol=1e-6, atol=1e-6)

@@ -5,13 +5,24 @@ GPU, in turns: A, B, B, A.
     git archive <parent commit> | tar -x -C _archive/parent
     python3 tools/kernel_ab.py --a _archive/parent --b .
 
+Several B checkouts (``--b one two ..``) run in turns A, B1 .. Bk, Bk .. B1,
+A. ``--only rwmh`` or ``--only group`` times one of the two sets below.
+
 Each turn is a fresh process that imports ``advancedmh_tpu_torch`` from its
 checkout (building its kernels there at first use) and times, best of 3 and
-CUDA-synchronized, the kernels of the d = 32 logistic regression's main
-paths at chip_smoke.py's shapes: AdaptiveHMC (8192 x (500 + 4000), L = 8),
-HMC at the median adapted (eps-bar, M^-1) of that run (8192 x (499 + 4000)),
-the ChEES frozen launch after its warmup (8192 x 4000), MEADS (8192 x (499 +
-4000), K = 2, and the same launch on the d = 2 correlated Gaussian), Barker
+CUDA-synchronized, the RWMH kernels (set ``rwmh``): the flagship's at the
+benchmark cells' shapes from (0, 1), at scale 0.35 and (suffix ``_tril``)
+at the lower-triangular [[0.35, 0], [0.1, 0.3]], ``rwmh_sample`` at 16384 x
+(499 + 4000), ``rwmh_sample_thin`` at 16384 x (490 + 4000 x 10), ``rwmh``
+at 16384 x 10000 steps; ``rwmh_sample_<density>`` on the d = 2 correlated
+Gaussian and the emcee demo at 16384 x (499 + 4000) and on the d = 32
+logistic regression at 8192 x (499 + 500), scale 0.02; and (set ``group``)
+the kernels of the d = 32
+logistic regression's main paths at chip_smoke.py's shapes: AdaptiveHMC
+(8192 x (500 + 4000), L = 8), HMC at the median adapted (eps-bar, M^-1) of
+that run (8192 x (499 + 4000)), the ChEES frozen launch after its warmup
+(8192 x 4000), MEADS (8192 x (499 + 4000), K = 2, and the same launch on
+the d = 2 correlated Gaussian), Barker
 (8192 x (499 + 4000) at a fixed eps = 0.03), the evidence kernel (16 x 512
 chains x (3000 + 3000)), elliptical slice sampling on the d = 64 GP
 classification and regression (8192 x (499 + 4000), the prior's factor,
@@ -38,12 +49,52 @@ N_WARM, N_DRAWS = 500, 4000
 BARKER_EPS = 0.03
 EV_CHAINS, EV_STEPS, EV_PRIOR_SCALE = 512, 3000, 10.0
 PCN_WARM, PCN_BETA = 2000, 0.2
+RWMH_CHAINS, RWMH_SCALE, RWMH_STEPS = 16384, 0.35, 10_000
+RWMH_TRIL = [[0.35, 0.0], [0.1, 0.3]]
 
 
-def _time_in(root: str) -> dict:
-    """The kernels' best-of-3 milliseconds in the checkout at ``root``, and
-    the seconds its kernels took to build in this turn (0 when built
-    before)."""
+def _time_rwmh(best, dev) -> dict:
+    """The RWMH kernels: the flagship's at the benchmark cells' shapes, at
+    the per-dimension scale and a lower-triangular one, and three other
+    densities' at one sampling shape each."""
+    import torch
+
+    from advancedmh_tpu_torch.models import (correlated_gaussian_model, emcee_demo_model,
+                                             gaussian_mean_scale_model,
+                                             logistic_regression_model)
+    from advancedmh_tpu_torch.ops import fused_rwmh, fused_rwmh_sample
+
+    def args_of(m, start, C, scale):
+        x = torch.tensor(start, device=dev).reshape(-1, 1).expand(len(start), C).contiguous()
+        return (m.tile_density, m.cuda_density, x, m.tile_density(x, *m.tile_consts), scale,
+                m.tile_consts, KEY)
+
+    def sample(args, burn, thin, n):
+        return best(lambda: fused_rwmh_sample(*args, burn=burn, thin=thin, n_samples=n))[0]
+
+    flagship = gaussian_mean_scale_model(device=dev)
+    ms = {}
+    for form, scale in (("", RWMH_SCALE), ("_tril", torch.tensor(RWMH_TRIL, device=dev))):
+        args = args_of(flagship, [0.0, 1.0], RWMH_CHAINS, scale)
+        for name, thin in (("rwmh_sample", 1), ("rwmh_sample_thin", 10)):
+            ms[name + form] = sample(args, N_WARM - thin, thin, N_DRAWS)
+        ms["rwmh" + form], _ = best(lambda: fused_rwmh(*args, n_steps=RWMH_STEPS))
+    others = (
+        ("corr2", correlated_gaussian_model([[1.5, 0.35], [0.35, 1.0]], device=dev), [0.0, 0.0],
+         RWMH_CHAINS, RWMH_SCALE, N_DRAWS),
+        ("emcee", emcee_demo_model(device=dev), [2.0, 1.0], RWMH_CHAINS, RWMH_SCALE, N_DRAWS),
+        ("logreg", logistic_regression_model(256, 32, seed=0, device=dev), [0.0] * 32, C, 0.02,
+         500),
+    )
+    for name, m, start, n_chains, scale, n in others:
+        ms[f"rwmh_sample_{name}"] = sample(args_of(m, start, n_chains, scale), N_WARM - 1, 1, n)
+    return ms
+
+
+def _time_in(root: str, only: str = None) -> dict:
+    """The kernels' best-of-3 milliseconds in the checkout at ``root`` (the
+    set ``only``, or both), and the seconds its kernels took to build in
+    this turn (0 when built before)."""
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
     import torch
@@ -76,7 +127,9 @@ def _time_in(root: str) -> dict:
             t_best = min(t_best, time.perf_counter() - t0)
         return t_best * 1e3, out
 
-    ms = {}
+    ms = {} if only == "group" else _time_rwmh(best, dev)
+    if only == "rwmh":
+        return {"build_s": build_s, "ms": ms}
     lr = logistic_regression_model(256, 32, seed=0, device=dev)
     vg = lr.tile_value_and_grad
     x0 = torch.zeros(32, C, device=dev)
@@ -160,11 +213,12 @@ def _card() -> str:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--a", help="checkout A (the parent)")
-    ap.add_argument("--b", help="checkout B (the change)")
+    ap.add_argument("--b", nargs="+", help="checkout B (the change), or several")
+    ap.add_argument("--only", choices=("rwmh", "group"), help="time one set of kernels")
     ap.add_argument("--time-in", help="(a turn) time the kernels of this checkout")
     opts = ap.parse_args()
     if opts.time_in:
-        print(json.dumps(_time_in(opts.time_in)))
+        print(json.dumps(_time_in(opts.time_in, opts.only)))
         return
     import torch
 
@@ -172,10 +226,13 @@ def main() -> None:
         sys.exit("kernel_ab: needs a CUDA GPU")
     card = _card()
     print(card)
+    sides = [("A", opts.a)] + [(f"B{i + 1}" if len(opts.b) > 1 else "B", root)
+                               for i, root in enumerate(opts.b)]
     turns = []
-    for side, root in (("A", opts.a), ("B", opts.b), ("B", opts.b), ("A", opts.a)):
+    for side, root in sides + sides[::-1]:
         t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-in", root],
+        cmd = [sys.executable, os.path.abspath(__file__), "--time-in", root]
+        r = subprocess.run(cmd + (["--only", opts.only] if opts.only else []),
                            capture_output=True, text=True)
         if r.returncode != 0:
             sys.exit(f"kernel_ab: the turn in {root} failed:\n{r.stdout}\n{r.stderr}")
@@ -184,12 +241,14 @@ def main() -> None:
         print(f"turn {side} ({root}, {time.perf_counter() - t0:.1f} s, build "
               f"{out['build_s']:.1f} s): {json.dumps(ms)}", flush=True)
         turns.append((side, ms))
-    print(f"[{card}] kernel ms, best of 3 a turn, turns A B B A")
+    order = " ".join(side for side, _ in turns)
+    print(f"[{card}] kernel ms, best of 3 a turn, turns {order}; each side's mean, and B/A")
     for name in turns[0][1]:
-        row = [ms[name] for _, ms in turns]
-        mean_a, mean_b = (row[0] + row[3]) / 2, (row[1] + row[2]) / 2
-        print(f"{name:14s} " + " ".join(f"{v:10.4f}" for v in row)
-              + f"   A {mean_a:10.4f}  B {mean_b:10.4f}  B/A {mean_b / mean_a:.4f}")
+        mean = {side: sum(ms[name] for sd, ms in turns if sd == side) / 2 for side, _ in sides}
+        print(f"{name:16s} " + " ".join(f"{ms[name]:10.4f}" for _, ms in turns) + "  "
+              + "  ".join(f"{side} {mean[side]:10.4f}" + ("" if side == "A" else
+                                                         f" ({mean[side] / mean['A']:.4f})")
+                          for side, _ in sides))
 
 
 if __name__ == "__main__":
