@@ -11,12 +11,13 @@ first ``LAG_WINDOW`` lags comes from one launch of ``ops/autocov.py``
 (:func:`_ess_window`), and the FFT autocovariance of all lags of every chain
 (:func:`_ess_fft`) runs only where the sequence runs past the window, counted
 in ``ess.fft_fallbacks`` and spanned as ``ess.fft_fallback``. Other dtypes
-take the FFT.
+take the FFT. :func:`ess_and_value` makes that decision for :func:`ess` and
+``Chains.summary()``.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -101,7 +102,7 @@ def _ess_window(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 @contextlib.contextmanager
-def fft_fallback():
+def _fft_fallback():
     """The FFT path that runs where the window did not decide: counted in
     ``ess.fft_fallbacks`` and spanned as ``ess.fft_fallback``."""
     ess.fft_fallbacks += 1
@@ -109,18 +110,31 @@ def fft_fallback():
         yield
 
 
+def ess_and_value(x: torch.Tensor, site: str,
+                  read_fft: bool = True) -> Tuple[torch.Tensor, Optional[float]]:
+    """ESS of (N, C) draws ``x`` and its value on the host. Float32 draws
+    take the lag window: its ESS and whether it decided come back in one
+    host read at the sync site ``site``. The FFT runs where the window did
+    not decide, and for other dtypes; its value is read at ``site`` only with
+    ``read_fft`` (else the value is None)."""
+    fallback = contextlib.nullcontext()
+    if x.dtype == torch.float32:
+        t, decided = _ess_window(x)
+        value, decided = host_sync(site, torch.Tensor.tolist,
+                                   torch.stack([t.double(), decided.double()]))
+        if decided:
+            return t, value
+        fallback = _fft_fallback()
+    with fallback:
+        t = _ess_fft(x)
+        return t, host_sync(site, float, t) if read_fft else None
+
+
 def ess(x: torch.Tensor) -> torch.Tensor:
     """Effective sample size of draws ``x`` shaped (N,) or (N, C),
-    aggregated over chains. Float32 draws read one flag from the device
-    (site ``ess``): whether the lag window decided."""
-    x = _as_2d(x)
-    if x.dtype != torch.float32:
-        return _ess_fft(x)
-    e, decided = _ess_window(x)
-    if host_sync("ess", bool, decided):
-        return e
-    with fft_fallback():
-        return _ess_fft(x)
+    aggregated over chains. Float32 draws read the window's answer from the
+    device once (site ``ess``)."""
+    return ess_and_value(_as_2d(x), "ess", read_fft=False)[0]
 
 
 ess.fft_fallbacks = 0

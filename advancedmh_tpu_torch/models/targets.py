@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..distributions import InverseGamma, MvNormal, Normal
-from ..ops.rwmh import row_sum, softplus
+from ..ops.common import row_sum, softplus
 from .density import DensityModel, guarded_logdensity
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -514,7 +514,7 @@ def gp_classification_tile(f: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Tile log-likelihood of GP classification, y ∈ {−1, +1} (d, 1):
     ``−Σ softplus((−y)·f)``, the points summed in 8 interleaved partials as
     :func:`gp_regression_tile` (softplus in the JAX tile's max +
-    log(1 + exp(−|t|)) form, ops/rwmh.py::softplus), as
+    log(1 + exp(−|t|)) form, ops/common.py::softplus), as
     ``GPClassification`` in csrc/common.cuh."""
     return -_interleaved_sum(softplus((-y) * f))
 

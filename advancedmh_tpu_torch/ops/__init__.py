@@ -1,6 +1,8 @@
 from .adapt import adapt_rwmh_reference, fused_adapt_rwmh_sample
 from .am import AmParams, am_sample_reference, am_step, fused_am_sample, welford_advance
 from .barker import barker_sample_reference, barker_step, fused_barker_sample
+from .common import (box_muller, philox4x32_reference, philox_uniforms, scale_block, step_noise,
+                     uniform_from_bits)
 from .chees import (CheesParams, chees_frozen_reference, chees_warmup_reference,
                     fused_chees_frozen_sample, fused_chees_warmup_block, halton_trips, vdc)
 from .cholesky import chol_rank1_update, chol_rank1_update_batched
@@ -20,18 +22,7 @@ from .mtm import (fused_mtm, fused_mtm_sample, mtm_reference, mtm_sample_referen
                   streaming_logsumexp)
 from .pcn import fused_pcn_sample, pcn_constants, pcn_sample_reference, pcn_step
 from .ram import RamParams, fused_ram_sample, ram_sample_reference
-from .rwmh import (
-    box_muller,
-    fused_rwmh,
-    fused_rwmh_sample,
-    philox4x32_reference,
-    philox_uniforms,
-    rwmh_reference,
-    rwmh_sample_reference,
-    scale_block,
-    step_noise,
-    uniform_from_bits,
-)
+from .rwmh import fused_rwmh, fused_rwmh_sample, rwmh_reference, rwmh_sample_reference
 from .slice import fused_slice_sample, slice_sample_reference, slice_trips, unit_direction
 from .tempering import (fused_tempering_sample, ladder_constants, tempering_sample_reference,
                         tempering_step)

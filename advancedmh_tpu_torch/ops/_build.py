@@ -26,6 +26,8 @@ Which (density, d) pairs each kernel is instantiated for is said once, in
 its source's registry list; the library exports it (:func:`kernel_pairs`)
 and an entry point returns ``NO_KERNEL`` for any other pair, which
 :func:`check` turns into the one ``ValueError``.
+
+Every kernel wrapper of ``ops/`` launches through :func:`launch`.
 """
 from __future__ import annotations
 
@@ -38,7 +40,9 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import FrozenSet, Optional, Tuple
+from typing import FrozenSet, Optional, Sequence, Tuple
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -331,6 +335,40 @@ def check(lib: ctypes.CDLL, code: int, kernel: str, density: Optional[str],
     if code != 0:
         msg = lib.amh_error_string(code).decode()
         raise RuntimeError(f"{kernel} launch failed (code {code}): {msg}")
+
+
+def check_cuda_launch(params_t: torch.Tensor, seed: int, iteration_offset: int) -> None:
+    """What every kernel launch needs: a CUDA tensor and 64-bit counters."""
+    if params_t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {params_t.device}")
+    if not 0 <= seed < 1 << 64 or not 0 <= iteration_offset < 1 << 63:
+        raise ValueError("seed and iteration_offset must fit 64 bits")
+
+
+def flat_consts(consts: Sequence[torch.Tensor], device) -> Tuple[torch.Tensor, int]:
+    """The density constants as the kernels read them: one contiguous
+    float32 vector (one placeholder float when there are none) and its
+    length. They go to shared memory, so at most 227 KB
+    (:func:`check_shared_memory`)."""
+    n = sum(c.numel() for c in consts)
+    check_shared_memory(n)
+    if not consts:
+        return torch.zeros(1, dtype=torch.float32, device=device), 0
+    return torch.cat([c.reshape(-1).to(torch.float32) for c in consts]).contiguous(), n
+
+
+def launch(entry: str, kernel: str, cuda_density: Optional[str], d: int, device,
+           *args) -> None:
+    """Call the C entry point ``entry`` of the source ``kernel`` on ``device``
+    and raise as :func:`check` does for the code it returns. A kernel of
+    :data:`KERNELS` takes the density's tag and ``d`` first; ``args`` follow
+    (a tensor as its data pointer), then the device's current stream."""
+    lib = library()
+    head = (density_arg(cuda_density), d) if kernel in KERNELS else ()
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        code = getattr(lib, entry)(*head, *ptrs, torch.cuda.current_stream(device).cuda_stream)
+    check(lib, code, kernel, cuda_density, d)
 
 
 def launch_info(entry: str, kernel: str, cuda_density: str, d: int, n_consts: int,

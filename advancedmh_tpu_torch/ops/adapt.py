@@ -6,7 +6,7 @@ chain's ε by HG14 dual averaging on the accept indicator (ops/hmc_adapt.py::
 dual_average_step), then ``n_samples`` thinned draws at the frozen
 ``ε̄ = exp(log ε̄)``; sample k is the state after ``warmup + (k+1)*thin``
 steps. A step accepts iff ``log u < lp_y − lp``; its noise is RWMH's
-(ops/rwmh.py::step_noise), numbered by the absolute step through warmup and
+(ops/common.py::step_noise), numbered by the absolute step through warmup and
 sampling alike.
 
 The resume variant (``log_eps_bar`` given, ``warmup=0``) starts frozen at
@@ -27,7 +27,7 @@ import torch
 from ..utils.trace import traced
 from . import _build
 from .hmc_adapt import DualAveraging, dual_average_step
-from .rwmh import _check, _noise_chunk, check_cuda_launch, flat_consts, step_noise
+from .common import check_block, noise_chunk, step_noise
 
 
 def iso_rwmh_step(x, lp, z, logu, eps, tile_fn, consts):
@@ -59,7 +59,7 @@ def adapt_rwmh_reference(
         h_bar = torch.zeros((1, n_chains), **f)
     x, l = params_t, lp
     n_steps = warmup + n_samples * thin
-    chunk = _noise_chunk(n_chains)
+    chunk = noise_chunk(n_chains)
     for t0 in range(0, n_steps, chunk):
         n = min(chunk, n_steps - t0)
         z, logu = step_noise(seed, iteration_offset + 1 + t0, n, n_chains, d, params_t.device)
@@ -88,7 +88,7 @@ def fused_adapt_rwmh_sample(
     (≙ pallas_adapt.py::fused_adapt_rwmh_sample). Returns samples
     ``(n_samples, d, C)``, lps and accepted ``(n_samples, 1, C)`` and the
     frozen log ε̄ ``(1, C)``."""
-    _check(params_t, lp, consts, (warmup, thin - 1, n_samples - 1))
+    check_block(params_t, lp, consts, (warmup, thin - 1, n_samples - 1))
     d, n_chains = params_t.shape
     if log_eps_bar is not None:
         if warmup != 0:
@@ -99,10 +99,9 @@ def fused_adapt_rwmh_sample(
               log_eps_bar=log_eps_bar, iteration_offset=iteration_offset)
     if params_t.device.type == "cpu":
         return adapt_rwmh_reference(tile_fn, cuda_density, params_t, lp, consts, seed, **kw)
-    check_cuda_launch(params_t, seed, iteration_offset)
-    lib = _build.library()
+    _build.check_cuda_launch(params_t, seed, iteration_offset)
     p, l = params_t.contiguous(), lp.contiguous()
-    flat, n_consts = flat_consts(consts, p.device)
+    flat, n_consts = _build.flat_consts(consts, p.device)
     f = dict(dtype=torch.float32, device=p.device)
     samples = torch.empty((n_samples, d, n_chains), **f)
     lps = torch.empty((n_samples, 1, n_chains), **f)
@@ -110,15 +109,9 @@ def fused_adapt_rwmh_sample(
     leb_out = torch.empty((1, n_chains), **f)
     resume = log_eps_bar is not None
     leb_in = log_eps_bar.contiguous() if resume else leb_out
-    with torch.cuda.device(p.device):
-        code = lib.amh_adapt_rwmh_sample(
-            _build.density_arg(cuda_density), d, int(resume), p.data_ptr(), l.data_ptr(),
-            leb_in.data_ptr(), flat.data_ptr(), n_consts, *da.args(), seed, warmup, thin,
-            n_samples, iteration_offset, n_chains, samples.data_ptr(), lps.data_ptr(),
-            accs.data_ptr(), leb_out.data_ptr(),
-            torch.cuda.current_stream(p.device).cuda_stream,
-        )
-    _build.check(lib, code, "adapt", cuda_density, d)
+    _build.launch("amh_adapt_rwmh_sample", "adapt", cuda_density, d, p.device, int(resume), p,
+                  l, leb_in, flat, n_consts, *da.args(), seed, warmup, thin, n_samples,
+                  iteration_offset, n_chains, samples, lps, accs, leb_out)
     fused_adapt_rwmh_sample.launches += 1
     return samples, lps, accs, leb_out
 

@@ -32,7 +32,7 @@ import torch
 from ..utils.trace import traced
 from . import _build
 from .cholesky import chol_rank1_update_batched
-from .rwmh import _noise_chunk, box_muller, check_cuda_launch, flat_consts, philox_uniforms
+from .common import box_muller, noise_chunk, philox_uniforms
 
 MAX_DIM = 8  # as pallas_am.py and pallas_dram.py: the kernels unroll the d x d sweep
 
@@ -118,7 +118,7 @@ def run_am_family(step, n_words, params_t, lp, mean, L, n, seed, burn, thin, n_s
     accs = torch.empty((n_samples, 1, n_chains), **f32)
     state = (params_t, lp, mean, lower(L, d), n)
     n_steps = burn + n_samples * thin
-    chunk = _noise_chunk(n_chains, n_words)
+    chunk = noise_chunk(n_chains, n_words)
     for t0 in range(0, n_steps, chunk):
         m = min(chunk, n_steps - t0)
         u = philox_uniforms(seed, iteration_offset + 1 + t0, m, n_chains, n_words,
@@ -170,26 +170,20 @@ def check_am_family(name, params_t, lp, mean, L, n, consts, burn, thin, n_sample
             raise ValueError("params_t, lp, mean, L, n and consts must be on one device")
 
 
-def launch_am_family(lib_fn, kernel, cuda_density, params_t, lp, mean, L, n, consts,
+def launch_am_family(entry, kernel, cuda_density, params_t, lp, mean, L, n, consts,
                      constants, seed, burn, thin, n_samples, iteration_offset):
-    """Launch the AM or DRAM kernel (``lib_fn`` its C entry point, ``constants``
+    """Launch the AM or DRAM kernel (``entry`` its C entry point, ``constants``
     its float arguments); returns (samples, lps, accs, mean, L, n)."""
-    check_cuda_launch(params_t, seed, iteration_offset)
-    lib = _build.library()
+    _build.check_cuda_launch(params_t, seed, iteration_offset)
     d, C = params_t.shape
     ins = [t.contiguous() for t in (params_t, lp, mean, L, n)]
-    flat, n_consts = flat_consts(consts, params_t.device)
+    flat, n_consts = _build.flat_consts(consts, params_t.device)
     f32 = dict(dtype=torch.float32, device=params_t.device)
     outs = (torch.empty((n_samples, d, C), **f32), torch.empty((n_samples, 1, C), **f32),
             torch.empty((n_samples, 1, C), **f32), torch.empty((d, C), **f32),
             torch.empty((d * d, C), **f32), torch.empty((1, C), **f32))
-    with torch.cuda.device(params_t.device):
-        code = getattr(lib, lib_fn)(
-            _build.density_arg(cuda_density), d, *(t.data_ptr() for t in ins),
-            flat.data_ptr(), n_consts, *constants, seed, burn, thin, n_samples,
-            iteration_offset, C, *(t.data_ptr() for t in outs),
-            torch.cuda.current_stream(params_t.device).cuda_stream)
-    _build.check(lib, code, kernel, cuda_density, d)
+    _build.launch(entry, kernel, cuda_density, d, params_t.device, *ins, flat, n_consts,
+                  *constants, seed, burn, thin, n_samples, iteration_offset, C, *outs)
     return outs
 
 

@@ -55,16 +55,11 @@ def autocov_window(x: torch.Tensor, means: torch.Tensor, K: int) -> torch.Tensor
     if c > 1 and x.stride(1) != 1:
         raise ValueError("x must hold its chains contiguously (stride 1 on dim 1)")
     K = min(K, n)
-    lib = _build.library()
     f64 = dict(dtype=torch.float64, device=x.device)
-    partials = torch.empty((K, lib.amh_autocov_blocks(n, c)), **f64)
+    partials = torch.empty((K, _build.library().amh_autocov_blocks(n, c)), **f64)
     out = torch.empty(K, **f64)
-    m = means.contiguous()
-    with torch.cuda.device(x.device):
-        code = lib.amh_autocov_window(
-            x.data_ptr(), x.stride(0), m.data_ptr(), n, c, K, partials.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, code, "autocov", None, 0)
+    _build.launch("amh_autocov_window", "autocov", None, 0, x.device, x, x.stride(0),
+                  means.contiguous(), n, c, K, partials, out)
     autocov_window.launches += 1
     return out
 

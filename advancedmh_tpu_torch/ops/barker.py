@@ -31,8 +31,7 @@ import torch
 
 from ..utils.trace import traced
 from . import _build
-from .rwmh import (_noise_chunk, box_muller, check_cuda_launch, flat_consts, philox_uniforms,
-                   row_sum, softplus)
+from .common import box_muller, noise_chunk, philox_uniforms, row_sum, softplus
 
 
 def barker_step(x, lp, g, normals, u_sign, logu, sigma: float, value_and_grad, consts):
@@ -66,7 +65,7 @@ def barker_sample_reference(
     n_words = 2 * P + d + 1
     x, l, g = params_t, lp, grad
     n_steps = burn + n_samples * thin
-    chunk = _noise_chunk(n_chains, n_words)
+    chunk = noise_chunk(n_chains, n_words)
     for t0 in range(0, n_steps, chunk):
         n = min(chunk, n_steps - t0)
         u = philox_uniforms(seed, iteration_offset + 1 + t0, n, n_chains, n_words,
@@ -113,23 +112,17 @@ def fused_barker_sample(
     if params_t.device.type == "cpu":
         return barker_sample_reference(value_and_grad, cuda_density, params_t, lp, grad,
                                        consts, seed, **kw)
-    check_cuda_launch(params_t, seed, iteration_offset)
-    lib = _build.library()
+    _build.check_cuda_launch(params_t, seed, iteration_offset)
     p, l, g = params_t.contiguous(), lp.contiguous(), grad.contiguous()
-    flat, n_consts = flat_consts(consts, p.device)
+    flat, n_consts = _build.flat_consts(consts, p.device)
     f32 = dict(dtype=torch.float32, device=p.device)
     samples = torch.empty((n_samples, d, n_chains), **f32)
     lps = torch.empty((n_samples, 1, n_chains), **f32)
     accs = torch.empty((n_samples, 1, n_chains), **f32)
     out_grad = torch.empty((d, n_chains), **f32)
-    with torch.cuda.device(p.device):
-        code = lib.amh_barker_sample(
-            _build.density_arg(cuda_density), d, p.data_ptr(), l.data_ptr(), g.data_ptr(),
-            flat.data_ptr(), n_consts, float(np.float32(step_size)), seed, burn, thin,
-            n_samples, iteration_offset, n_chains, samples.data_ptr(), lps.data_ptr(),
-            accs.data_ptr(), out_grad.data_ptr(),
-            torch.cuda.current_stream(p.device).cuda_stream)
-    _build.check(lib, code, "barker", cuda_density, d)
+    _build.launch("amh_barker_sample", "barker", cuda_density, d, p.device, p, l, g, flat,
+                  n_consts, float(np.float32(step_size)), seed, burn, thin, n_samples,
+                  iteration_offset, n_chains, samples, lps, accs, out_grad)
     fused_barker_sample.launches += 1
     return samples, lps, accs, out_grad
 

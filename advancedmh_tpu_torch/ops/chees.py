@@ -37,7 +37,7 @@
 
 Noise: step j (``iteration_offset + 1`` is a launch's first) draws its
 momentum normals and accept uniform from Philox at counter (j, chain)
-(ops/rwmh.py::step_noise), so the plain versions see the kernels' numbers.
+(ops/common.py::step_noise), so the plain versions see the kernels' numbers.
 Pooled sums run in the kernels' order (ops/pooling.py). Each wrapper runs
 its plain version for tensors on the CPU, and for CUDA tensors launches its
 kernel or raises; ``<wrapper>.launches`` counts the launches.
@@ -52,9 +52,9 @@ import torch
 
 from ..utils.trace import traced
 from . import _build
-from .hmc import check_hmc_args, f32, hmc_propose, hmc_step
+from .common import f32, noise_chunk, row_sum, step_noise
+from .hmc import check_hmc_args, hmc_propose, hmc_step
 from .pooling import full, n_blocks, nan_max, nan_min, per_chain, tile_sums
-from .rwmh import _noise_chunk, check_cuda_launch, flat_consts, row_sum, step_noise
 
 
 def vdc(i: int) -> float:
@@ -162,7 +162,7 @@ def chees_warmup_reference(
     acc = torch.zeros((1, C), dtype=torch.bool, device=dev)
     E = len(trips)
     n_steps = E * n_groups
-    chunk = _noise_chunk(C)
+    chunk = noise_chunk(C)
     for s0 in range(0, n_steps, chunk):
         nn_ = min(chunk, n_steps - s0)
         z, logu = step_noise(seed, iteration_offset + 1 + s0, nn_, C, d, dev)
@@ -264,11 +264,10 @@ def fused_chees_warmup_block(
     if params_t.device.type == "cpu":
         return chees_warmup_reference(value_and_grad, cuda_density, params_t, lp, grad,
                                       consts, seed, **kw)
-    check_cuda_launch(params_t, seed, iteration_offset)
-    lib = _build.library()
+    _build.check_cuda_launch(params_t, seed, iteration_offset)
     dev = params_t.device
     p, l, g = params_t.contiguous(), lp.contiguous(), grad.contiguous()
-    flat, n_consts = flat_consts(consts, dev)
+    flat, n_consts = _build.flat_consts(consts, dev)
     f = dict(dtype=torch.float32, device=dev)
     nt = n_tiles_of(C, tile_chains)
     trips_t = torch.tensor([int(v) for v in trips], dtype=torch.int32, device=dev)
@@ -281,18 +280,10 @@ def fused_chees_warmup_block(
     sums = torch.empty((2, d, nt), **f)
     # the block partials of the two pooled rounds (2 + 2d sums each)
     partials = torch.empty((2, 2 + 2 * d, n_blocks(C, tile_chains)), **f)
-    with torch.cuda.device(dev):
-        code = lib.amh_chees_warmup(
-            _build.density_arg(cuda_density), d, p.data_ptr(), l.data_ptr(), g.data_ptr(),
-            sv_in.data_ptr(), minv_in.data_ptr(), trips_t.data_ptr(), us_t.data_ptr(),
-            len(trips), n_groups, flat.data_ptr(), n_consts, *params.args(),
-            int(params.adapt_mass), seed, iteration_offset, C, tile_chains,
-            out_x.data_ptr(), out_l.data_ptr(), out_g.data_ptr(), out_acc.data_ptr(),
-            sv_tiles.data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(),
-            partials.data_ptr(), partials.shape[2],
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(lib, code, "chees", cuda_density, d)
+    _build.launch("amh_chees_warmup", "chees", cuda_density, d, dev, p, l, g, sv_in, minv_in,
+                  trips_t, us_t, len(trips), n_groups, flat, n_consts, *params.args(),
+                  int(params.adapt_mass), seed, iteration_offset, C, tile_chains, out_x, out_l,
+                  out_g, out_acc, sv_tiles, sums[0], sums[1], partials, partials.shape[2])
     fused_chees_warmup_block.launches += 1
     return out_x, out_l, out_g, out_acc, sv_tiles, sums[0], sums[1]
 
@@ -316,7 +307,7 @@ def chees_frozen_reference(
     P = len(trips)
     x, l, g = params_t, lp, grad
     n_steps = n_samples * thin
-    chunk = _noise_chunk(C)
+    chunk = noise_chunk(C)
     for s0 in range(0, n_steps, chunk):
         n = min(chunk, n_steps - s0)
         z, logu = step_noise(seed, iteration_offset + 1 + s0, n, C, d, params_t.device)
@@ -358,11 +349,10 @@ def fused_chees_frozen_sample(
     if params_t.device.type == "cpu":
         return chees_frozen_reference(value_and_grad, cuda_density, params_t, lp, grad,
                                       consts, seed, **kw)
-    check_cuda_launch(params_t, seed, iteration_offset)
-    lib = _build.library()
+    _build.check_cuda_launch(params_t, seed, iteration_offset)
     dev = params_t.device
     p, l, g = params_t.contiguous(), lp.contiguous(), grad.contiguous()
-    flat, n_consts = flat_consts(consts, dev)
+    flat, n_consts = _build.flat_consts(consts, dev)
     f = dict(dtype=torch.float32, device=dev)
     eps = step_size.to(**f).reshape(-1).contiguous()
     minv = inverse_mass.to(**f).contiguous()
@@ -371,15 +361,9 @@ def fused_chees_frozen_sample(
     lps = torch.empty((n_samples, 1, C), **f)
     accs = torch.empty((n_samples, 1, C), **f)
     g_state = torch.empty((d, C), **f)
-    with torch.cuda.device(dev):
-        code = lib.amh_chees_frozen_sample(
-            _build.density_arg(cuda_density), d, p.data_ptr(), l.data_ptr(), g.data_ptr(),
-            eps.data_ptr(), int(eps.numel() > 1), minv.data_ptr(), flat.data_ptr(), n_consts,
-            trips_t.data_ptr(), len(trips), phase, seed, thin, n_samples, iteration_offset,
-            C, samples.data_ptr(), lps.data_ptr(), accs.data_ptr(), g_state.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(lib, code, "chees", cuda_density, d)
+    _build.launch("amh_chees_frozen_sample", "chees", cuda_density, d, dev, p, l, g, eps,
+                  int(eps.numel() > 1), minv, flat, n_consts, trips_t, len(trips), phase, seed,
+                  thin, n_samples, iteration_offset, C, samples, lps, accs, g_state)
     fused_chees_frozen_sample.launches += 1
     return samples, lps, accs, g_state
 

@@ -38,7 +38,7 @@ import torch
 
 from ..utils.trace import traced
 from . import _build
-from .rwmh import _noise_chunk, box_muller, check_cuda_launch, flat_consts, philox_uniforms, row_sum
+from .common import box_muller, noise_chunk, philox_uniforms, row_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,7 +163,7 @@ def demc_sample_reference(
     W = demc_words(d)
     halves = torch.arange(M, device=dev).view(2, H)
     n_steps = burn + n_samples * thin
-    chunk = _noise_chunk(M, W)
+    chunk = noise_chunk(M, W)
     for t0 in range(0, n_steps, chunk):
         n = min(chunk, n_steps - t0)
         u = philox_uniforms(seed, iteration_offset + 1 + t0, n, M, W, dev)
@@ -203,24 +203,19 @@ def fused_demc_sample(
               iteration_offset=iteration_offset)
     if params_t.device.type == "cpu":
         return demc_sample_reference(tile_fn, cuda_density, params_t, lp, consts, seed, **kw)
-    check_cuda_launch(params_t, seed, iteration_offset)
-    lib = _build.library()
+    _build.check_cuda_launch(params_t, seed, iteration_offset)
     x_state = params_t.to(torch.float32, copy=True).contiguous()
     lp_state = lp.to(torch.float32, copy=True).contiguous()
-    flat, n_consts = flat_consts(consts, x_state.device)
+    flat, n_consts = _build.flat_consts(consts, x_state.device)
     f32 = dict(dtype=torch.float32, device=x_state.device)
     samples = torch.empty((n_samples, d, M), **f32)
     lps = torch.empty((n_samples, 1, M), **f32)
     accs = torch.empty((n_samples, 1, M), **f32)
-    with torch.cuda.device(x_state.device):
-        code = lib.amh_demc_sample(
-            _build.density_arg(cuda_density), d, x_state.data_ptr(), lp_state.data_ptr(),
-            flat.data_ptr(), n_consts, float(params.gamma), float(params.noise_scale),
-            float(params.jump_probability), float(params.snooker_probability),
-            float(params.snooker_gamma), 0.5 * (d - 1), M, seed, burn, thin, n_samples,
-            iteration_offset, samples.data_ptr(), lps.data_ptr(), accs.data_ptr(),
-            torch.cuda.current_stream(x_state.device).cuda_stream)
-    _build.check(lib, code, "demc", cuda_density, d)
+    _build.launch("amh_demc_sample", "demc", cuda_density, d, x_state.device, x_state,
+                  lp_state, flat, n_consts, float(params.gamma), float(params.noise_scale),
+                  float(params.jump_probability), float(params.snooker_probability),
+                  float(params.snooker_gamma), 0.5 * (d - 1), M, seed, burn, thin, n_samples,
+                  iteration_offset, samples, lps, accs)
     fused_demc_sample.launches += 1
     return samples, lps, accs
 

@@ -27,8 +27,7 @@ import torch
 
 from ..utils.trace import traced
 from . import _build
-from .rwmh import (_noise_chunk, box_muller, check_cuda_launch, flat_consts, philox_uniforms,
-                   row_sum, scale_block)
+from .common import box_muller, noise_chunk, philox_uniforms, row_sum, scale_block
 
 
 def log1m_exp(a: torch.Tensor) -> torch.Tensor:
@@ -96,7 +95,7 @@ def dr_sample_reference(
     n_words = 4 * P + 2
     x, l = params_t, lp
     n_steps = burn + n_samples * thin
-    chunk = _noise_chunk(n_chains, n_words)
+    chunk = noise_chunk(n_chains, n_words)
     for t0 in range(0, n_steps, chunk):
         m = min(chunk, n_steps - t0)
         u = philox_uniforms(seed, iteration_offset + 1 + t0, m, n_chains, n_words,
@@ -138,21 +137,16 @@ def fused_dr_sample(
     if params_t.device.type == "cpu":
         return dr_sample_reference(tile_fn, cuda_density, params_t, lp, s1, s2, consts, seed,
                                    **kw)
-    check_cuda_launch(params_t, seed, iteration_offset)
-    lib = _build.library()
+    _build.check_cuda_launch(params_t, seed, iteration_offset)
     p, l = params_t.contiguous(), lp.contiguous()
-    flat, n_consts = flat_consts(consts, p.device)
+    flat, n_consts = _build.flat_consts(consts, p.device)
     f32 = dict(dtype=torch.float32, device=p.device)
     samples = torch.empty((n_samples, d, n_chains), **f32)
     lps = torch.empty((n_samples, 1, n_chains), **f32)
     accs = torch.empty((n_samples, 1, n_chains), **f32)
-    with torch.cuda.device(p.device):
-        code = lib.amh_dr_sample(
-            _build.density_arg(cuda_density), d, p.data_ptr(), l.data_ptr(), s1.data_ptr(),
-            s2.data_ptr(), flat.data_ptr(), n_consts, seed, burn, thin, n_samples,
-            iteration_offset, n_chains, samples.data_ptr(), lps.data_ptr(), accs.data_ptr(),
-            torch.cuda.current_stream(p.device).cuda_stream)
-    _build.check(lib, code, "dr", cuda_density, d)
+    _build.launch("amh_dr_sample", "dr", cuda_density, d, p.device, p, l, s1, s2, flat,
+                  n_consts, seed, burn, thin, n_samples, iteration_offset, n_chains, samples,
+                  lps, accs)
     fused_dr_sample.launches += 1
     return samples, lps, accs
 

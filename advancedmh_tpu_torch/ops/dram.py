@@ -33,7 +33,7 @@ import torch
 from ..utils.trace import traced
 from .am import check_am_family, launch_am_family, run_am_family, tri_rows, welford_advance
 from .dr import log1m_exp
-from .rwmh import box_muller, row_sum
+from .common import box_muller, row_sum
 
 
 @dataclasses.dataclass(frozen=True)

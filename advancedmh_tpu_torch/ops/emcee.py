@@ -28,8 +28,7 @@ import torch
 
 from ..utils.trace import traced
 from . import _build
-from .rwmh import (_MASK32, check_cuda_launch, flat_consts, philox4x32_reference,
-                   uniform_from_bits)
+from .common import MASK32, philox4x32_reference, uniform_from_bits
 
 
 def check_walkers(n_walkers: int, tile_walkers: int) -> None:
@@ -55,11 +54,11 @@ def emcee_uniforms(seed: int, j0: int, n: int, n_walkers: int,
     j = torch.arange(j0, j0 + n, **i64).view(n, 1, 1)
     shape = (n, 2, n_walkers // 2)
     counter = torch.stack(
-        [(j & _MASK32).expand(shape), walker.expand(shape),
+        [(j & MASK32).expand(shape), walker.expand(shape),
          h.view(1, 2, 1).expand(shape), (j >> 32).expand(shape)],
         dim=-1,
     )
-    key = (seed & _MASK32, (seed >> 32) & _MASK32)
+    key = (seed & MASK32, (seed >> 32) & MASK32)
     return walker, uniform_from_bits(philox4x32_reference(counter, key)[..., :3])
 
 
@@ -162,24 +161,17 @@ def fused_emcee_sample(
     if params_t.device.type == "cpu":
         return emcee_sample_reference(tile_fn, cuda_density, params_t, lp,
                                       consts, seed, **kw)
-    check_cuda_launch(params_t, seed, iteration_offset)
-    lib = _build.library()
+    _build.check_cuda_launch(params_t, seed, iteration_offset)
     x_state = params_t.to(torch.float32, copy=True).contiguous()
     lp_state = lp.to(torch.float32, copy=True).contiguous()
-    flat, n_consts = flat_consts(consts, x_state.device)
+    flat, n_consts = _build.flat_consts(consts, x_state.device)
     f32 = dict(dtype=torch.float32, device=x_state.device)
     samples = torch.empty((n_samples, d, W), **f32)
     lps = torch.empty((n_samples, 1, W), **f32)
     accs = torch.empty((n_samples, 1, W), **f32)
-    with torch.cuda.device(x_state.device):
-        code = lib.amh_emcee_sample(
-            _build.density_arg(cuda_density), d, x_state.data_ptr(),
-            lp_state.data_ptr(), flat.data_ptr(), n_consts,
-            float(stretch_length), W, tile_walkers, seed, burn, thin,
-            n_samples, iteration_offset, samples.data_ptr(), lps.data_ptr(),
-            accs.data_ptr(), torch.cuda.current_stream(x_state.device).cuda_stream,
-        )
-    _build.check(lib, code, "emcee", cuda_density, d)
+    _build.launch("amh_emcee_sample", "emcee", cuda_density, d, x_state.device, x_state,
+                  lp_state, flat, n_consts, float(stretch_length), W, tile_walkers, seed, burn,
+                  thin, n_samples, iteration_offset, samples, lps, accs)
     fused_emcee_sample.launches += 1
     return samples, lps, accs
 

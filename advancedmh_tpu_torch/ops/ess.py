@@ -34,8 +34,7 @@ import torch
 
 from ..utils.trace import traced
 from . import _build
-from .rwmh import (_TWO_PI, _noise_chunk, _perturb, box_muller, check_cuda_launch,
-                   flat_consts, philox_uniforms, scale_block)
+from .common import TWO_PI, box_muller, noise_chunk, perturb, philox_uniforms, scale_block
 
 
 def ess_trips(x, lp, nu_c, loc, logy, theta0, trip_u, ld: Callable):
@@ -49,7 +48,7 @@ def ess_trips(x, lp, nu_c, loc, logy, theta0, trip_u, ld: Callable):
     needed (the kernel's count)."""
     done = torch.zeros(lp.shape, dtype=torch.bool, device=lp.device)
     evals = torch.zeros(lp.shape, dtype=torch.int32, device=lp.device)
-    theta, tmin, tmax = theta0, theta0 - _TWO_PI, theta0
+    theta, tmin, tmax = theta0, theta0 - TWO_PI, theta0
     res, res_lp = x, lp
     for i in range(trip_u.shape[0]):
         if bool(done.all()):
@@ -94,7 +93,7 @@ def ess_sample_reference(
     x, l = params_t.T, lp[0]
     n_steps = burn + n_samples * thin
     total, group_max = 0, {4: 0.0, 32: 0.0}
-    chunk = _noise_chunk(n_chains, n_words)
+    chunk = noise_chunk(n_chains, n_words)
     for t0 in range(0, n_steps, chunk):
         n = min(chunk, n_steps - t0)
         u = philox_uniforms(seed, iteration_offset + 1 + t0, n, n_chains, n_words,
@@ -102,8 +101,8 @@ def ess_sample_reference(
         z = box_muller(u, d)
         for t in range(n):
             x, l, done, evals = ess_trips(
-                x, l, _perturb(scale_arr, tril, z[t]).T, mu, l + torch.log(u[t, :, 2 * P]),
-                _TWO_PI * u[t, :, 2 * P + 1], u[t, :, 2 * P + 2:].T, ld)
+                x, l, perturb(scale_arr, tril, z[t]).T, mu, l + torch.log(u[t, :, 2 * P]),
+                TWO_PI * u[t, :, 2 * P + 1], u[t, :, 2 * P + 2:].T, ld)
             total += int(evals.sum())
             if stats is not None:
                 for g in group_max:
@@ -172,25 +171,20 @@ def fused_ess_sample(
     if params_t.device.type == "cpu":
         return ess_sample_reference(tile_fn, cuda_density, params_t, lp, loc, scale, consts,
                                     seed, **kw)
-    check_cuda_launch(params_t, seed, iteration_offset)
+    _build.check_cuda_launch(params_t, seed, iteration_offset)
     mu, scale_arr, tril = prior_args(params_t, loc, scale)
-    lib = _build.library()
     p, l = params_t.contiguous(), lp.contiguous()
     d, n_chains = p.shape
-    flat, n_consts = flat_consts(consts, p.device)
+    flat, n_consts = _build.flat_consts(consts, p.device)
     # raises before a launch the card would refuse
     ess_launch_info(cuda_density, d, tril, n_consts, n_chains)
     f32 = dict(dtype=torch.float32, device=p.device)
     samples = torch.empty((n_samples, d, n_chains), **f32)
     lps = torch.empty((n_samples, 1, n_chains), **f32)
     accs = torch.empty((n_samples, 1, n_chains), **f32)
-    with torch.cuda.device(p.device):
-        code = lib.amh_ess_sample(
-            _build.density_arg(cuda_density), d, int(tril), p.data_ptr(), l.data_ptr(),
-            mu.data_ptr(), scale_arr.data_ptr(), flat.data_ptr(), n_consts, int(max_shrink),
-            seed, burn, thin, n_samples, iteration_offset, n_chains, samples.data_ptr(),
-            lps.data_ptr(), accs.data_ptr(), torch.cuda.current_stream(p.device).cuda_stream)
-    _build.check(lib, code, "ess", cuda_density, d)
+    _build.launch("amh_ess_sample", "ess", cuda_density, d, p.device, int(tril), p, l, mu,
+                  scale_arr, flat, n_consts, int(max_shrink), seed, burn, thin, n_samples,
+                  iteration_offset, n_chains, samples, lps, accs)
     fused_ess_sample.launches += 1
     return samples, lps, accs
 

@@ -22,7 +22,7 @@ Burn-in runs at ``ε = exp(log ε)`` with per-chain HG14 dual averaging toward
 ``target_accept`` (``adapt=True``) or at ε₀ exactly; then ``n_samples``
 thinned draws at the frozen ``ε̄ = exp(log ε̄)`` (or ε₀), draw k after
 ``burn + (k+1)·thin`` steps, the accept flag of a thinned draw its last
-step's. Step j's noise is RWMH's (ops/rwmh.py::step_noise) of its absolute
+step's. Step j's noise is RWMH's (ops/common.py::step_noise) of its absolute
 index, so the plain version equals the kernel given the same seed.
 
 Layout: chains on the last axis, x ``(d, B)``. The kernel runs a chain of
@@ -43,9 +43,8 @@ import torch
 
 from ..utils.trace import traced
 from . import _build
-from .hmc import f32
 from .hmc_adapt import dual_average_step
-from .rwmh import _noise_chunk, check_cuda_launch, row_sum, step_noise
+from .common import f32, noise_chunk, row_sum, step_noise
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -124,7 +123,7 @@ def power_rwmh_reference(
             eps = torch.exp(leb)
     x, l, p = x_t, ll, plp
     n_steps = burn + n_samples * thin
-    chunk = _noise_chunk(n_chains)
+    chunk = noise_chunk(n_chains)
     for s0 in range(0, n_steps, chunk):
         n = min(chunk, n_steps - s0)
         z, logu = step_noise(seed, iteration_offset + 1 + s0, n, n_chains, d, x_t.device)
@@ -166,8 +165,7 @@ def fused_power_rwmh_sample(
     if x_t.device.type == "cpu":
         return power_rwmh_reference(tile_fn, cuda_density, x_t, ll, plp, beta, eps0, loc,
                                     scale, consts, seed, **kw)
-    check_cuda_launch(x_t, seed, iteration_offset)
-    lib = _build.library()
+    _build.check_cuda_launch(x_t, seed, iteration_offset)
     d, n_chains = x_t.shape
     n_consts = sum(c.numel() for c in consts)
     # raises before a launch the card would refuse
@@ -178,15 +176,9 @@ def fused_power_rwmh_sample(
     lls = torch.empty((n_samples, 1, n_chains), **f)
     accs = torch.empty((n_samples, 1, n_chains), **f)
     eps_out = torch.empty((1, n_chains), **f)
-    with torch.cuda.device(x_t.device):
-        code = lib.amh_power_rwmh_sample(
-            _build.density_arg(cuda_density), d, int(adapt), *(t.data_ptr() for t in ins),
-            flat.data_ptr(), n_consts, f32(target_accept), f32(t0), f32(kappa),
-            f32(gamma), seed, burn, thin, n_samples, iteration_offset, n_chains,
-            lls.data_ptr(), accs.data_ptr(), eps_out.data_ptr(),
-            torch.cuda.current_stream(x_t.device).cuda_stream,
-        )
-    _build.check(lib, code, "evidence", cuda_density, d)
+    _build.launch("amh_power_rwmh_sample", "evidence", cuda_density, d, x_t.device, int(adapt),
+                  *ins, flat, n_consts, f32(target_accept), f32(t0), f32(kappa), f32(gamma),
+                  seed, burn, thin, n_samples, iteration_offset, n_chains, lls, accs, eps_out)
     fused_power_rwmh_sample.launches += 1
     return lls, accs, eps_out
 

@@ -3,7 +3,7 @@
 ≙ advancedmh_tpu/ops/pallas_hmc.py. The kernel (``csrc/hmc.cu``) runs
 burn-in, then ``n_samples`` thinned draws; sample k is the state after
 ``burn + (k+1)*thin`` steps. A step draws the momentum ``p = z/√M⁻¹`` from
-the d normals of the step's noise (ops/rwmh.py::step_noise), runs
+the d normals of the step's noise (ops/common.py::step_noise), runs
 ``n_leapfrog`` kick-drift-kick leapfrog steps
 
     p += (ε/2)·g,  x += (ε·M⁻¹)·p,  (lp, g) = value_and_grad(x),  p += (ε/2)·g,
@@ -26,17 +26,11 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Sequence
 
-import numpy as np
 import torch
 
 from ..utils.trace import traced
 from . import _build
-from .rwmh import _noise_chunk, check_cuda_launch, flat_consts, row_sum, step_noise
-
-
-def f32(v: float) -> float:
-    """``v`` rounded to float32, as a Python float (a kernel argument)."""
-    return float(np.float32(v))
+from .common import f32, noise_chunk, row_sum, step_noise
 
 
 def kinetic(p: torch.Tensor, minv: torch.Tensor) -> torch.Tensor:
@@ -101,7 +95,7 @@ def hmc_sample_reference(
     eps = f32(step_size)
     x, l, g = params_t, lp, grad
     n_steps = burn + n_samples * thin
-    chunk = _noise_chunk(n_chains)
+    chunk = noise_chunk(n_chains)
     for t0 in range(0, n_steps, chunk):
         n = min(chunk, n_steps - t0)
         z, logu = step_noise(seed, iteration_offset + 1 + t0, n, n_chains, d, params_t.device)
@@ -157,25 +151,18 @@ def fused_hmc_sample(
     if params_t.device.type == "cpu":
         return hmc_sample_reference(value_and_grad, cuda_density, params_t, lp, grad,
                                     consts, seed, **kw)
-    check_cuda_launch(params_t, seed, iteration_offset)
-    lib = _build.library()
+    _build.check_cuda_launch(params_t, seed, iteration_offset)
     p, l, g = params_t.contiguous(), lp.contiguous(), grad.contiguous()
     m = inverse_mass.to(torch.float32).contiguous()
-    flat, n_consts = flat_consts(consts, p.device)
+    flat, n_consts = _build.flat_consts(consts, p.device)
     f = dict(dtype=torch.float32, device=p.device)
     samples = torch.empty((n_samples, d, n_chains), **f)
     lps = torch.empty((n_samples, 1, n_chains), **f)
     accs = torch.empty((n_samples, 1, n_chains), **f)
     g_state = torch.empty((d, n_chains), **f)
-    with torch.cuda.device(p.device):
-        code = lib.amh_hmc_sample(
-            _build.density_arg(cuda_density), d, p.data_ptr(), l.data_ptr(), g.data_ptr(),
-            m.data_ptr(), flat.data_ptr(), n_consts, f32(step_size), n_leapfrog, seed,
-            burn, thin, n_samples, iteration_offset, n_chains, samples.data_ptr(),
-            lps.data_ptr(), accs.data_ptr(), g_state.data_ptr(),
-            torch.cuda.current_stream(p.device).cuda_stream,
-        )
-    _build.check(lib, code, "hmc", cuda_density, d)
+    _build.launch("amh_hmc_sample", "hmc", cuda_density, d, p.device, p, l, g, m, flat,
+                  n_consts, f32(step_size), n_leapfrog, seed, burn, thin, n_samples,
+                  iteration_offset, n_chains, samples, lps, accs, g_state)
     fused_hmc_sample.launches += 1
     return samples, lps, accs, g_state
 

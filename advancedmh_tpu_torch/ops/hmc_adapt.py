@@ -33,8 +33,8 @@ import torch
 
 from ..utils.trace import traced
 from . import _build
-from .hmc import check_hmc_args, f32, hmc_step
-from .rwmh import _noise_chunk, check_cuda_launch, flat_consts, step_noise
+from .common import f32, noise_chunk, step_noise
+from .hmc import check_hmc_args, hmc_step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,7 +124,7 @@ def adaptive_hmc_reference(
         mean, m2 = params_t, torch.zeros((d, n_chains), **f)
     x, l, g = params_t, lp, grad
     n_steps = warmup + n_samples * thin
-    chunk = _noise_chunk(n_chains)
+    chunk = noise_chunk(n_chains)
     for t0 in range(0, n_steps, chunk):
         n = min(chunk, n_steps - t0)
         z, logu = step_noise(seed, iteration_offset + 1 + t0, n, n_chains, d, params_t.device)
@@ -189,10 +189,9 @@ def fused_adaptive_hmc_sample(
     if params_t.device.type == "cpu":
         return adaptive_hmc_reference(value_and_grad, cuda_density, params_t, lp, grad,
                                       consts, seed, **kw)
-    check_cuda_launch(params_t, seed, iteration_offset)
-    lib = _build.library()
+    _build.check_cuda_launch(params_t, seed, iteration_offset)
     p, l, g = params_t.contiguous(), lp.contiguous(), grad.contiguous()
-    flat, n_consts = flat_consts(consts, p.device)
+    flat, n_consts = _build.flat_consts(consts, p.device)
     f = dict(dtype=torch.float32, device=p.device)
     samples = torch.empty((n_samples, d, n_chains), **f)
     lps = torch.empty((n_samples, 1, n_chains), **f)
@@ -203,17 +202,11 @@ def fused_adaptive_hmc_sample(
     g_out = torch.empty((d, n_chains), **f)
     leb_in = log_eps_bar.contiguous() if resume else leb_out
     minv_in = inverse_mass.to(torch.float32).contiguous() if resume else minv_out
-    with torch.cuda.device(p.device):
-        code = lib.amh_adaptive_hmc_sample(
-            _build.density_arg(cuda_density), d, int(resume), p.data_ptr(), l.data_ptr(),
-            g.data_ptr(), leb_in.data_ptr(), minv_in.data_ptr(), flat.data_ptr(), n_consts,
-            *da.args(), f32(mass_regularization), float(mass_warm_start), n_leapfrog,
-            seed, warmup, thin, n_samples, iteration_offset, n_chains,
-            samples.data_ptr(), lps.data_ptr(), accs.data_ptr(), leb_out.data_ptr(),
-            minv_out.data_ptr(), x_out.data_ptr(), g_out.data_ptr(),
-            torch.cuda.current_stream(p.device).cuda_stream,
-        )
-    _build.check(lib, code, "hmc_adapt", cuda_density, d)
+    _build.launch("amh_adaptive_hmc_sample", "hmc_adapt", cuda_density, d, p.device,
+                  int(resume), p, l, g, leb_in, minv_in, flat, n_consts, *da.args(),
+                  f32(mass_regularization), float(mass_warm_start), n_leapfrog, seed, warmup,
+                  thin, n_samples, iteration_offset, n_chains, samples, lps, accs, leb_out,
+                  minv_out, x_out, g_out)
     fused_adaptive_hmc_sample.launches += 1
     return samples, lps, accs, leb_out, minv_out, g_out
 

@@ -9,7 +9,7 @@ density's value and gradient at ``y`` once, and accepts iff
 
     logα = lp_y − lp + (‖y − x − (s2/2) g‖² − ‖x − y − (s2/2) g_y‖²) / (2 s2).
 
-The noise of a step is RWMH's (ops/rwmh.py::step_noise): ``z`` from the d
+The noise of a step is RWMH's (ops/common.py::step_noise): ``z`` from the d
 normals and ``u`` from the one uniform of absolute step j for each chain.
 
 Layout: chains on the last axis, params and gradient ``(d, C)``, lp
@@ -26,7 +26,7 @@ import torch
 
 from ..utils.trace import traced
 from . import _build
-from .rwmh import _noise_chunk, check_cuda_launch, flat_consts, row_sum, step_noise
+from .common import noise_chunk, row_sum, step_noise
 
 
 def mala_constants(step_size_sq: float) -> Tuple[float, float, float]:
@@ -74,7 +74,7 @@ def mala_sample_reference(
     constants = mala_constants(step_size_sq)
     x, l, g = params_t, lp, grad
     n_steps = burn + n_samples * thin
-    chunk = _noise_chunk(n_chains)
+    chunk = noise_chunk(n_chains)
     for t0 in range(0, n_steps, chunk):
         n = min(chunk, n_steps - t0)
         z, logu = step_noise(seed, iteration_offset + 1 + t0, n, n_chains, d,
@@ -118,25 +118,18 @@ def fused_mala_sample(
     if params_t.device.type == "cpu":
         return mala_sample_reference(value_and_grad, cuda_density, params_t, lp,
                                      grad, consts, seed, **kw)
-    check_cuda_launch(params_t, seed, iteration_offset)
+    _build.check_cuda_launch(params_t, seed, iteration_offset)
     sigma, half_s2, inv_2s2 = mala_constants(step_size_sq)
-    lib = _build.library()
     p, l, g = params_t.contiguous(), lp.contiguous(), grad.contiguous()
-    flat, n_consts = flat_consts(consts, p.device)
+    flat, n_consts = _build.flat_consts(consts, p.device)
     f32 = dict(dtype=torch.float32, device=p.device)
     samples = torch.empty((n_samples, d, n_chains), **f32)
     lps = torch.empty((n_samples, 1, n_chains), **f32)
     accs = torch.empty((n_samples, 1, n_chains), **f32)
     out_grad = torch.empty((d, n_chains), **f32)
-    with torch.cuda.device(p.device):
-        code = lib.amh_mala_sample(
-            _build.density_arg(cuda_density), d, p.data_ptr(), l.data_ptr(),
-            g.data_ptr(), flat.data_ptr(), n_consts, sigma, half_s2, inv_2s2,
-            seed, burn, thin, n_samples, iteration_offset, n_chains,
-            samples.data_ptr(), lps.data_ptr(), accs.data_ptr(),
-            out_grad.data_ptr(), torch.cuda.current_stream(p.device).cuda_stream,
-        )
-    _build.check(lib, code, "mala", cuda_density, d)
+    _build.launch("amh_mala_sample", "mala", cuda_density, d, p.device, p, l, g, flat,
+                  n_consts, sigma, half_s2, inv_2s2, seed, burn, thin, n_samples,
+                  iteration_offset, n_chains, samples, lps, accs, out_grad)
     fused_mala_sample.launches += 1
     return samples, lps, accs, out_grad
 

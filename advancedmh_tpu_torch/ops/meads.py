@@ -22,7 +22,7 @@ nonreversible slice accepts iff u < a and renews u (``u/a`` or
 Metropolis variant iff ``-log u' > -logα``; a rejection negates p.
 
 Step t (the iteration, ``t0`` for the launch's first) draws z and u' from
-Philox at counter (t, chain) (ops/rwmh.py::step_noise), so a run split at
+Philox at counter (t, chain) (ops/common.py::step_noise), so a run split at
 any step and resumed from its final state is exact. A tile runs in one
 cluster of :func:`cluster_ctas` blocks, block r holding fold positions
 [r·P, r·P + P) of every fold (:func:`cta_chains`), and the pooled sums run in
@@ -42,9 +42,8 @@ import torch.nn.functional as F
 
 from ..utils.trace import traced
 from . import _build
-from .hmc import f32
+from .common import f32, noise_chunk, row_sum, step_noise
 from .pooling import cluster_sum, full, nan_max, nan_min, tile_groups, tree_sum
-from .rwmh import _noise_chunk, check_cuda_launch, flat_consts, row_sum, step_noise
 
 _TINY = 1e-30
 MEADS_THREADS = 256  # threads a block (csrc/meads.cu::kMeadsThreads), 8 warps
@@ -228,7 +227,7 @@ def meads_reference(
         base = start + torch.arange(n_t, device=dev)[:, None] * size
         folds.append((n_t, F_, [base + k * F_ + torch.arange(F_, device=dev) for k in range(K)]))
     n_steps = burn + n_samples * thin
-    chunk = _noise_chunk(C)
+    chunk = noise_chunk(C)
     for s0 in range(0, n_steps, chunk):
         n = min(chunk, n_steps - s0)
         z, logu = step_noise(seed, t0 + s0, n, C, d, dev)
@@ -285,10 +284,9 @@ def fused_meads_sample(
     if params_t.device.type == "cpu":
         return meads_reference(value_and_grad, cuda_density, params_t, lp, grad, p, u,
                                consts, seed, **kw)
-    check_cuda_launch(params_t, seed, t0)
-    lib = _build.library()
+    _build.check_cuda_launch(params_t, seed, t0)
     dev = params_t.device
-    flat, n_consts = flat_consts(consts, dev)
+    flat, n_consts = _build.flat_consts(consts, dev)
     fl = dict(dtype=torch.float32, device=dev)
     # the state, updated in place by the kernel, on copies
     x_s, lp_s, g_s, p_s, u_s = (t.to(torch.float32, copy=True).contiguous()
@@ -296,17 +294,12 @@ def fused_meads_sample(
     samples = torch.empty((n_samples, d, C), **fl)
     lps = torch.empty((n_samples, 1, C), **fl)
     accs = torch.empty((n_samples, 1, C), **fl)
-    with torch.cuda.device(dev):
-        code = lib.amh_meads_sample(
-            _build.density_arg(cuda_density), d, int(params.diagonal_preconditioning),
-            int(params.accept == "nonreversible"), x_s.data_ptr(), lp_s.data_ptr(),
-            g_s.data_ptr(), p_s.data_ptr(), u_s.data_ptr(), flat.data_ptr(), n_consts,
-            params.step_size_multiplier, params.step_size_clip, params.damping_slowdown,
-            n_folds, tile_chains, C, cluster_ctas(tile_chains, n_folds), seed, t0, burn, thin,
-            n_samples, samples.data_ptr(), lps.data_ptr(), accs.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(lib, code, "meads", cuda_density, d)
+    _build.launch("amh_meads_sample", "meads", cuda_density, d, dev,
+                  int(params.diagonal_preconditioning), int(params.accept == "nonreversible"),
+                  x_s, lp_s, g_s, p_s, u_s, flat, n_consts, params.step_size_multiplier,
+                  params.step_size_clip, params.damping_slowdown, n_folds, tile_chains, C,
+                  cluster_ctas(tile_chains, n_folds), seed, t0, burn, thin, n_samples, samples,
+                  lps, accs)
     fused_meads_sample.launches += 1
     return samples, lps, accs, x_s, lp_s, g_s, p_s, u_s
 

@@ -40,7 +40,8 @@ import torch
 
 from ..utils.trace import traced
 from . import _build
-from .rwmh import _check, _cuda_args, _noise_chunk, _perturb, box_muller, philox_uniforms, scale_block
+from .common import (box_muller, check_block, noise_chunk, perturb, philox_uniforms,
+                     rw_launch_args, scale_block)
 
 NEG_CLAMP = -1.0e30
 
@@ -79,7 +80,7 @@ def mtm_step(x, lp, z_cand, u_gumbel, z_ref, logu, scale, tril, tile_fn, consts)
     best = best_lp = best_score = None
     cand_lps = []
     for i in range(k):
-        y = x + _perturb(scale, tril, z_cand[i])
+        y = x + perturb(scale, tril, z_cand[i])
         lp_y = _clamp(tile_fn(y, *consts))
         score = lp_y + -torch.log(-torch.log(u_gumbel[i:i + 1]))
         if i == 0:
@@ -90,7 +91,7 @@ def mtm_step(x, lp, z_cand, u_gumbel, z_ref, logu, scale, tril, tile_fn, consts)
             best_lp = torch.where(sel, lp_y, best_lp)
             best = torch.where(sel, y, best)
         cand_lps.append(lp_y)
-    ref_lps = [lp] + [tile_fn(best + _perturb(scale, tril, z_ref[r]), *consts)
+    ref_lps = [lp] + [tile_fn(best + perturb(scale, tril, z_ref[r]), *consts)
                       for r in range(k - 1)]
     logalpha = streaming_logsumexp(cand_lps) - streaming_logsumexp(ref_lps)
     accept = logu[None] < logalpha
@@ -105,7 +106,7 @@ def _run_plain(tile_fn, params_t, lp, scale, consts, seed, k, n_steps, offset, o
     W = mtm_words(d, k)
     r0 = k * (2 * P + 1)
     x, l = params_t, lp
-    chunk = _noise_chunk(n_chains, W)
+    chunk = noise_chunk(n_chains, W)
     for t0 in range(0, n_steps, chunk):
         n = min(chunk, n_steps - t0)
         u = philox_uniforms(seed, offset + 1 + t0, n, n_chains, W, dev)
@@ -175,26 +176,22 @@ def fused_mtm_sample(
     """Burn-in + thinned emission of k-try MTM (≙
     pallas_mtm.py::fused_mtm_sample). Returns samples ``(n_samples, d, C)``,
     lps and accepted ``(n_samples, 1, C)`` (float32 0/1)."""
-    _check(params_t, lp, consts, (burn, thin - 1, n_samples - 1))
+    check_block(params_t, lp, consts, (burn, thin - 1, n_samples - 1))
     k = _check_k(k)
     kw = dict(k=k, burn=burn, thin=thin, n_samples=n_samples, iteration_offset=iteration_offset)
     if params_t.device.type == "cpu":
         return mtm_sample_reference(tile_fn, cuda_density, params_t, lp, scale, consts, seed,
                                     **kw)
-    lib, tril, p, l, s, flat, n_consts = _cuda_args(params_t, lp, scale, consts, seed,
-                                                    iteration_offset)
+    tril, p, l, s, flat, n_consts = rw_launch_args(params_t, lp, scale, consts, seed,
+                                                   iteration_offset)
     d, n_chains = p.shape
     f32 = dict(dtype=torch.float32, device=p.device)
     samples = torch.empty((n_samples, d, n_chains), **f32)
     lps = torch.empty((n_samples, 1, n_chains), **f32)
     accs = torch.empty((n_samples, 1, n_chains), **f32)
-    with torch.cuda.device(p.device):
-        code = lib.amh_mtm_sample(
-            _build.density_arg(cuda_density), d, int(tril), p.data_ptr(), l.data_ptr(),
-            s.data_ptr(), flat.data_ptr(), n_consts, k, seed, burn, thin, n_samples,
-            iteration_offset, n_chains, samples.data_ptr(), lps.data_ptr(), accs.data_ptr(),
-            torch.cuda.current_stream(p.device).cuda_stream)
-    _build.check(lib, code, "mtm", cuda_density, d)
+    _build.launch("amh_mtm_sample", "mtm", cuda_density, d, p.device, int(tril), p, l, s, flat,
+                  n_consts, k, seed, burn, thin, n_samples, iteration_offset, n_chains, samples,
+                  lps, accs)
     fused_mtm_sample.launches += 1
     return samples, lps, accs
 
@@ -207,22 +204,17 @@ def fused_mtm(
 ):
     """``n_steps`` k-try MTM steps in one launch (≙ pallas_mtm.py::fused_mtm).
     Returns params ``(d, C)``, lp ``(1, C)`` and accept counts ``(1, C)``."""
-    _check(params_t, lp, consts, (n_steps,))
+    check_block(params_t, lp, consts, (n_steps,))
     k = _check_k(k)
     if params_t.device.type == "cpu":
         return mtm_reference(tile_fn, cuda_density, params_t, lp, scale, consts, seed, k=k,
                              n_steps=n_steps, iteration_offset=iteration_offset)
-    lib, tril, p, l, s, flat, n_consts = _cuda_args(params_t, lp, scale, consts, seed,
-                                                    iteration_offset)
+    tril, p, l, s, flat, n_consts = rw_launch_args(params_t, lp, scale, consts, seed,
+                                                   iteration_offset)
     d, n_chains = p.shape
     out_p, out_l, out_a = torch.empty_like(p), torch.empty_like(l), torch.empty_like(l)
-    with torch.cuda.device(p.device):
-        code = lib.amh_mtm(
-            _build.density_arg(cuda_density), d, int(tril), p.data_ptr(), l.data_ptr(),
-            s.data_ptr(), flat.data_ptr(), n_consts, k, seed, n_steps, iteration_offset,
-            n_chains, out_p.data_ptr(), out_l.data_ptr(), out_a.data_ptr(),
-            torch.cuda.current_stream(p.device).cuda_stream)
-    _build.check(lib, code, "mtm", cuda_density, d)
+    _build.launch("amh_mtm", "mtm", cuda_density, d, p.device, int(tril), p, l, s, flat,
+                  n_consts, k, seed, n_steps, iteration_offset, n_chains, out_p, out_l, out_a)
     fused_mtm.launches += 1
     return out_p, out_l, out_a
 

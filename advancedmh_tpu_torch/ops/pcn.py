@@ -10,7 +10,7 @@ prior N(m, Σ) and the model's log-likelihood ℓ,
 
 with ρ = √(1 − β²) rounded once from float64. Sample k is the state after
 ``burn + (k+1)*thin`` steps. The noise of a step is RWMH's
-(ops/rwmh.py::step_noise): d normals and one uniform of absolute step j,
+(ops/common.py::step_noise): d normals and one uniform of absolute step j,
 each step from its own counter (the TPU kernel pairs two steps' normals
 from one Box-Muller draw, a layout choice not carried over).
 
@@ -33,7 +33,7 @@ import torch
 from ..utils.trace import traced
 from . import _build
 from .ess import check_prior_step, prior_args
-from .rwmh import _noise_chunk, _perturb, check_cuda_launch, flat_consts, step_noise
+from .common import noise_chunk, perturb, step_noise
 
 
 def pcn_constants(beta: float) -> Tuple[float, float]:
@@ -47,7 +47,7 @@ def pcn_constants(beta: float) -> Tuple[float, float]:
 def pcn_step(x, lp, z, logu, mu, scale, tril, rho: float, beta: float, tile_fn, consts):
     """One pCN step on the chain block (the kernel's arithmetic); ``mu``
     (d, 1). Returns (x, lp, accepted)."""
-    cand = (mu + rho * (x - mu)) + beta * _perturb(scale, tril, z)
+    cand = (mu + rho * (x - mu)) + beta * perturb(scale, tril, z)
     lp_c = tile_fn(cand, *consts)
     accept = logu[None] < lp_c - lp
     return torch.where(accept, cand, x), torch.where(accept, lp_c, lp), accept
@@ -69,7 +69,7 @@ def pcn_sample_reference(
     rho, b = pcn_constants(beta)
     x, l = params_t, lp
     n_steps = burn + n_samples * thin
-    chunk = _noise_chunk(n_chains, d + 2)
+    chunk = noise_chunk(n_chains, d + 2)
     for t0 in range(0, n_steps, chunk):
         n = min(chunk, n_steps - t0)
         z, logu = step_noise(seed, iteration_offset + 1 + t0, n, n_chains, d, params_t.device)
@@ -100,25 +100,20 @@ def fused_pcn_sample(
     if params_t.device.type == "cpu":
         return pcn_sample_reference(tile_fn, cuda_density, params_t, lp, loc, scale, consts,
                                     seed, **kw)
-    check_cuda_launch(params_t, seed, iteration_offset)
+    _build.check_cuda_launch(params_t, seed, iteration_offset)
     mu, scale_arr, tril = prior_args(params_t, loc, scale)
-    lib = _build.library()
     p, l = params_t.contiguous(), lp.contiguous()
     d, n_chains = p.shape
-    flat, n_consts = flat_consts(consts, p.device)
+    flat, n_consts = _build.flat_consts(consts, p.device)
     # raises before a launch the card would refuse
     pcn_launch_info(cuda_density, d, tril, n_consts, n_chains)
     f32 = dict(dtype=torch.float32, device=p.device)
     samples = torch.empty((n_samples, d, n_chains), **f32)
     lps = torch.empty((n_samples, 1, n_chains), **f32)
     accs = torch.empty((n_samples, 1, n_chains), **f32)
-    with torch.cuda.device(p.device):
-        code = lib.amh_pcn_sample(
-            _build.density_arg(cuda_density), d, int(tril), p.data_ptr(), l.data_ptr(),
-            mu.data_ptr(), scale_arr.data_ptr(), flat.data_ptr(), n_consts, rho, b, seed,
-            burn, thin, n_samples, iteration_offset, n_chains, samples.data_ptr(),
-            lps.data_ptr(), accs.data_ptr(), torch.cuda.current_stream(p.device).cuda_stream)
-    _build.check(lib, code, "pcn", cuda_density, d)
+    _build.launch("amh_pcn_sample", "pcn", cuda_density, d, p.device, int(tril), p, l, mu,
+                  scale_arr, flat, n_consts, rho, b, seed, burn, thin, n_samples,
+                  iteration_offset, n_chains, samples, lps, accs)
     fused_pcn_sample.launches += 1
     return samples, lps, accs
 

@@ -9,7 +9,7 @@ NaN), accepts iff ``-log u > -logα``, and during warmup step t (1-based)
 adapts S by the rank-1 Cholesky update/downdate of size
 ``sqrt(t^-γ |Δα|) S U / |U|`` with ``Δα = exp(logα) − α``, keeping the old S
 when the sweep fails or, with eigenvalue bounds, a diagonal entry leaves
-them. The noise is RWMH's (ops/rwmh.py::step_noise: U from the d normals).
+them. The noise is RWMH's (ops/common.py::step_noise: U from the d normals).
 
 Layout: chains on the last axis, x ``(d, C)``, lp ``(1, C)``, S ``(d*d, C)``
 row-major per chain. The wrapper runs the plain version for tensors on the
@@ -28,7 +28,7 @@ import torch
 from ..utils.trace import traced
 from . import _build
 from .cholesky import chol_rank1_update_batched
-from .rwmh import _noise_chunk, check_cuda_launch, flat_consts, row_sum, step_noise
+from .common import noise_chunk, row_sum, step_noise
 
 _TINY = float(np.finfo(np.float32).tiny)
 MAX_DIM = 8  # as pallas_ram.py: the kernel unrolls the d x d sweep
@@ -107,7 +107,7 @@ def ram_sample_reference(
     accs = torch.empty((n_samples, 1, n_chains), **f32)
     x, l, s_rows = params_t, lp, S
     n_steps = warmup + n_samples * thin
-    chunk = _noise_chunk(n_chains)
+    chunk = noise_chunk(n_chains)
     for t0 in range(0, n_steps, chunk):
         n = min(chunk, n_steps - t0)
         U, logu = step_noise(seed, iteration_offset + 1 + t0, n, n_chains, d,
@@ -151,25 +151,18 @@ def fused_ram_sample(
     if params_t.device.type == "cpu":
         return ram_sample_reference(tile_fn, cuda_density, params_t, lp, S,
                                     consts, seed, **kw)
-    check_cuda_launch(params_t, seed, iteration_offset)
-    lib = _build.library()
+    _build.check_cuda_launch(params_t, seed, iteration_offset)
     p, l, s = params_t.contiguous(), lp.contiguous(), S.contiguous()
-    flat, n_consts = flat_consts(consts, p.device)
+    flat, n_consts = _build.flat_consts(consts, p.device)
     f32 = dict(dtype=torch.float32, device=p.device)
     samples = torch.empty((n_samples, d, n_chains), **f32)
     lps = torch.empty((n_samples, 1, n_chains), **f32)
     accs = torch.empty((n_samples, 1, n_chains), **f32)
     S_out = torch.empty((d * d, n_chains), **f32)
-    with torch.cuda.device(p.device):
-        code = lib.amh_ram_sample(
-            _build.density_arg(cuda_density), d, int(params.clamp),
-            p.data_ptr(), l.data_ptr(), s.data_ptr(), flat.data_ptr(),
-            n_consts, params.alpha, params.gamma, params.eig_lo, params.eig_hi,
-            seed, warmup, thin, n_samples, iteration_offset, n_chains,
-            samples.data_ptr(), lps.data_ptr(), accs.data_ptr(),
-            S_out.data_ptr(), torch.cuda.current_stream(p.device).cuda_stream,
-        )
-    _build.check(lib, code, "ram", cuda_density, d)
+    _build.launch("amh_ram_sample", "ram", cuda_density, d, p.device, int(params.clamp), p, l,
+                  s, flat, n_consts, params.alpha, params.gamma, params.eig_lo, params.eig_hi,
+                  seed, warmup, thin, n_samples, iteration_offset, n_chains, samples, lps,
+                  accs, S_out)
     fused_ram_sample.launches += 1
     return samples, lps, accs, S_out
 

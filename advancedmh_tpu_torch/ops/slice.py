@@ -31,7 +31,7 @@ import torch
 
 from ..utils.trace import traced
 from . import _build
-from .rwmh import _noise_chunk, box_muller, check_cuda_launch, flat_consts, philox_uniforms
+from .common import box_muller, noise_chunk, philox_uniforms
 
 
 def slice_trips(x, lp, u_dir, logy, u0, v, trip_u, ld: Callable, width: float,
@@ -116,7 +116,7 @@ def slice_sample_reference(
     x, l = params_t.T, lp[0]
     n_steps = burn + n_samples * thin
     total = 0
-    chunk = _noise_chunk(n_chains, n_words)
+    chunk = noise_chunk(n_chains, n_words)
     for t0 in range(0, n_steps, chunk):
         n = min(chunk, n_steps - t0)
         u = philox_uniforms(seed, iteration_offset + 1 + t0, n, n_chains, n_words,
@@ -168,22 +168,17 @@ def fused_slice_sample(
               thin=thin, n_samples=n_samples, iteration_offset=iteration_offset)
     if params_t.device.type == "cpu":
         return slice_sample_reference(tile_fn, cuda_density, params_t, lp, consts, seed, **kw)
-    check_cuda_launch(params_t, seed, iteration_offset)
-    lib = _build.library()
+    _build.check_cuda_launch(params_t, seed, iteration_offset)
     p, l = params_t.contiguous(), lp.contiguous()
     d, n_chains = p.shape
-    flat, n_consts = flat_consts(consts, p.device)
+    flat, n_consts = _build.flat_consts(consts, p.device)
     f32 = dict(dtype=torch.float32, device=p.device)
     samples = torch.empty((n_samples, d, n_chains), **f32)
     lps = torch.empty((n_samples, 1, n_chains), **f32)
     accs = torch.empty((n_samples, 1, n_chains), **f32)
-    with torch.cuda.device(p.device):
-        code = lib.amh_slice_sample(
-            _build.density_arg(cuda_density), d, p.data_ptr(), l.data_ptr(), flat.data_ptr(),
-            n_consts, float(width), int(max_stepout), int(max_shrink), seed, burn, thin,
-            n_samples, iteration_offset, n_chains, samples.data_ptr(), lps.data_ptr(),
-            accs.data_ptr(), torch.cuda.current_stream(p.device).cuda_stream)
-    _build.check(lib, code, "slice", cuda_density, d)
+    _build.launch("amh_slice_sample", "slice", cuda_density, d, p.device, p, l, flat, n_consts,
+                  float(width), int(max_stepout), int(max_shrink), seed, burn, thin, n_samples,
+                  iteration_offset, n_chains, samples, lps, accs)
     fused_slice_sample.launches += 1
     return samples, lps, accs
 

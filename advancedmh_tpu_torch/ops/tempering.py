@@ -36,7 +36,7 @@ import torch
 
 from ..utils.trace import traced
 from . import _build
-from .rwmh import _noise_chunk, box_muller, check_cuda_launch, flat_consts, philox_uniforms
+from .common import box_muller, noise_chunk, philox_uniforms
 
 MAX_LADDER = 64  # K·d, the Pallas kernel's unrolled rows (pallas_tempering.py:208)
 
@@ -115,7 +115,7 @@ def tempering_sample_reference(
     W = K * (2 * P + 1) + K - 1
     s0 = K * (2 * P + 1)
     n_steps = burn + n_samples * thin
-    chunk = _noise_chunk(n_chains, W)
+    chunk = noise_chunk(n_chains, W)
     for t0 in range(0, n_steps, chunk):
         n = min(chunk, n_steps - t0)
         u = philox_uniforms(seed, iteration_offset + 1 + t0, n, n_chains, W, dev)
@@ -163,24 +163,18 @@ def fused_tempering_sample(
               n_samples=n_samples, iteration_offset=iteration_offset)
     if x_t.device.type == "cpu":
         return tempering_sample_reference(tile_fn, cuda_density, x_t, ell, consts, seed, **kw)
-    check_cuda_launch(x_t, seed, iteration_offset)
-    lib = _build.library()
+    _build.check_cuda_launch(x_t, seed, iteration_offset)
     x, el = x_t.contiguous(), ell.contiguous()
-    flat, n_consts = flat_consts(consts, x.device)
+    flat, n_consts = _build.flat_consts(consts, x.device)
     f32 = dict(dtype=torch.float32, device=x.device)
     samples = torch.empty((n_samples, d, n_chains), **f32)
     lps = torch.empty((n_samples, 1, n_chains), **f32)
     accs = torch.empty((n_samples, 1, n_chains), **f32)
     x_f, ell_f = torch.empty_like(x), torch.empty_like(el)
     sw = torch.empty((K - 1, n_chains), **f32)
-    with torch.cuda.device(x.device):
-        code = lib.amh_tempering_sample(
-            _build.density_arg(cuda_density), d, x.data_ptr(), el.data_ptr(), b.data_ptr(),
-            db.data_ptr(), sc.data_ptr(), flat.data_ptr(), n_consts, K, seed, burn, thin,
-            n_samples, iteration_offset, n_chains, samples.data_ptr(), lps.data_ptr(),
-            accs.data_ptr(), x_f.data_ptr(), ell_f.data_ptr(), sw.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, code, "tempering", cuda_density, d)
+    _build.launch("amh_tempering_sample", "tempering", cuda_density, d, x.device, x, el, b, db,
+                  sc, flat, n_consts, K, seed, burn, thin, n_samples, iteration_offset,
+                  n_chains, samples, lps, accs, x_f, ell_f, sw)
     fused_tempering_sample.launches += 1
     return samples, lps, accs, x_f, ell_f, sw
 

@@ -5,13 +5,12 @@ with an ``lp`` internals column and ``start``/``thin`` iteration labels.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from ..diagnostics import rhat
-from ..diagnostics.ess import _ess_fft, _ess_window, fft_fallback
+from ..diagnostics.ess import ess_and_value
 from ..utils.trace import host_sync, span, traced
 
 
@@ -24,24 +23,6 @@ def _statistic(name: str, fn, *args) -> Tuple[torch.Tensor, float]:
     with span(name):
         t = fn(*args)
         return t, host_sync("summary", float, t)
-
-
-def _ess(x: torch.Tensor) -> Tuple[torch.Tensor, float]:
-    """ESS of ``x`` and its value, as the span ``summary.ess``: float32 draws
-    from the lag window, its ESS and whether it decided read in one host
-    read, and from the FFT, read again, only where it did not."""
-    with span("summary.ess"):
-        fft = contextlib.nullcontext()
-        if x.dtype == torch.float32:
-            t, decided = _ess_window(x)
-            value, decided = host_sync("summary", torch.Tensor.tolist,
-                                       torch.stack([t.double(), decided.double()]))
-            if decided:
-                return t, value
-            fft = fft_fallback()
-        with fft:
-            t = _ess_fft(x)
-            return t, host_sync("summary", float, t)
 
 
 class Chains:
@@ -126,7 +107,8 @@ class Chains:
             n_total = x.shape[0] * x.shape[1]
             std_t, std = _statistic("summary.std", _std, x)
             _, mean = _statistic("summary.mean", torch.mean, x)
-            ess_t, ess = _ess(x)
+            with span("summary.ess"):
+                ess_t, ess = ess_and_value(x, "summary")
             _, mcse = _statistic("summary.mcse", lambda: std_t / torch.sqrt(ess_t))
             _, rhat_value = _statistic("summary.rhat", rhat, x)
             out[name] = {"mean": mean, "std": std, "naive_se": std / n_total**0.5,

@@ -1,54 +1,33 @@
 """Fused-engine dispatch: ``sample(engine="fused")`` on the CUDA kernels.
 
-≙ advancedmh_tpu/runtime/fused.py, for the samplers whose kernels are
-ported (on CPU tensors each kernel's plain PyTorch version runs instead):
-
-- ``MetropolisHastings`` with one zero-mean Gaussian random-walk leaf
-  (RWMH, ``ops/rwmh.py``);
-- ``MALA.langevin(step_size_sq)`` (``ops/mala.py``);
-- ``RobustAdaptiveMetropolis``, per-chain or pooled (``ops/ram.py``);
-- ``Ensemble`` with a ``StretchProposal`` (``ops/emcee.py``);
-- ``StepSizeAdaptation.rwmh(d)`` (dual-averaging RWMH, ``ops/adapt.py``);
-- ``HamiltonianMC``, endpoint, with a scalar or diagonal inverse mass
-  (``ops/hmc.py``);
-- ``AdaptiveHMC``, per-chain or pooled (``ops/hmc_adapt.py``);
-- ``ChEESHMC``: the warmup and the frozen phase (``ops/chees.py``);
-- ``MEADS`` (``ops/meads.py``);
-- ``SliceSampler`` (``ops/slice.py``), ``EllipticalSlice`` (``ops/ess.py``),
-  ``Barker`` (``ops/barker.py``) and ``PreconditionedCrankNicolson``
-  (``ops/pcn.py``); the prior of the last two and of ``EllipticalSlice`` is
-  one Normal or MvNormal leaf;
-- ``AdaptiveMetropolis`` and ``DRAM``, per chain, d <= 8 (``ops/am.py``,
-  ``ops/dram.py``), and ``DelayedRejection`` with scalar or diagonal
-  Gaussian random-walk stages (``ops/dr.py``);
-- ``MultipleTryMetropolis`` with one zero-mean Gaussian random-walk leaf
-  (``ops/mtm.py``), ``ReplicaExchange`` around such an RWMH with a scalar or
-  diagonal scale, K·d <= 64 (``ops/tempering.py``), and
-  ``DifferentialEvolution`` on one population of any even M >= 6
-  (``ops/demc.py``).
+≙ advancedmh_tpu/runtime/fused.py. :data:`RUNNERS` names the runner of each
+sampler class whose kernels are ported (on CPU tensors each kernel's plain
+PyTorch version runs instead); :func:`run` takes the entry of the most
+specific class in the sampler's MRO, and every runner takes the same
+arguments.
 
 The model must name a CUDA density (``model.cuda_density``, with its plain
-``tile_density``, ``tile_value_and_grad`` for MALA, and ``tile_consts``; see
-models/targets.py).
+``tile_density``, ``tile_value_and_grad`` for the gradient samplers, and
+``tile_consts``; see models/targets.py).
 
 Schedule contract: sample k is the state after ``burn + (k+1)*thinning``
-steps with ``burn = max(discard_initial - thinning, 0)``, identical to the
-standard schedule when ``discard_initial >= thinning`` (the init state is
-never emitted); for RAM and the two adaptive samplers, ``burn`` is the
-``num_warmup`` adaptive steps, so sample k is the state after
-``num_warmup + (k+1)*thinning`` steps (a one-draw offset from the standard
-schedule, as in the JAX package's fused engines). AM and DRAM adapt on
-every step and never freeze, so they take the standard schedule and resume
-with their moments. Step
-t of the run is absolute iteration ``iteration_offset + t``, and its noise
-depends only on (seed, iteration, chain or walker), so a run split at any
-point and resumed with ``initial_state`` and ``iteration_offset`` gives the
-same draws as an unsplit one.
+steps (``Schedule.burn``), identical to the standard schedule when
+``discard_initial >= thinning`` (the init state is never emitted); for RAM
+and the adaptive samplers, ``burn`` is the ``num_warmup`` adaptive steps, so
+sample k is the state after ``num_warmup + (k+1)*thinning`` steps (a
+one-draw offset from the standard schedule, as in the JAX package's fused
+engines; ``Schedule.check_adaptive``). AM and DRAM adapt on every step and
+never freeze, so they take the standard schedule and resume with their
+moments. Step t of the run is absolute iteration ``iteration_offset + t``,
+and its noise depends only on (seed, iteration, chain or walker), so a run
+split at any point and resumed with ``initial_state`` and
+``iteration_offset`` gives the same draws as an unsplit one.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -75,35 +54,37 @@ from ..ops.rwmh import fused_rwmh_sample
 from ..ops.slice import fused_slice_sample
 from ..ops.tempering import fused_tempering_sample
 from ..proposals import RandomWalkProposal, is_proposal
-from ..samplers.adapt import StepSizeAdaptationState
-from ..samplers.am import AdaptiveMetropolisState
+from ..samplers.adapt import StepSizeAdaptation, StepSizeAdaptationState
+from ..samplers.am import AdaptiveMetropolis, AdaptiveMetropolisState
+from ..samplers.barker import Barker
 from ..samplers.base import GradientTransition, Transition
-from ..samplers.chees import ChEESHMCState
+from ..samplers.chees import ChEESHMC, ChEESHMCState
+from ..samplers.demc import DifferentialEvolution
 from ..samplers.dr import DelayedRejection
 from ..samplers.dram import DRAM
-from ..samplers.emcee import StretchProposal
-from ..samplers.hmc_adapt import AdaptiveHMCState
-from ..samplers.meads import MEADSState
+from ..samplers.emcee import Ensemble, StretchProposal
+from ..samplers.ess import EllipticalSlice
+from ..samplers.hmc import HamiltonianMC
+from ..samplers.hmc_adapt import AdaptiveHMC, AdaptiveHMCState
+from ..samplers.mala import MALA
+from ..samplers.meads import MEADS, MEADSState
 from ..samplers.mh import MetropolisHastings
 from ..samplers.mtm import MultipleTryMetropolis
-from ..samplers.ram import RobustAdaptiveMetropolisState
-from ..samplers.tempering import ReplicaExchangeState
+from ..samplers.pcn import PreconditionedCrankNicolson
+from ..samplers.ram import RobustAdaptiveMetropolis, RobustAdaptiveMetropolisState
+from ..samplers.slice import SliceSampler
+from ..samplers.tempering import ReplicaExchange, ReplicaExchangeState
 from ..utils.keys import fold_in, splitmix64, step_generator
 from ..utils.trace import host_sync, span, traced
 from ..utils.tree import tree_flatten
+from .schedule import Schedule
 
-_NOT_PORTED = (
-    "engine='fused' in advancedmh_tpu_torch runs MetropolisHastings with one "
-    "zero-mean Gaussian RandomWalkProposal (RWMH), MALA.langevin, "
-    "RobustAdaptiveMetropolis, Ensemble with a StretchProposal, "
-    "StepSizeAdaptation.rwmh, HamiltonianMC, AdaptiveHMC, ChEESHMC, MEADS, "
-    "SliceSampler, EllipticalSlice, Barker, PreconditionedCrankNicolson, "
-    "AdaptiveMetropolis, DRAM, DelayedRejection, MultipleTryMetropolis, "
-    "ReplicaExchange around RWMH and DifferentialEvolution; "
-    "{what}. "
-    "The fused kernels of the other samplers are listed in ROADMAP.md, "
-    "'Queue 2 — TPU kernels to port'; use engine='torch' meanwhile."
-)
+
+def _not_ported(what: str) -> str:
+    """The one error of a sampler, or a form of one, that no kernel runs."""
+    names = ", ".join(cls.__name__ for cls in RUNNERS)
+    return (f"engine='fused' has no kernel for this sampler: {what}; use engine='torch'. "
+            f"The fused engine runs {names}.")
 
 
 def _numpy(v, site: str) -> np.ndarray:
@@ -117,26 +98,24 @@ def _extract_rw_scale(sampler, d: int) -> np.ndarray:
     """The proposal scale, per-dimension ``(d,)`` or lower Cholesky
     ``(d, d)``; raises unless the sampler is a symmetric Gaussian RW."""
     if not isinstance(sampler, MetropolisHastings):
-        raise ValueError(_NOT_PORTED.format(what=f"got {type(sampler).__name__}"))
+        raise ValueError(_not_ported(f"got {type(sampler).__name__}"))
     return _rw_leaf_scale(sampler.proposal, d)
 
 
 def _rw_leaf_scale(p, d: int) -> np.ndarray:
     """Scale of a single zero-mean Gaussian RandomWalkProposal leaf."""
     if not is_proposal(p) or not isinstance(p, RandomWalkProposal):
-        raise ValueError(_NOT_PORTED.format(what="the proposal is not a single RandomWalkProposal leaf"))
+        raise ValueError(_not_ported("the proposal is not a single RandomWalkProposal leaf"))
     payload = p.payload
     if isinstance(payload, (MvNormal, Normal)):
         if not np.allclose(_numpy(payload.loc, "proposal"), 0.0):
-            raise ValueError(_NOT_PORTED.format(what="the increment is not zero-mean"))
+            raise ValueError(_not_ported("the increment is not zero-mean"))
         if isinstance(payload, MvNormal) and payload.scale_tril is not None:
             return np.tril(_numpy(payload.scale_tril, "proposal").astype(np.float32))
         if isinstance(payload, MvNormal) and payload.scale_diag is not None:
             return np.broadcast_to(_numpy(payload.scale_diag, "proposal"), (d,))
         return np.broadcast_to(_numpy(payload.scale, "proposal"), (d,))
-    raise ValueError(
-        _NOT_PORTED.format(what=f"payload {type(payload).__name__} is not Normal or MvNormal")
-    )
+    raise ValueError(_not_ported(f"payload {type(payload).__name__} is not Normal or MvNormal"))
 
 
 def _rw_scale_on_device(sampler, d: int, device) -> torch.Tensor:
@@ -156,8 +135,8 @@ def _tile(model, attr: str = "tile_density"):
     if fn is None:
         raise ValueError(
             f"engine='fused' needs a model with a {attr} and a CUDA density "
-            "tag (models/targets.py); other densities wait for the "
-            "tile-density contract in ROADMAP.md"
+            "tag (a TileDensityModel of models/targets.py); use engine='torch' "
+            "for any other density"
         )
     return fn, tuple(model.tile_consts)
 
@@ -187,65 +166,108 @@ def _layout(samples, lps, accs):
 _chains_layout = traced("fused.layout")(_layout)
 
 
+def _emission(schedule: Schedule, iteration_offset: int) -> dict:
+    """The kernels' burn-in and emission arguments for ``schedule``."""
+    return dict(burn=schedule.burn, thin=schedule.thinning, n_samples=schedule.n_samples,
+                iteration_offset=iteration_offset)
+
+
+def _start_params(initial_params, initial_state):
+    """A resumed state's params in place of ``initial_params``, for the
+    kernels that resume from the params alone (their lp from the tile
+    density)."""
+    return initial_params if initial_state is None else initial_state.params
+
+
 def sample_fused(
     model,
     sampler,
-    n_samples: int,
+    schedule: Schedule,
     *,
     key: int,
     num_chains: int,
     initial_params,
-    discard_initial: int,
-    thinning: int,
     initial_state=None,
     iteration_offset: int = 0,
 ):
-    """Run the fused RWMH kernel, for ``DelayedRejection`` the fused DR
-    kernel (≙ the JAX ``sample_fused``'s DR branch: the stages' scales from
-    their single Gaussian random-walk leaves, scalar or diagonal), or for
-    ``MultipleTryMetropolis`` the fused MTM kernel with its k; returns
-    (transitions, final_state) in the standard (chains, samples, ...)
-    layout. ``initial_state`` (a final ``Transition``) resumes with its own
+    """Run the fused RWMH kernel (≙ the JAX ``sample_fused``) for a
+    ``MetropolisHastings`` with one zero-mean Gaussian random-walk leaf;
+    returns (transitions, final_state) in the standard (chains, samples,
+    ...) layout. Every runner of :data:`RUNNERS` takes these arguments."""
+    tile_fn, consts = _tile(model)
+    params_t, lp0 = _start_block(model, num_chains, _start_params(initial_params, initial_state),
+                                 None, tile_fn, consts)
+    with span("fused.prepare"):
+        scale = _rw_scale_on_device(sampler, params_t.shape[0], model.device)
+    samples, lps, accs = fused_rwmh_sample(
+        tile_fn, model.cuda_density, params_t, lp0, scale, consts, fused_seed(key),
+        **_emission(schedule, iteration_offset))
+    return _finish_plain(samples, lps, accs)
+
+
+def sample_fused_dr(
+    model,
+    sampler,
+    schedule: Schedule,
+    *,
+    key: int,
+    num_chains: int,
+    initial_params,
+    initial_state=None,
+    iteration_offset: int = 0,
+):
+    """Run the fused DR kernel (≙ the JAX ``sample_fused``'s DR branch): the
+    stages' scales from their single Gaussian random-walk leaves, scalar or
+    diagonal. ``initial_state`` (a final ``Transition``) resumes with its own
     lp, so that a split run stays exact."""
     tile_fn, consts = _tile(model)
     params_t, lp0 = _start_block(model, num_chains, initial_params, initial_state, tile_fn,
                                  consts)
     d = params_t.shape[0]
-    common = dict(burn=max(discard_initial - thinning, 0), thin=thinning, n_samples=n_samples,
-                  iteration_offset=iteration_offset)
-    if isinstance(sampler, DelayedRejection):
-        # a full-covariance stage raises in ops/dr.py::stage_scales
-        with span("fused.prepare"):
-            s1, s2 = (host_sync("scale", torch.as_tensor,
-                                np.array(_rw_leaf_scale(p, d), np.float32), device=model.device)
-                      for p in (sampler.first, sampler.second))
-        samples, lps, accs = fused_dr_sample(
-            tile_fn, model.cuda_density, params_t, lp0, s1, s2, consts, fused_seed(key),
-            **common)
-    elif isinstance(sampler, MultipleTryMetropolis):  # before RWMH: an MTM is an MH
-        with span("fused.prepare"):
-            scale = _rw_scale_on_device(sampler, d, model.device)
-        samples, lps, accs = fused_mtm_sample(
-            tile_fn, model.cuda_density, params_t, lp0, scale, consts, fused_seed(key),
-            k=int(sampler.k), **common)
-    else:
-        with span("fused.prepare"):
-            scale = _rw_scale_on_device(sampler, d, model.device)
-        samples, lps, accs = fused_rwmh_sample(
-            tile_fn, model.cuda_density, params_t, lp0, scale, consts, fused_seed(key), **common)
+    # a full-covariance stage raises in ops/dr.py::stage_scales
+    with span("fused.prepare"):
+        s1, s2 = (host_sync("scale", torch.as_tensor,
+                            np.array(_rw_leaf_scale(p, d), np.float32), device=model.device)
+                  for p in (sampler.first, sampler.second))
+    samples, lps, accs = fused_dr_sample(
+        tile_fn, model.cuda_density, params_t, lp0, s1, s2, consts, fused_seed(key),
+        **_emission(schedule, iteration_offset))
+    return _finish_plain(samples, lps, accs)
+
+
+def sample_fused_mtm(
+    model,
+    sampler,
+    schedule: Schedule,
+    *,
+    key: int,
+    num_chains: int,
+    initial_params,
+    initial_state=None,
+    iteration_offset: int = 0,
+):
+    """Run the fused MTM kernel with the sampler's k; ``initial_state`` (a
+    final ``Transition``) resumes with its own lp."""
+    tile_fn, consts = _tile(model)
+    params_t, lp0 = _start_block(model, num_chains, initial_params, initial_state, tile_fn,
+                                 consts)
+    with span("fused.prepare"):
+        scale = _rw_scale_on_device(sampler, params_t.shape[0], model.device)
+    samples, lps, accs = fused_mtm_sample(
+        tile_fn, model.cuda_density, params_t, lp0, scale, consts, fused_seed(key),
+        k=int(sampler.k), **_emission(schedule, iteration_offset))
     return _finish_plain(samples, lps, accs)
 
 
 def sample_fused_mala(
     model,
     sampler,
-    n_samples: int,
+    schedule: Schedule,
     *,
     key: int,
     num_chains: int,
     initial_params,
-    discard_initial: int,
-    thinning: int,
+    initial_state=None,
     iteration_offset: int = 0,
 ):
     """Run the fused Langevin-MALA kernel (≙ JAX ``sample_fused_mala``).
@@ -258,6 +280,7 @@ def sample_fused_mala(
             "engine='fused' for MALA requires MALA.langevin(step_size_sq) "
             "(the canonical MvNormal(σ²/2 g, σ² I) proposal)."
         )
+    initial_params = _start_params(initial_params, initial_state)
     if initial_params is None:
         raise ValueError("please specify initial parameters")
     value_and_grad, consts = _tile(model, "tile_value_and_grad")
@@ -265,9 +288,7 @@ def sample_fused_mala(
     lp0, g0 = value_and_grad(params_t, *consts)
     samples, lps, accs, g_last = fused_mala_sample(
         value_and_grad, model.cuda_density, params_t, lp0, g0, consts,
-        fused_seed(key), step_size_sq=s2, burn=max(discard_initial - thinning, 0),
-        thin=thinning, n_samples=n_samples, iteration_offset=iteration_offset,
-    )
+        fused_seed(key), step_size_sq=s2, **_emission(schedule, iteration_offset))
     params, lp, accepted = _chains_layout(samples, lps, accs)
     final_state = GradientTransition(params[:, -1, :], lp[:, -1], g_last.T,
                                      accepted[:, -1])
@@ -291,37 +312,26 @@ def _pooled_warmup(model, sampler, key: int, init: torch.Tensor,
 def sample_fused_ram(
     model,
     sampler,
-    n_samples: int,
+    schedule: Schedule,
     *,
     key: int,
     num_chains: int,
     initial_params,
-    num_warmup: int,
-    discard_initial: int,
-    thinning: int,
-    initial_S=None,
+    initial_state=None,
     iteration_offset: int = 0,
 ):
     """Run the fused RAM kernel (≙ JAX ``sample_fused_ram``): the adaptive
-    warmup and the frozen-S draws in one launch. Fresh runs need the
-    standard schedule ``discard_initial == num_warmup``; a resumed run
-    (``initial_S`` from a final state) continues frozen and needs
-    ``num_warmup == 0``, ``discard_initial == thinning``.
+    warmup and the frozen-S draws in one launch. A resumed run (from a final
+    state's x and S) continues frozen.
 
     ``pooled=True`` runs in two stages: the pooled warmup on the torch
     engine adapts one shared S, then the kernel runs frozen (warmup 0) from
     it. Post-warmup RAM never adapts, so the staging changes no algorithm."""
-    if initial_S is None:
-        if discard_initial != num_warmup:
-            raise ValueError(
-                "fused RAM supports the standard schedule discard_initial == "
-                "num_warmup; use engine='torch' to keep warmup draws."
-            )
-    elif num_warmup != 0 or discard_initial != thinning:
-        raise ValueError(
-            "fused RAM resume expects the resume schedule "
-            "(num_warmup=0, discard_initial=thinning)."
-        )
+    initial_S = None
+    if initial_state is not None:
+        initial_params, initial_S = initial_state.x, initial_state.S
+    schedule.check_adaptive("RAM", resume=initial_S is not None)
+    num_warmup, thinning, n_samples = schedule.num_warmup, schedule.thinning, schedule.n_samples
     tile_fn, consts = _tile(model)
     params_t = _chain_block(model, initial_params, num_chains)
     d = params_t.shape[0]
@@ -376,19 +386,20 @@ def sample_fused_ram(
 def sample_fused_emcee(
     model,
     sampler,
-    n_samples: int,
+    schedule: Schedule,
     *,
     key: int,
+    num_chains: Optional[int] = None,
     initial_params,
-    discard_initial: int,
-    thinning: int,
+    initial_state=None,
     iteration_offset: int = 0,
 ):
     """Run the fused emcee kernel (≙ JAX ``sample_fused_emcee``) on one
     ensemble of all W walkers (any even W). Without ``initial_params`` the
     walkers are drawn from the proposal's payload, as
     ``sample(engine="torch")`` draws them. Returns walker-layout
-    transitions: params (N, W, d), lp and accepted (N, W)."""
+    transitions: params (N, W, d), lp and accepted (N, W). ``num_chains`` is
+    unused: the walkers are the batch axis."""
     if not isinstance(sampler.proposal, StretchProposal):
         raise NotImplementedError(
             "engine='fused' emcee supports StretchProposal only; the walk "
@@ -398,6 +409,7 @@ def sample_fused_emcee(
     W = sampler.n_walkers
     check_walkers(W, W)
     tile_fn, consts = _tile(model)
+    initial_params = _start_params(initial_params, initial_state)
     if initial_params is None:
         init_tr, _ = sampler.init(step_generator(key, 0, model.device), model)
         initial_params = init_tr.params
@@ -412,9 +424,7 @@ def sample_fused_emcee(
     samples, lps, accs = fused_emcee_sample(
         tile_fn, model.cuda_density, params_t, lp0, consts, fused_seed(key),
         stretch_length=sampler.proposal.stretch_length, tile_walkers=W,
-        burn=max(discard_initial - thinning, 0), thin=thinning,
-        n_samples=n_samples, iteration_offset=iteration_offset,
-    )
+        **_emission(schedule, iteration_offset))
     params = samples.permute(0, 2, 1)  # (N, W, d)
     lp, accepted = lps[:, 0, :], accs[:, 0, :] > 0.5
     return (Transition(params, lp, accepted),
@@ -424,13 +434,11 @@ def sample_fused_emcee(
 def sample_fused_am(
     model,
     sampler,
-    n_samples: int,
+    schedule: Schedule,
     *,
     key: int,
     num_chains: int,
     initial_params,
-    discard_initial: int,
-    thinning: int,
     initial_state=None,
     iteration_offset: int = 0,
 ):
@@ -473,16 +481,14 @@ def sample_fused_am(
         L0 = ((sampler.fixed_scale / math.sqrt(d)) * torch.eye(d, device=dev)).reshape(d * d, 1)
         L0 = L0.expand(d * d, C).contiguous()
         n0 = torch.ones((1, C), dtype=torch.float32, device=dev)
-    args = (tile_fn, model.cuda_density, x_t, lp0, mean0, L0, n0, consts, fused_seed(key))
-    kw = dict(burn=max(discard_initial - thinning, 0), thin=thinning, n_samples=n_samples,
-              iteration_offset=iteration_offset)
     if isinstance(sampler, DRAM):
-        out = fused_dram_sample(*args, params=DramParams(sampler.opt_scale, sampler.gamma), **kw)
+        kernel, prm = fused_dram_sample, DramParams(sampler.opt_scale, sampler.gamma)
     else:
-        out = fused_am_sample(*args, params=AmParams(sampler.beta, sampler.fixed_scale,
-                                                     sampler.opt_scale, sampler.adapt_start),
-                              **kw)
-    samples, lps, accs, mean_f, L_f, n_f = out
+        kernel, prm = fused_am_sample, AmParams(sampler.beta, sampler.fixed_scale,
+                                                sampler.opt_scale, sampler.adapt_start)
+    samples, lps, accs, mean_f, L_f, n_f = kernel(
+        tile_fn, model.cuda_density, x_t, lp0, mean0, L0, n0, consts, fused_seed(key),
+        params=prm, **_emission(schedule, iteration_offset))
     params, lp, accepted = _chains_layout(samples, lps, accs)
     final_state = AdaptiveMetropolisState(
         x=params[:, -1, :], logprob=lp[:, -1], mean=mean_f.T,
@@ -502,23 +508,18 @@ def _dual_averaging(sampler) -> DualAveraging:
 def sample_fused_adapt_rwmh(
     model,
     sampler,
-    n_samples: int,
+    schedule: Schedule,
     *,
     key: int,
     num_chains: int,
     initial_params,
-    num_warmup: int,
-    discard_initial: int,
-    thinning: int,
     initial_state=None,
     iteration_offset: int = 0,
 ):
     """Run the fused dual-averaging kernel (≙ JAX ``sample_fused_adapt_rwmh``)
     for ``StepSizeAdaptation.rwmh``: the HG14 warmup and the frozen-ε̄ draws
-    in one launch. Fresh runs need ``discard_initial == num_warmup``;
-    ``initial_state`` (a final ``StepSizeAdaptationState``) resumes frozen
-    under the chunk-resume schedule (``num_warmup=0``,
-    ``discard_initial=thinning``) on the resume variant of the kernel."""
+    in one launch. ``initial_state`` (a final ``StepSizeAdaptationState``)
+    resumes frozen on the resume variant of the kernel."""
     fam = getattr(sampler, "_fused_family", None)
     if not (isinstance(fam, tuple) and fam and fam[0] == "rwmh_iso"):
         raise ValueError(
@@ -527,18 +528,8 @@ def sample_fused_adapt_rwmh(
             "closures cannot be introspected); use engine='torch' instead."
         )
     resume = initial_state is not None
-    if resume:
-        if num_warmup != 0 or discard_initial != thinning:
-            raise ValueError(
-                "fused StepSizeAdaptation resume expects the chunk-resume "
-                "schedule (num_warmup=0, discard_initial=thinning)."
-            )
-    elif discard_initial != num_warmup:
-        raise ValueError(
-            "fused StepSizeAdaptation supports the standard schedule "
-            "discard_initial == num_warmup; use engine='torch' to keep "
-            "warmup draws."
-        )
+    schedule.check_adaptive("StepSizeAdaptation", resume)
+    num_warmup = schedule.num_warmup
     if initial_params is None and not resume:
         raise ValueError("engine='fused' requires initial_params")
     d = fam[1]
@@ -556,7 +547,7 @@ def sample_fused_adapt_rwmh(
                          f"got {tuple(params_t.T.shape)}")
     samples, lps, accs, leb_out = fused_adapt_rwmh_sample(
         tile_fn, model.cuda_density, params_t, lp0, consts, fused_seed(key),
-        warmup=num_warmup, thin=thinning, n_samples=n_samples,
+        warmup=num_warmup, thin=schedule.thinning, n_samples=schedule.n_samples,
         da=_dual_averaging(sampler), log_eps_bar=leb, iteration_offset=iteration_offset,
     )
     params, lp, accepted = _chains_layout(samples, lps, accs)
@@ -594,19 +585,19 @@ def _diagonal_inverse_mass(inverse_mass):
 def sample_fused_hmc(
     model,
     sampler,
-    n_samples: int,
+    schedule: Schedule,
     *,
     key: int,
     num_chains: int,
     initial_params,
-    discard_initial: int,
-    thinning: int,
+    initial_state=None,
     iteration_offset: int = 0,
 ):
     """Run the fused HMC kernel (≙ JAX ``sample_fused_hmc``): whole
     leapfrog trajectories with the density's value and gradient in the
     kernel, scalar or diagonal ``inverse_mass``, endpoint accept. The final
     ``GradientTransition`` carries the kernel's gradient at the last draws."""
+    initial_params = _start_params(initial_params, initial_state)
     if initial_params is None:
         raise ValueError("please specify initial parameters")
     if sampler.trajectory_sampling != "endpoint":
@@ -622,9 +613,7 @@ def sample_fused_hmc(
         value_and_grad, model.cuda_density, params_t, lp0, g0, consts, fused_seed(key),
         step_size=float(sampler.step_size), n_leapfrog=int(sampler.n_leapfrog),
         inverse_mass=minv_column(minv, params_t.shape[0], model.device),
-        burn=max(discard_initial - thinning, 0), thin=thinning, n_samples=n_samples,
-        iteration_offset=iteration_offset,
-    )
+        **_emission(schedule, iteration_offset))
     params, lp, accepted = _chains_layout(samples, lps, accs)
     final_state = GradientTransition(params[:, -1, :], lp[:, -1], g_last.T, accepted[:, -1])
     return Transition(params, lp, accepted), final_state
@@ -656,23 +645,19 @@ def _pooled_stage(wstate: AdaptiveHMCState, d: int, num_chains: int):
 def sample_fused_adaptive_hmc(
     model,
     sampler,
-    n_samples: int,
+    schedule: Schedule,
     *,
     key: int,
     num_chains: int,
     initial_params,
-    num_warmup: int,
-    discard_initial: int,
-    thinning: int,
     initial_state=None,
     iteration_offset: int = 0,
 ):
     """Run the fused AdaptiveHMC kernel (≙ JAX ``sample_fused_adaptive_hmc``).
 
     - Per chain: the joint (ε, diag M⁻¹) warmup and the frozen draws in one
-      launch; ``initial_state`` resumes frozen on the kernel's resume variant
-      under the chunk-resume schedule (``num_warmup=0``,
-      ``discard_initial=thinning``).
+      launch; ``initial_state`` resumes frozen on the kernel's resume
+      variant.
     - ``pooled=True``: the pooled warmup (its Welford merge spans every
       chain) runs on the torch engine, steps 1..num_warmup drawn as
       ``sample(engine="torch")`` draws them; then the resume variant runs
@@ -684,26 +669,17 @@ def sample_fused_adaptive_hmc(
     position, ``h_bar`` 0, and M2 is the regularised estimate inverted at
     ``n = num_warmup`` (the JAX package's reconstruction)."""
     resume = initial_state is not None
-    if resume:
-        if num_warmup != 0 or discard_initial != thinning:
-            raise ValueError(
-                "fused AdaptiveHMC resume expects the chunk-resume "
-                "schedule (num_warmup=0, discard_initial=thinning)."
-            )
-    else:
-        if discard_initial != num_warmup:
-            raise ValueError(
-                "fused AdaptiveHMC supports the standard schedule "
-                "discard_initial == num_warmup; use engine='torch' to keep "
-                "warmup draws."
-            )
+    schedule.check_adaptive("AdaptiveHMC", resume)
+    num_warmup = schedule.num_warmup
+    if not resume:
         if num_warmup < 1:
             raise ValueError("fused AdaptiveHMC requires num_warmup >= 1")
         if initial_params is None:
             raise ValueError("please specify initial parameters")
     value_and_grad, consts = _tile(model, "tile_value_and_grad")
     C = num_chains
-    kw = dict(n_leapfrog=int(sampler.n_leapfrog), thin=thinning, n_samples=n_samples,
+    kw = dict(n_leapfrog=int(sampler.n_leapfrog), thin=schedule.thinning,
+              n_samples=schedule.n_samples,
               da=_dual_averaging(sampler), mass_regularization=sampler.mass_regularization,
               mass_warm_start=sampler.mass_warm_start)
 
@@ -892,14 +868,11 @@ def chees_frozen_stage(sampler, wstate: ChEESHMCState, d: int):
 def sample_fused_chees(
     model,
     sampler,
-    n_samples: int,
+    schedule: Schedule,
     *,
     key: int,
     num_chains: int,
     initial_params,
-    num_warmup: int,
-    discard_initial: int,
-    thinning: int,
     initial_state=None,
     iteration_offset: int = 0,
     warmup_engine: str = "fused",
@@ -921,8 +894,7 @@ def sample_fused_chees(
        schedule where the split left it.
 
     ``initial_state`` (a ``ChEESHMCState``, e.g. a ``final_state``) resumes
-    frozen under the chunk-resume schedule (``num_warmup=0``,
-    ``discard_initial=thinning``); ``iteration_offset`` then counts the
+    frozen under the chunk-resume schedule; ``iteration_offset`` then counts the
     steps of the earlier calls, warmup included. The warmup noise comes from
     a seed derived from (key, attempt), the frozen noise from the key's, so
     a run split after its warmup and resumed equals the unsplit run bit for
@@ -933,16 +905,9 @@ def sample_fused_chees(
     synchronize, and the launches' ``attempts``, ``ratio`` and ``trips``."""
     import time as _time
 
-    if initial_state is not None:
-        if num_warmup != 0 or discard_initial != thinning:
-            raise ValueError(
-                "fused ChEESHMC resume expects the chunk-resume schedule "
-                "(num_warmup=0, discard_initial=thinning).")
-    else:
-        if discard_initial != num_warmup:
-            raise ValueError(
-                "fused ChEESHMC supports the standard schedule discard_initial == "
-                "num_warmup; use engine='torch' to keep warmup draws.")
+    schedule.check_adaptive("ChEESHMC", resume=initial_state is not None)
+    num_warmup, thinning, n_samples = schedule.num_warmup, schedule.thinning, schedule.n_samples
+    if initial_state is None:
         if num_warmup < 1:
             raise ValueError(
                 "fused ChEESHMC requires num_warmup >= 1 (the engine exists to freeze "
@@ -1007,13 +972,11 @@ def sample_fused_chees(
 def sample_fused_meads(
     model,
     sampler,
-    n_samples: int,
+    schedule: Schedule,
     *,
     key: int,
     num_chains: int,
     initial_params,
-    discard_initial: int,
-    thinning: int,
     initial_state=None,
     iteration_offset: int = 0,
 ):
@@ -1026,8 +989,8 @@ def sample_fused_meads(
     fresh (the torch engine's 1-based ``state.iteration``) or the resumed
     state's ``iteration``; the persistent p and u of a fresh run are drawn
     as ``sample(engine="torch")`` draws them (generator of step 0). The
-    kernel runs exactly ``burn + n_samples·thinning`` steps, ``burn =
-    max(discard_initial − thinning, 0)``, and the final state's
+    kernel runs exactly ``burn + n_samples·thinning`` steps
+    (``Schedule.burn``), and the final state's
     ``iteration`` is ``t0`` plus that count, so a run split anywhere and
     resumed from ``final_state`` equals the unsplit run bit for bit."""
     value_and_grad, consts = _tile(model, "tile_value_and_grad")
@@ -1050,7 +1013,7 @@ def sample_fused_meads(
         u0 = torch.rand((num_chains,), generator=gen, device=dev).reshape(1, -1)
         t0 = 1 + int(iteration_offset)
     d, C = x_t.shape
-    burn = max(discard_initial - thinning, 0)
+    burn, thinning, n_samples = schedule.burn, schedule.thinning, schedule.n_samples
     samples, lps, accs, x_f, lp_f, g_f, p_f, u_f = fused_meads_sample(
         value_and_grad, model.cuda_density, x_t, lp0, g0, p0, u0, consts, fused_seed(key),
         n_folds=int(sampler.n_folds), t0=t0, burn=burn, thin=thinning, n_samples=n_samples,
@@ -1120,13 +1083,11 @@ def _finish_plain(samples, lps, accs):
 def sample_fused_slice(
     model,
     sampler,
-    n_samples: int,
+    schedule: Schedule,
     *,
     key: int,
     num_chains: int,
     initial_params,
-    discard_initial: int,
-    thinning: int,
     initial_state=None,
     iteration_offset: int = 0,
 ):
@@ -1142,8 +1103,7 @@ def sample_fused_slice(
         tile_fn, model.cuda_density, params_t, lp0, consts, fused_seed(key),
         width=float(sampler.width), max_stepout=min(int(sampler.max_stepout), MAX_STEPOUT),
         max_shrink=min(int(sampler.max_shrink), MAX_SHRINK),
-        burn=max(discard_initial - thinning, 0), thin=thinning, n_samples=n_samples,
-        iteration_offset=iteration_offset)
+        **_emission(schedule, iteration_offset))
     return _finish_plain(samples, lps, accs)
 
 
@@ -1176,13 +1136,11 @@ def _prior_sampler_start(model, sampler, key, num_chains, initial_params, initia
 def sample_fused_ess(
     model,
     sampler,
-    n_samples: int,
+    schedule: Schedule,
     *,
     key: int,
     num_chains: int,
     initial_params,
-    discard_initial: int,
-    thinning: int,
     initial_state=None,
     iteration_offset: int = 0,
 ):
@@ -1198,21 +1156,18 @@ def sample_fused_ess(
     samples, lps, accs = fused_ess_sample(
         tile_fn, model.cuda_density, params_t, lp0, loc, scale, consts, fused_seed(key),
         max_shrink=min(int(sampler.max_shrink), MAX_SHRINK),
-        burn=max(discard_initial - thinning, 0), thin=thinning, n_samples=n_samples,
-        iteration_offset=iteration_offset)
+        **_emission(schedule, iteration_offset))
     return _finish_plain(samples, lps, accs)
 
 
 def sample_fused_pcn(
     model,
     sampler,
-    n_samples: int,
+    schedule: Schedule,
     *,
     key: int,
     num_chains: int,
     initial_params,
-    discard_initial: int,
-    thinning: int,
     initial_state=None,
     iteration_offset: int = 0,
 ):
@@ -1226,21 +1181,18 @@ def sample_fused_pcn(
                                                      consts)
     samples, lps, accs = fused_pcn_sample(
         tile_fn, model.cuda_density, params_t, lp0, loc, scale, consts, fused_seed(key),
-        beta=float(sampler.beta), burn=max(discard_initial - thinning, 0), thin=thinning,
-        n_samples=n_samples, iteration_offset=iteration_offset)
+        beta=float(sampler.beta), **_emission(schedule, iteration_offset))
     return _finish_plain(samples, lps, accs)
 
 
 def sample_fused_barker(
     model,
     sampler,
-    n_samples: int,
+    schedule: Schedule,
     *,
     key: int,
     num_chains: int,
     initial_params,
-    discard_initial: int,
-    thinning: int,
     initial_state=None,
     iteration_offset: int = 0,
 ):
@@ -1262,8 +1214,7 @@ def sample_fused_barker(
         lp0, g0 = value_and_grad(params_t, *consts)
     samples, lps, accs, g_last = fused_barker_sample(
         value_and_grad, model.cuda_density, params_t, lp0, g0, consts, fused_seed(key),
-        step_size=float(sampler.step_size), burn=max(discard_initial - thinning, 0),
-        thin=thinning, n_samples=n_samples, iteration_offset=iteration_offset)
+        step_size=float(sampler.step_size), **_emission(schedule, iteration_offset))
     params, lp, accepted = _chains_layout(samples, lps, accs)
     final_state = GradientTransition(params[:, -1, :], lp[:, -1], g_last.T, accepted[:, -1])
     return Transition(params, lp, accepted), final_state
@@ -1275,13 +1226,11 @@ def sample_fused_barker(
 def sample_fused_tempering(
     model,
     sampler,
-    n_samples: int,
+    schedule: Schedule,
     *,
     key: int,
     num_chains: int,
     initial_params,
-    discard_initial: int,
-    thinning: int,
     initial_state=None,
     iteration_offset: int = 0,
 ):
@@ -1325,12 +1274,10 @@ def sample_fused_tempering(
         raise ValueError(
             "engine='fused' tempering supports scalar/diagonal proposal scales "
             "(scale_tril ladders: use engine='torch').")
-    burn = max(discard_initial - thinning, 0)
     samples, lps, accs, x_f, ell_f, sw = fused_tempering_sample(
         tile_fn, model.cuda_density, x_t, ell0, consts, fused_seed(key),
         betas=sampler.betas, scale=np.array(scale, np.float32),
-        replica_scales=sampler.replica_scales, burn=burn, thin=thinning, n_samples=n_samples,
-        iteration_offset=iteration_offset)
+        replica_scales=sampler.replica_scales, **_emission(schedule, iteration_offset))
     params, lp, accepted = _chains_layout(samples, lps, accs)
     betas = torch.tensor(sampler.betas, dtype=torch.float32, device=dev)
     inner_acc = torch.zeros((C, K), dtype=torch.bool, device=dev)
@@ -1339,7 +1286,8 @@ def sample_fused_tempering(
         inner=Transition(x_f.reshape(K, d, C).permute(2, 0, 1), (ell_f * betas[:, None]).T,
                          inner_acc),
         swap_accept_count=sw_acc0 + sw.T,
-        swap_proposal_count=sw_prop0 + float(burn + n_samples * thinning),
+        swap_proposal_count=sw_prop0 + float(schedule.burn
+                                              + schedule.n_samples * schedule.thinning),
         raw_lp=ell_f.T)
     return Transition(params, lp, accepted), final_state
 
@@ -1347,12 +1295,11 @@ def sample_fused_tempering(
 def sample_fused_demc(
     model,
     sampler,
-    n_samples: int,
+    schedule: Schedule,
     *,
     key: int,
+    num_chains: Optional[int] = None,
     initial_params,
-    discard_initial: int,
-    thinning: int,
     initial_state=None,
     iteration_offset: int = 0,
 ):
@@ -1363,7 +1310,8 @@ def sample_fused_demc(
     draw, as ``sample(engine="torch")`` draws it; a resumed ``initial_state``
     (a final ``Transition``) carries its own lp, so that a split run stays
     exact. Returns member-layout transitions: params (N, M, d), lp and
-    accepted (N, M)."""
+    accepted (N, M). ``num_chains`` is unused: the members are the batch
+    axis."""
     M = sampler.n_members
     check_members(M)
     tile_fn, consts = _tile(model)
@@ -1388,9 +1336,62 @@ def sample_fused_demc(
         tile_fn, model.cuda_density, params_t, lp0, consts, fused_seed(key),
         params=DemcParams(sampler._gamma(d), sampler.noise_scale, sampler.jump_probability,
                           sampler.snooker_probability, sampler.snooker_gamma),
-        burn=max(discard_initial - thinning, 0), thin=thinning, n_samples=n_samples,
-        iteration_offset=iteration_offset)
+        **_emission(schedule, iteration_offset))
     params = samples.permute(0, 2, 1)  # (N, M, d)
     lp, accepted = lps[:, 0, :], accs[:, 0, :] > 0.5
     return (Transition(params, lp, accepted),
             Transition(params[-1], lp[-1], accepted[-1]))
+
+
+# ---- the table ---------------------------------------------------------------------
+
+
+class Runner(NamedTuple):
+    """A sampler class's fused runner, and whether the sampler's walkers or
+    members are the batch axis (it then runs with no ``num_chains``)."""
+
+    run: Callable
+    population: bool = False
+
+
+# The runner of each sampler class with fused kernels; :func:`runner_of` takes the
+# entry of the most specific class in a sampler's MRO (an MTM is an MH).
+RUNNERS = {
+    MetropolisHastings: Runner(sample_fused),
+    MultipleTryMetropolis: Runner(sample_fused_mtm),
+    DelayedRejection: Runner(sample_fused_dr),
+    MALA: Runner(sample_fused_mala),
+    RobustAdaptiveMetropolis: Runner(sample_fused_ram),
+    Ensemble: Runner(sample_fused_emcee, population=True),
+    StepSizeAdaptation: Runner(sample_fused_adapt_rwmh),
+    HamiltonianMC: Runner(sample_fused_hmc),
+    AdaptiveHMC: Runner(sample_fused_adaptive_hmc),
+    ChEESHMC: Runner(sample_fused_chees),
+    MEADS: Runner(sample_fused_meads),
+    SliceSampler: Runner(sample_fused_slice),
+    EllipticalSlice: Runner(sample_fused_ess),
+    Barker: Runner(sample_fused_barker),
+    PreconditionedCrankNicolson: Runner(sample_fused_pcn),
+    AdaptiveMetropolis: Runner(sample_fused_am),
+    DRAM: Runner(sample_fused_am),
+    ReplicaExchange: Runner(sample_fused_tempering),
+    DifferentialEvolution: Runner(sample_fused_demc, population=True),
+}
+
+
+def runner_of(sampler) -> Optional[Runner]:
+    """The entry of the most specific class of ``sampler`` in
+    :data:`RUNNERS`, or None."""
+    return next((RUNNERS[cls] for cls in type(sampler).__mro__ if cls in RUNNERS), None)
+
+
+def run(model, sampler, schedule: Schedule, *, key: int, num_chains: Optional[int],
+        initial_params, initial_state, iteration_offset: int):
+    """``sample(engine="fused")``'s draws: (transitions, final_state) from
+    the runner of ``sampler``'s class; raises for a sampler no kernel runs."""
+    runner = runner_of(sampler)
+    if runner is None:
+        raise ValueError(_not_ported(f"got {type(sampler).__name__}"))
+    return runner.run(model, sampler, schedule, key=key, num_chains=num_chains,
+                      initial_params=initial_params, initial_state=initial_state,
+                      iteration_offset=iteration_offset)

@@ -5,13 +5,8 @@ Two engines:
 - ``engine="torch"`` (default; ≙ the JAX package's ``"xla"``): a Python loop
   over steps with the chains as a batch dimension of every tensor, on the
   model's device.
-- ``engine="fused"``: RWMH, Langevin MALA, RAM, the emcee stretch move,
-  dual-averaging RWMH (``StepSizeAdaptation.rwmh``), HMC, AdaptiveHMC,
-  ChEES-HMC, MEADS, slice sampling, elliptical slice sampling, the Barker
-  proposal, pCN, Adaptive Metropolis, delayed rejection, DRAM,
-  Multiple-Try Metropolis, replica exchange and DE-MC on the hand-written
-  CUDA kernels (runtime/fused.py; on CPU tensors their plain
-  PyTorch versions).
+- ``engine="fused"``: the samplers of ``runtime/fused.py::RUNNERS`` on the
+  hand-written CUDA kernels (on CPU tensors their plain PyTorch versions).
 
 RNG: step ``j`` of a run draws from ``step_generator(master, j)`` (init is
 ``j = 0``; a resumed run adds ``iteration_offset``), so the draws depend on
@@ -30,6 +25,7 @@ from ..samplers.base import Sampler
 from ..utils.keys import as_key, fold_in, step_generator
 from ..utils.trace import host_sync, traced
 from ..utils.tree import tree_flatten, tree_map
+from . import fused
 from .schedule import Schedule
 
 
@@ -66,9 +62,9 @@ def _resolve_chain_method(method: ChainMethod) -> str:
         return "sequential"
     if isinstance(method, MCMCDistributed) or method == "shard_map":
         raise NotImplementedError(
-            "MCMCDistributed is not ported to advancedmh_tpu_torch yet: "
-            "multi-GPU sampling is the torch.distributed item of ROADMAP.md "
-            "(Queue 1, slice 6); use MCMCThreads() on one GPU."
+            "MCMCDistributed (multi-GPU sampling) is not ported to "
+            "advancedmh_tpu_torch; use MCMCThreads(), which runs the chains as "
+            "one batch on one GPU."
         )
     raise ValueError(f"Unknown chain method: {method!r}")
 
@@ -286,108 +282,20 @@ def sample(
         initial_params = _on_device(initial_params, model.device)
 
     if engine == "fused":
-        from ..samplers.adapt import StepSizeAdaptation
-        from ..samplers.am import AdaptiveMetropolis
-        from ..samplers.barker import Barker
-        from ..samplers.chees import ChEESHMC
-        from ..samplers.demc import DifferentialEvolution
-        from ..samplers.dr import DelayedRejection
-        from ..samplers.dram import DRAM
-        from ..samplers.emcee import Ensemble
-        from ..samplers.ess import EllipticalSlice
-        from ..samplers.hmc import HamiltonianMC
-        from ..samplers.hmc_adapt import AdaptiveHMC
-        from ..samplers.mala import MALA
-        from ..samplers.meads import MEADS
-        from ..samplers.mtm import MultipleTryMetropolis
-        from ..samplers.pcn import PreconditionedCrankNicolson
-        from ..samplers.ram import RobustAdaptiveMetropolis
-        from ..samplers.slice import SliceSampler
-        from ..samplers.tempering import ReplicaExchange
-        from .fused import (sample_fused, sample_fused_adapt_rwmh,
-                            sample_fused_adaptive_hmc, sample_fused_am, sample_fused_barker,
-                            sample_fused_chees, sample_fused_demc, sample_fused_emcee,
-                            sample_fused_ess, sample_fused_hmc, sample_fused_mala,
-                            sample_fused_meads, sample_fused_pcn, sample_fused_ram,
-                            sample_fused_slice, sample_fused_tempering)
-
-        # samplers that resume from their own state (its lp, and what else
-        # the kernel carries) through initial_state
-        own_start = {Barker: sample_fused_barker, PreconditionedCrankNicolson: sample_fused_pcn,
-                     EllipticalSlice: sample_fused_ess, SliceSampler: sample_fused_slice,
-                     AdaptiveMetropolis: sample_fused_am, DRAM: sample_fused_am,
-                     DelayedRejection: sample_fused, MultipleTryMetropolis: sample_fused,
-                     ReplicaExchange: sample_fused_tempering}
-
         if collect_states:
             raise ValueError(
                 "engine='fused' does not collect per-step states; use "
                 "engine='torch' for collect_states=True."
             )
-        resume_S = resume_adapt = None
-        if initial_state is not None:
-            if isinstance(sampler, RobustAdaptiveMetropolis):
-                initial_params, resume_S = initial_state.x, initial_state.S
-            elif isinstance(sampler, (StepSizeAdaptation, AdaptiveHMC, ChEESHMC, MEADS,
-                                      *own_start)):
-                # frozen continuation: the saved per-chain ε̄ (and M⁻¹), the
-                # ChEES statistics or MEADS's persistent (p, u, iteration) go
-                # back into the kernels; the slice samplers, Barker, pCN and
-                # DR and MTM take the state's own lp (and gradient), AM and
-                # DRAM their live moments too and replica exchange its whole
-                # ladder, so that a split run stays exact
-                resume_adapt = initial_state
-            elif isinstance(sampler, DifferentialEvolution):
-                resume_adapt = initial_state  # the population and its own lp
-            else:
-                initial_params = initial_state.params
-        common = dict(key=master, initial_params=initial_params,
-                      discard_initial=schedule.discard_initial,
-                      thinning=schedule.thinning,
-                      iteration_offset=iteration_offset)
-        if isinstance(sampler, Ensemble):  # the walkers are the batch axis
-            transitions, final_state = sample_fused_emcee(
-                model, sampler, schedule.n_samples, **common)
-            return _finish(transitions, final_state, schedule, None, False,
-                           sampler, chain_type, param_names)
-        if isinstance(sampler, DifferentialEvolution):  # the members are the batch axis
-            transitions, final_state = sample_fused_demc(
-                model, sampler, schedule.n_samples, initial_state=resume_adapt, **common)
-            return _finish(transitions, final_state, schedule, None, False,
-                           sampler, chain_type, param_names)
-        if num_chains is None:
+        runner = fused.runner_of(sampler)
+        if runner is not None and runner.population:  # the members are the batch axis
+            num_chains = None
+        elif num_chains is None:
             raise ValueError("engine='fused' requires num_chains")
-        warm = dict(num_warmup=schedule.num_warmup, initial_state=resume_adapt)
-        if type(sampler) in own_start:
-            transitions, final_state = own_start[type(sampler)](
-                model, sampler, schedule.n_samples, num_chains=num_chains,
-                initial_state=resume_adapt, **common)
-        elif isinstance(sampler, MEADS):
-            transitions, final_state = sample_fused_meads(
-                model, sampler, schedule.n_samples, num_chains=num_chains,
-                initial_state=resume_adapt, **common)
-        elif isinstance(sampler, ChEESHMC):
-            transitions, final_state = sample_fused_chees(
-                model, sampler, schedule.n_samples, num_chains=num_chains, **warm, **common)
-        elif isinstance(sampler, StepSizeAdaptation):
-            transitions, final_state = sample_fused_adapt_rwmh(
-                model, sampler, schedule.n_samples, num_chains=num_chains, **warm, **common)
-        elif isinstance(sampler, AdaptiveHMC):
-            transitions, final_state = sample_fused_adaptive_hmc(
-                model, sampler, schedule.n_samples, num_chains=num_chains, **warm, **common)
-        elif isinstance(sampler, HamiltonianMC):
-            transitions, final_state = sample_fused_hmc(
-                model, sampler, schedule.n_samples, num_chains=num_chains, **common)
-        elif isinstance(sampler, RobustAdaptiveMetropolis):
-            transitions, final_state = sample_fused_ram(
-                model, sampler, schedule.n_samples, num_chains=num_chains,
-                num_warmup=schedule.num_warmup, initial_S=resume_S, **common)
-        elif isinstance(sampler, MALA):
-            transitions, final_state = sample_fused_mala(
-                model, sampler, schedule.n_samples, num_chains=num_chains, **common)
-        else:
-            transitions, final_state = sample_fused(
-                model, sampler, schedule.n_samples, num_chains=num_chains, **common)
+        transitions, final_state = fused.run(
+            model, sampler, schedule, key=master, num_chains=num_chains,
+            initial_params=initial_params, initial_state=initial_state,
+            iteration_offset=iteration_offset)
         return _finish(transitions, final_state, schedule, num_chains, False,
                        sampler, chain_type, param_names)
 

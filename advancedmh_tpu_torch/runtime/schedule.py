@@ -13,6 +13,11 @@ src/RobustAdaptiveMetropolis.jl:42-43):
   labeled ``discard_initial + 1`` onwards with stride ``thinning`` (matching
   MCMCChains ``start``/``thin``);
 - ``discard_initial`` defaults to ``num_warmup`` (warmup samples dropped).
+
+The fused engines never emit the init state: their sample k is the state
+after ``burn + (k+1)*thinning`` steps (:attr:`Schedule.burn`), and the
+adaptive ones take only the schedules :meth:`Schedule.check_adaptive`
+accepts.
 """
 from __future__ import annotations
 
@@ -52,3 +57,26 @@ class Schedule:
         return range(
             self.start, self.start + self.n_samples * self.thinning, self.thinning
         )
+
+    @property
+    def burn(self) -> int:
+        """The fused engines' steps before their first emission:
+        ``discard_initial - thinning``, or none where that is negative. Their
+        sample k is the state after ``burn + (k+1)*thinning`` steps, the
+        standard schedule when ``discard_initial >= thinning``."""
+        return max(self.discard_initial - self.thinning, 0)
+
+    def check_adaptive(self, name: str, resume: bool) -> None:
+        """Raise unless a fused adaptive sampler ``name`` can run this
+        schedule: a fresh run drops its warmup (``discard_initial ==
+        num_warmup``), a resumed one continues frozen (``num_warmup == 0``,
+        ``discard_initial == thinning``)."""
+        if resume:
+            if self.num_warmup != 0 or self.discard_initial != self.thinning:
+                raise ValueError(
+                    f"fused {name} resume expects the chunk-resume schedule "
+                    "(num_warmup=0, discard_initial=thinning).")
+        elif self.discard_initial != self.num_warmup:
+            raise ValueError(
+                f"fused {name} supports the standard schedule discard_initial == "
+                "num_warmup; use engine='torch' to keep warmup draws.")

@@ -1214,7 +1214,7 @@ def phase_slice4_checks(models):
     """tests/test_pallas.py's card-only ChEES and MEADS checks at their
     shapes; sample_chunked is not ported, so the chunked tests are split
     runs through initial_state + iteration_offset, held bit for bit."""
-    from advancedmh_tpu_torch import MEADS, ChEESHMC, sample
+    from advancedmh_tpu_torch import MEADS, ChEESHMC, Schedule, sample
     from advancedmh_tpu_torch.runtime.fused import (CHEES_WARMUP_BUDGET, MAX_TILE,
                                                     fused_tile, sample_fused_chees)
 
@@ -1296,10 +1296,10 @@ def phase_slice4_checks(models):
                 st.inverse_mass[0].double().cpu().numpy())
 
     for C in (4096, 1000):  # the fused warmup lands the torch engine's regime
-        kw = dict(key=9 if C == 4096 else 17, num_chains=C, initial_params=zeros,
-                  num_warmup=400, discard_initial=400, thinning=1)
-        tr_f, st_f = sample_fused_chees(corr, spl, 600, warmup_engine="fused", **kw)
-        tr_t, st_t = sample_fused_chees(corr, spl, 600, warmup_engine="torch", **kw)
+        kw = dict(key=9 if C == 4096 else 17, num_chains=C, initial_params=zeros)
+        sched = Schedule(600, num_warmup=400)
+        tr_f, st_f = sample_fused_chees(corr, spl, sched, warmup_engine="fused", **kw)
+        tr_t, st_t = sample_fused_chees(corr, spl, sched, warmup_engine="torch", **kw)
         (eps_f, t_f, m_f), (eps_t, t_t, m_t) = adapted(st_f), adapted(st_t)
         print(f"chees {C} chains fused vs torch warmup: eps {eps_f:.4f} / {eps_t:.4f}, "
               f"T {t_f:.4f} / {t_t:.4f}, M^-1 {m_f.tolist()} / {m_t.tolist()}, n "
@@ -1319,9 +1319,8 @@ def phase_slice4_checks(models):
     clock = {}
     tr, st = sample_fused_chees(corr, ChEESHMC(initial_step_size=0.01,
                                                initial_trajectory_length=0.01, max_leapfrog=16),
-                                600, key=3, num_chains=4096, initial_params=zeros,
-                                num_warmup=500, discard_initial=500, thinning=1,
-                                stage_clock=clock)
+                                Schedule(600, num_warmup=500), key=3, num_chains=4096,
+                                initial_params=zeros, stage_clock=clock)
     eps, t_bar, _ = adapted(st)
     print(f"chees bad init ratio: {len(clock['attempts'])} warmup launches, eps {eps:.4f}, "
           f"T/eps {t_bar / eps:.4f}")
@@ -1358,7 +1357,7 @@ def phase_timing_slice4(models, label, errs, times):
     """The three kernels at the main paths' shapes (best of 3), the plain
     versions at 8192 chains over N_PLAIN_SLICE4 steps, held against them, and
     the ChEES stages timed apart."""
-    from advancedmh_tpu_torch import MEADS, ChEESHMC
+    from advancedmh_tpu_torch import MEADS, ChEESHMC, Schedule
     from advancedmh_tpu_torch import sample
     from advancedmh_tpu_torch.ops import (CheesParams, MeadsParams, chees_frozen_reference,
                                           chees_warmup_reference, fused_chees_frozen_sample,
@@ -1372,9 +1371,8 @@ def phase_timing_slice4(models, label, errs, times):
     clock = {}
     sync()
     t0 = time.perf_counter()
-    tr, st = sample_fused_chees(lr, spl, N_DRAWS, key=KEY + 70, num_chains=C,
-                                initial_params=torch.zeros(32, device=DEVICE),
-                                num_warmup=N_WARM, discard_initial=N_WARM, thinning=1,
+    tr, st = sample_fused_chees(lr, spl, Schedule(N_DRAWS, num_warmup=N_WARM), key=KEY + 70,
+                                num_chains=C, initial_params=torch.zeros(32, device=DEVICE),
                                 stage_clock=clock)
     sync()
     t_all = time.perf_counter() - t0
@@ -3516,7 +3514,8 @@ def launch_report(models, gps, ptxas_lines) -> None:
     from advancedmh_tpu_torch.ops.hmc_adapt import adaptive_hmc_launch_info
     from advancedmh_tpu_torch.ops.meads import meads_launch_info
     from advancedmh_tpu_torch.ops.pcn import pcn_launch_info
-    from advancedmh_tpu_torch.ops.rwmh import flat_consts, rwmh_launch_info
+    from advancedmh_tpu_torch.ops._build import flat_consts
+    from advancedmh_tpu_torch.ops.rwmh import rwmh_launch_info
     from advancedmh_tpu_torch.runtime.fused import MAX_TILE, MEADS_BUDGET, fused_tile
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count

@@ -28,7 +28,7 @@ from advancedmh_tpu_torch.convert import am_state_from_numpy, correlated_gaussia
 from advancedmh_tpu_torch.models import correlated_gaussian_model, gaussian_mean_scale_model
 from advancedmh_tpu_torch.ops import AmParams, am_step, welford_advance
 from advancedmh_tpu_torch.ops.am import lower
-from advancedmh_tpu_torch.ops.rwmh import philox_uniforms, box_muller
+from advancedmh_tpu_torch.ops.common import philox_uniforms, box_muller
 
 COV = np.array([[1.5, 0.35], [0.35, 1.0]], np.float32)
 MODEL = correlated_gaussian_model(COV, device="cpu")

@@ -22,7 +22,7 @@ import advancedmh_tpu as ref
 from advancedmh_tpu.ops import pallas_chees
 from advancedmh_tpu.runtime import fused as ref_fused
 from advancedmh_tpu.samplers.chees import ChEESHMCState as RefState
-from advancedmh_tpu_torch import ChEESHMC, DensityModel, sample
+from advancedmh_tpu_torch import ChEESHMC, DensityModel, Schedule, sample
 from advancedmh_tpu_torch.convert import (chees_state_from_numpy,
                                           correlated_gaussian_from_numpy,
                                           gradient_transition_from_numpy)
@@ -304,10 +304,10 @@ def test_fused_chees_posterior_and_final_state():
 def test_fused_warmup_matches_torch_engine_warmup(C):
     """The fused warmup lands the torch engine's adapted regime (the JAX
     test's bands); at a ragged count the Welford count is the real C·W."""
-    kw = dict(key=9, num_chains=C, initial_params=torch.zeros(2), num_warmup=400,
-              discard_initial=400, thinning=1)
-    tr_f, st_f = sample_fused_chees(_corr(), ChEESHMC(**SPL), 300, warmup_engine="fused", **kw)
-    tr_t, st_t = sample_fused_chees(_corr(), ChEESHMC(**SPL), 300, warmup_engine="torch", **kw)
+    kw = dict(key=9, num_chains=C, initial_params=torch.zeros(2))
+    sched = Schedule(300, num_warmup=400)
+    tr_f, st_f = sample_fused_chees(_corr(), ChEESHMC(**SPL), sched, warmup_engine="fused", **kw)
+    tr_t, st_t = sample_fused_chees(_corr(), ChEESHMC(**SPL), sched, warmup_engine="torch", **kw)
     eps_f, t_f, minv_f = _adapted(st_f)
     eps_t, t_t, minv_t = _adapted(st_t)
     assert 0.6 < eps_f / eps_t < 1.6
@@ -335,9 +335,9 @@ def test_fused_warmup_adapt_mass_off_and_thinning():
 def test_fused_warmup_bad_init_ratio_recovers():
     spl = ChEESHMC(initial_step_size=0.01, initial_trajectory_length=0.01, max_leapfrog=16)
     clock = {}
-    tr, st = sample_fused_chees(_corr(), spl, 200, key=3, num_chains=4096,
-                                initial_params=torch.zeros(2), num_warmup=500,
-                                discard_initial=500, thinning=1, stage_clock=clock)
+    tr, st = sample_fused_chees(_corr(), spl, Schedule(200, num_warmup=500), key=3,
+                                num_chains=4096, initial_params=torch.zeros(2),
+                                stage_clock=clock)
     eps, t_bar, _ = _adapted(st)
     assert len(clock["attempts"]) > 1  # the consistency loop re-staged
     assert t_bar / eps < 8.0
@@ -374,8 +374,8 @@ def test_fused_errors():
         sample(m, ChEESHMC(**SPL), 8, num_warmup=20, discard_initial=20,
                initial_state=first.final_state, **kw)
     with pytest.raises(ValueError, match="warmup_engine"):
-        sample_fused_chees(m, ChEESHMC(), 8, key=0, num_chains=64, initial_params=torch.zeros(2),
-                           num_warmup=8, discard_initial=8, thinning=1, warmup_engine="xla")
+        sample_fused_chees(m, ChEESHMC(), Schedule(8, num_warmup=8), key=0, num_chains=64,
+                           initial_params=torch.zeros(2), warmup_engine="xla")
     # a per-chain (single-chain fallback) state has no shared statistics
     st = first.final_state
     bad = type(st)(**{**st.__dict__, "log_eps_bar": st.log_eps_bar + torch.linspace(0, 1, 64)})

@@ -25,7 +25,7 @@ from advancedmh_tpu_torch.convert import (
 )
 from advancedmh_tpu_torch.ops import chol_rank1_update, chol_rank1_update_batched
 from advancedmh_tpu_torch.ops.ram import RamParams, fused_ram_sample, ram_step
-from advancedmh_tpu_torch.ops.rwmh import step_noise
+from advancedmh_tpu_torch.ops.common import step_noise
 
 SIG = np.array([[1.0, 0.5], [0.5, 1.0]])
 

@@ -115,7 +115,8 @@ def test_rwmh_form_and_group_launches(model, target, lanes):
     chain with the constants in shared memory and count none. Both forms
     agree with their plain versions."""
     from advancedmh_tpu_torch.models import logistic_regression_model
-    from advancedmh_tpu_torch.ops.rwmh import flat_consts, rwmh_launch_info
+    from advancedmh_tpu_torch.ops._build import flat_consts
+    from advancedmh_tpu_torch.ops.rwmh import rwmh_launch_info
 
     make = {
         "flagship": lambda: model,
@@ -641,7 +642,7 @@ def test_group_kernel_launch_shape(model, kernel, target):
     from advancedmh_tpu_torch.ops.chees import chees_frozen_launch_info
     from advancedmh_tpu_torch.ops.hmc import hmc_launch_info
     from advancedmh_tpu_torch.ops.hmc_adapt import adaptive_hmc_launch_info
-    from advancedmh_tpu_torch.ops.rwmh import flat_consts
+    from advancedmh_tpu_torch.ops._build import flat_consts
 
     m = _slice3_model(model, target)
     launch_info = {"adaptive_hmc": adaptive_hmc_launch_info, "hmc": hmc_launch_info,
@@ -1001,7 +1002,7 @@ def test_barker_and_ess_launch_shape(model, kernel, target, lanes, tril):
     a block, at least 4 resident an SM, with either prior scale."""
     from advancedmh_tpu_torch.ops.barker import barker_launch_info
     from advancedmh_tpu_torch.ops.ess import ess_launch_info
-    from advancedmh_tpu_torch.ops.rwmh import flat_consts
+    from advancedmh_tpu_torch.ops._build import flat_consts
 
     if kernel == "barker":
         m = _slice3_model(model, target)
@@ -1068,7 +1069,7 @@ def test_evidence_and_pcn_launch_shape(kernel, target, flag):
     conjugate likelihood 64 chains of one thread a block."""
     from advancedmh_tpu_torch.ops.evidence import evidence_launch_info
     from advancedmh_tpu_torch.ops.pcn import pcn_launch_info
-    from advancedmh_tpu_torch.ops.rwmh import flat_consts
+    from advancedmh_tpu_torch.ops._build import flat_consts
 
     if kernel == "evidence":
         m = _evidence_inputs(target, 64, 0)[0]
@@ -1428,7 +1429,7 @@ def test_evidence_kernel_matches_plain(target, adapt, per_rung, C, burn, thin, n
 def _evidence_steps(m, x, ll, plp, beta, eps, loc, scale, seed, offset, n):
     """The plain version's state (x, ll, plp) after n steps at a fixed ε."""
     from advancedmh_tpu_torch.ops.evidence import gaussian_prior_lp, power_step
-    from advancedmh_tpu_torch.ops.rwmh import step_noise
+    from advancedmh_tpu_torch.ops.common import step_noise
 
     lo, sc = loc[:, None], scale[:, None]
     prior = lambda y: gaussian_prior_lp(y, lo, sc, torch.log(sc))

@@ -97,7 +97,7 @@ def test_gp_tile_sums_in_eight_interleaved_partials(n, lik, noise, seed):
     partial i mod 8 (from 0, in order), then the 8 partials in order (at
     n = 3 five stay empty); bit for bit against that order written out in
     float32, and within float32 rounding of a float64 sum."""
-    from advancedmh_tpu_torch.ops.rwmh import softplus
+    from advancedmh_tpu_torch.ops.common import softplus
 
     m, prior, _ = gp_latent_model(n, likelihood=lik, noise=noise, seed=seed, device="cpu")
     rng = np.random.default_rng(n)

@@ -23,7 +23,7 @@ from advancedmh_tpu_torch.convert import (
 from advancedmh_tpu_torch.models import logistic_regression_model
 from advancedmh_tpu_torch.ops import fused_hmc_sample, hmc_sample_reference, minv_column
 from advancedmh_tpu_torch.ops.hmc import hmc_step
-from advancedmh_tpu_torch.ops.rwmh import step_noise
+from advancedmh_tpu_torch.ops.common import step_noise
 
 COV = np.asarray([[1.5, 0.35], [0.35, 1.0]], np.float32)
 MODEL = gaussian_mean_scale_from_numpy(np.random.default_rng(1234).normal(size=300),

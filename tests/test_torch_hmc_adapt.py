@@ -22,7 +22,7 @@ from advancedmh_tpu_torch.convert import (
     gradient_transition_from_numpy,
 )
 from advancedmh_tpu_torch.ops import DualAveraging, adaptive_hmc_reference
-from advancedmh_tpu_torch.ops.rwmh import step_noise
+from advancedmh_tpu_torch.ops.common import step_noise
 
 COV = np.asarray([[1.5, 0.35], [0.35, 1.0]], np.float32)
 ANISO = np.diag([25.0, 1.0]).astype(np.float32)

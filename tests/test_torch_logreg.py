@@ -21,7 +21,7 @@ from advancedmh_tpu_torch.models import (
     logistic_regression_model,
 )
 from advancedmh_tpu_torch.ops import _build
-from advancedmh_tpu_torch.ops.rwmh import flat_consts
+from advancedmh_tpu_torch.ops._build import flat_consts
 
 
 @pytest.fixture(scope="module")

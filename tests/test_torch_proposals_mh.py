@@ -16,7 +16,8 @@ from advancedmh_tpu_torch.convert import (
     gaussian_mean_scale_from_numpy,
     mvnormal_from_numpy,
 )
-from advancedmh_tpu_torch.ops.rwmh import rwmh_step, scale_block
+from advancedmh_tpu_torch.ops.common import scale_block
+from advancedmh_tpu_torch.ops.rwmh import rwmh_step
 
 DATA = np.random.default_rng(1234).normal(size=30)
 

@@ -26,6 +26,7 @@ from advancedmh_tpu_torch import (
     sample,
 )
 from advancedmh_tpu_torch.models import gaussian_mean_scale_model
+from advancedmh_tpu_torch.samplers.base import Sampler
 
 MODEL = gaussian_mean_scale_model(device="cpu")
 SPL = RWMH(MvNormal(torch.zeros(2), scale=0.3))
@@ -40,6 +41,10 @@ def test_schedule_matches_jax(n, warmup, discard, thin):
     r = ref.Schedule(n_samples=n, num_warmup=warmup, discard_initial=discard, thinning=thin)
     assert (p.discard_initial, p.total_steps, p.start) == (r.discard_initial, r.total_steps, r.start)
     assert p.iterations() == r.iterations()
+    # the fused engines emit the state after burn + (k+1)·thinning steps: the
+    # standard schedule's iterations wherever the init state is not one of them
+    fused_iterations = [p.burn + (k + 1) * thin + 1 for k in range(n)]
+    assert (fused_iterations == list(p.iterations())) == (p.discard_initial >= thin)
 
 
 def test_schedule_validation():
@@ -171,7 +176,7 @@ def test_xla_engine_raises_naming_torch():
 
 
 def test_mcmc_distributed_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="MCMCThreads"):
         sample(MODEL, SPL, MCMCDistributed(), 10, 4)
 
 
@@ -181,7 +186,7 @@ def test_mcmc_distributed_raises():
     MetropolisHastings({"a": port.RandomWalkProposal(Normal(0.0, 1.0))}),
 ])
 def test_unsupported_fused_sampler_raises(spl):
-    with pytest.raises(ValueError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="engine='torch'"):
         sample(MODEL, spl, 10, num_chains=4, engine="fused", initial_params=[0.0, 1.0])
 
 
@@ -190,3 +195,70 @@ def test_fused_needs_num_chains_and_initial_params():
         sample(MODEL, SPL, 10, engine="fused", initial_params=[0.0, 1.0])
     with pytest.raises(ValueError, match="initial_params"):
         sample(MODEL, SPL, 10, engine="fused", num_chains=4)
+
+
+# ---- the fused engine's table of runners ------------------------------------
+
+
+# The runner each sampler class got from sample()'s ladder of isinstance
+# branches before the table replaced it; DR and MTM ran inside the RWMH
+# runner.
+LADDER = {
+    "MetropolisHastings": "sample_fused",
+    "MultipleTryMetropolis": "sample_fused_mtm",
+    "DelayedRejection": "sample_fused_dr",
+    "MALA": "sample_fused_mala",
+    "RobustAdaptiveMetropolis": "sample_fused_ram",
+    "Ensemble": "sample_fused_emcee",
+    "StepSizeAdaptation": "sample_fused_adapt_rwmh",
+    "HamiltonianMC": "sample_fused_hmc",
+    "AdaptiveHMC": "sample_fused_adaptive_hmc",
+    "ChEESHMC": "sample_fused_chees",
+    "MEADS": "sample_fused_meads",
+    "SliceSampler": "sample_fused_slice",
+    "EllipticalSlice": "sample_fused_ess",
+    "Barker": "sample_fused_barker",
+    "PreconditionedCrankNicolson": "sample_fused_pcn",
+    "AdaptiveMetropolis": "sample_fused_am",
+    "DRAM": "sample_fused_am",
+    "ReplicaExchange": "sample_fused_tempering",
+    "DifferentialEvolution": "sample_fused_demc",
+}
+
+
+class _Unported(Sampler):
+    pass
+
+
+@pytest.mark.parametrize("name", sorted(LADDER))
+def test_fused_table_resolves_each_sampler_class(name):
+    from advancedmh_tpu_torch.runtime import fused
+
+    cls = getattr(port, name)
+    assert {c.__name__ for c in fused.RUNNERS} == set(LADDER)
+    runner = fused.runner_of(cls.__new__(cls))  # resolution reads the class alone
+    assert runner.run.__name__ == LADDER[name]
+    assert runner.population == (name in ("Ensemble", "DifferentialEvolution"))
+    # a subclass takes its nearest registered class's runner
+    sub = type("Sub", (cls,), {})
+    assert fused.runner_of(sub.__new__(sub)) == runner
+    with pytest.raises(ValueError, match="engine='torch'") as err:
+        fused.run(MODEL, _Unported(), Schedule(4), key=0, num_chains=2,
+                  initial_params=None, initial_state=None, iteration_offset=0)
+    assert name in str(err.value) and "_Unported" in str(err.value)
+
+
+@pytest.mark.parametrize("warmup,discard,thin,resume,error", [
+    (5, 5, 1, False, None),
+    (5, 7, 2, False, "discard_initial == num_warmup"),
+    (0, 3, 3, True, None),
+    (2, 2, 2, True, "chunk-resume schedule"),
+    (0, 1, 3, True, "chunk-resume schedule"),
+])
+def test_fused_adaptive_schedule_check(warmup, discard, thin, resume, error):
+    s = Schedule(4, num_warmup=warmup, discard_initial=discard, thinning=thin)
+    if error is None:
+        s.check_adaptive("RAM", resume)
+    else:
+        with pytest.raises(ValueError, match=f"fused RAM .*{error}"):
+            s.check_adaptive("RAM", resume)

@@ -101,7 +101,8 @@ def test_schedule_identity(form, burn, thin, n):
 def test_accept_rule_at_the_support_edge():
     """accept iff log(u) < lp_cand − lp: a −inf start accepts any finite
     candidate, a −inf candidate is rejected, and so is −inf → −inf (NaN)."""
-    from advancedmh_tpu_torch.ops.rwmh import rwmh_step, scale_block
+    from advancedmh_tpu_torch.ops.common import scale_block
+    from advancedmh_tpu_torch.ops.rwmh import rwmh_step
 
     x = torch.tensor([[0.0, 0.0, 0.0], [-0.5, -0.5, 1.0]])
     lp = MODEL.tile_density(x, *MODEL.tile_consts)
@@ -249,7 +250,7 @@ def test_lane_draws_its_steps_noise(lanes, base):
     word of base + l, chain, 0, high word): the words step_noise reads, so
     the noise drawn ahead is the noise of that step (across the counter's
     32-bit carry too)."""
-    from advancedmh_tpu_torch.ops.rwmh import box_muller
+    from advancedmh_tpu_torch.ops.common import box_muller
 
     seed, C = 0x1234_5678_9ABC, 6
     for lane in range(lanes):

@@ -99,7 +99,7 @@ def _time_in(root: str, only: str = None) -> dict:
     import numpy as np
     import torch
 
-    from advancedmh_tpu_torch import ChEESHMC, power_ladder
+    from advancedmh_tpu_torch import ChEESHMC, Schedule, power_ladder
     from advancedmh_tpu_torch.models import (correlated_gaussian_model, gp_latent_model,
                                              logistic_regression_model)
     from advancedmh_tpu_torch.ops import (DualAveraging, MeadsParams, _build,
@@ -147,10 +147,9 @@ def _time_in(root: str, only: str = None) -> dict:
 
     clock = {}
     _, st = sample_fused_chees(lr, ChEESHMC(initial_step_size=0.1, initial_trajectory_length=1.0,
-                                            max_leapfrog=16), N_DRAWS, key=KEY + 70,
-                               num_chains=C, initial_params=torch.zeros(32, device=dev),
-                               num_warmup=N_WARM, discard_initial=N_WARM, thinning=1,
-                               stage_clock=clock)
+                                            max_leapfrog=16), Schedule(N_DRAWS, num_warmup=N_WARM),
+                               key=KEY + 70, num_chains=C,
+                               initial_params=torch.zeros(32, device=dev), stage_clock=clock)
     fargs = (vg, lr.cuda_density, st.inner.params.T.contiguous(),
              st.inner.lp[None].contiguous(), st.inner.gradient.T.contiguous(), lr.tile_consts,
              KEY)
