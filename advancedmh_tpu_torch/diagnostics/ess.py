@@ -12,16 +12,17 @@ first ``LAG_WINDOW`` lags comes from one launch of ``ops/autocov.py``
 (:func:`_ess_fft`) runs only where the sequence runs past the window, counted
 in ``ess.fft_fallbacks`` and spanned as ``ess.fft_fallback``. Other dtypes
 take the FFT. :func:`ess_and_value` makes that decision for :func:`ess` and
-``Chains.summary()``.
+``Chains.summary()``'s per-statistic path; its one-pass path on the card
+(``ops/summary.py``) takes the window's sums of every parameter from
+:func:`window_sums` and runs :func:`ess_fallback` where they do not decide.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Optional, Tuple
 
 import torch
 
-from ..ops.autocov import autocov_window
+from ..ops.autocov import autocov_window, geyer_tau, window_rho
 from ..utils.trace import host_sync, span
 
 # Lags the window computes. Geyer's sequence ends by lag 46 (μ) and 60 (σ) on
@@ -43,18 +44,6 @@ def _autocov(x: torch.Tensor) -> torch.Tensor:
     return acov / n
 
 
-def _geyer_tau(rho: torch.Tensor, n_pairs: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """τ from the autocorrelations ``rho`` by Geyer's paired sums over the
-    first ``n_pairs`` pairs, and the sums' running min."""
-    # Paired sums, monotone by running min; the first non-positive pair
-    # truncates everything after it. A NaN pair sum (draws constant in every
-    # chain) counts as 0, as in JAX, so τ takes its floor.
-    pair_sums = rho[0 : 2 * n_pairs : 2] + rho[1 : 2 * n_pairs : 2]
-    pair_sums = torch.cummin(pair_sums, dim=0).values
-    tau = 2.0 * torch.sum(torch.where(pair_sums > 0, pair_sums, 0.0)) - 1.0
-    return torch.clamp(tau, min=1e-6), pair_sums
-
-
 def _ess_fft(x: torch.Tensor) -> torch.Tensor:
     """ESS of (N, C) draws from the FFT autocovariance of all N lags."""
     n, c = x.shape
@@ -64,7 +53,7 @@ def _ess_fft(x: torch.Tensor) -> torch.Tensor:
     if c > 1:
         var_plus = var_plus + torch.var(torch.mean(x, dim=0), correction=1)
     rho = 1.0 - (mean_var - torch.mean(acov, dim=1)) / var_plus
-    tau, _ = _geyer_tau(rho, n // 2)
+    tau, _ = geyer_tau(rho, n)
     return n * c / tau
 
 
@@ -75,39 +64,40 @@ def _window_rho(x: torch.Tensor) -> torch.Tensor:
     if c > 1 and x.stride(1) != 1:
         x = x.contiguous()
     means = torch.mean(x, dim=0)
-    acov = autocov_window(x, means, min(LAG_WINDOW, n)) / (n * c)  # mean over chains
-    mean_var = acov[0] * n / (n - 1.0)
-    var_plus = mean_var * (n - 1.0) / n
-    if c > 1:
-        var_plus = var_plus + torch.var(means.double(), correction=1)
-    return 1.0 - (mean_var - acov) / var_plus
+    return window_rho(autocov_window(x, means, min(LAG_WINDOW, n)), means, n)
 
 
 def _ess_window(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """ESS of float32 (N, C) draws from their first ``LAG_WINDOW`` lags, and
-    whether the window decides it: true where Geyer's running min is not
-    positive (NaN included) by the window's last pair, so that every pair
-    past it adds 0, or where the window holds every pair. Both stay on the
-    draws' device: nothing is read."""
+    whether the window decides it (``ops/autocov.py::geyer_tau``). Both stay
+    on the draws' device: nothing is read."""
     n, c = x.shape
-    rho = _window_rho(x)
-    lags = rho.shape[0]
-    n_pairs = n // 2
-    tau, pair_sums = _geyer_tau(rho, min(n_pairs, lags // 2))
-    if 2 * n_pairs <= lags:
-        decided = torch.ones((), dtype=torch.bool, device=x.device)
-    else:
-        decided = ~(pair_sums[-1] > 0)
+    tau, decided = geyer_tau(_window_rho(x), n)
     return (n * c / tau).to(x.dtype), decided
 
 
-@contextlib.contextmanager
-def _fft_fallback():
-    """The FFT path that runs where the window did not decide: counted in
-    ``ess.fft_fallbacks`` and spanned as ``ess.fft_fallback``."""
+def window_sums(values: torch.Tensor, means: torch.Tensor) -> torch.Tensor:
+    """The lag-window sums ``S_k`` of each parameter of float32 draws
+    ``values`` (N, P, C) with chains contiguous, centred on their chain means
+    ``means`` (P, C): (P, min(``LAG_WINDOW``, N)) float64, one window launch
+    a parameter on the card, each writing its row (a stack would launch a
+    copy)."""
+    n, p, _ = values.shape
+    out = torch.empty((p, min(LAG_WINDOW, n)), dtype=torch.float64, device=values.device)
+    for i in range(p):
+        autocov_window(values[:, i, :], means[i], LAG_WINDOW, out=out[i])
+    return out
+
+
+def ess_fallback(x: torch.Tensor, site: str,
+                 read: bool = True) -> Tuple[torch.Tensor, Optional[float]]:
+    """The FFT ESS of (N, C) draws ``x`` where the lag window did not decide,
+    counted in ``ess.fft_fallbacks`` and spanned as ``ess.fft_fallback``, and
+    its value read at the sync site ``site`` with ``read`` (else None)."""
     ess.fft_fallbacks += 1
     with span("ess.fft_fallback"):
-        yield
+        t = _ess_fft(x)
+        return t, host_sync(site, float, t) if read else None
 
 
 def ess_and_value(x: torch.Tensor, site: str,
@@ -115,19 +105,17 @@ def ess_and_value(x: torch.Tensor, site: str,
     """ESS of (N, C) draws ``x`` and its value on the host. Float32 draws
     take the lag window: its ESS and whether it decided come back in one
     host read at the sync site ``site``. The FFT runs where the window did
-    not decide, and for other dtypes; its value is read at ``site`` only with
-    ``read_fft`` (else the value is None)."""
-    fallback = contextlib.nullcontext()
-    if x.dtype == torch.float32:
-        t, decided = _ess_window(x)
-        value, decided = host_sync(site, torch.Tensor.tolist,
-                                   torch.stack([t.double(), decided.double()]))
-        if decided:
-            return t, value
-        fallback = _fft_fallback()
-    with fallback:
+    not decide (:func:`ess_fallback`), and for other dtypes; its value is
+    read at ``site`` only with ``read_fft`` (else the value is None)."""
+    if x.dtype != torch.float32:
         t = _ess_fft(x)
         return t, host_sync(site, float, t) if read_fft else None
+    t, decided = _ess_window(x)
+    value, decided = host_sync(site, torch.Tensor.tolist,
+                               torch.stack([t.double(), decided.double()]))
+    if decided:
+        return t, value
+    return ess_fallback(x, site, read_fft)
 
 
 def ess(x: torch.Tensor) -> torch.Tensor:

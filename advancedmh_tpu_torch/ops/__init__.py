@@ -24,6 +24,8 @@ from .pcn import fused_pcn_sample, pcn_constants, pcn_sample_reference, pcn_step
 from .ram import RamParams, fused_ram_sample, ram_sample_reference
 from .rwmh import fused_rwmh, fused_rwmh_sample, rwmh_reference, rwmh_sample_reference
 from .slice import fused_slice_sample, slice_sample_reference, slice_trips, unit_direction
+from .summary import (chain_moments, chain_moments_reference, summary_finish,
+                      summary_finish_reference)
 from .tempering import (fused_tempering_sample, ladder_constants, tempering_sample_reference,
                         tempering_step)
 
@@ -53,9 +55,12 @@ KERNEL_WRAPPERS = {
     "tempering": fused_tempering_sample,
     "demc": fused_demc_sample,
     "evidence": fused_power_rwmh_sample,
+    "chain_moments": chain_moments,
+    "summary_finish": summary_finish,
 }
 
 __all__ = [
+    "chain_moments", "chain_moments_reference", "summary_finish", "summary_finish_reference",
     "fused_power_rwmh_sample", "gaussian_prior_lp", "power_rwmh_reference", "power_step",
     "DemcParams", "demc_half_move", "demc_indices", "demc_move", "demc_sample_reference", "fused_demc_sample", "fused_mtm",
     "fused_mtm_sample", "fused_tempering_sample", "ladder_constants", "mtm_reference",

@@ -48,7 +48,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 # each csrc/<name>.cu instantiated for (density, d) pairs exports
-# amh_pairs_<name>; csrc/autocov.cu takes no density and is not listed
+# amh_pairs_<name>; csrc/autocov.cu and csrc/summary.cu take no density and
+# are not listed
 KERNELS = ("rwmh", "mala", "ram", "emcee", "adapt", "hmc", "hmc_adapt", "chees", "meads",
            "slice", "ess", "barker", "pcn", "am", "dr", "dram", "mtm", "tempering", "demc",
            "evidence")
@@ -199,6 +200,10 @@ _SIGNATURES = {
     "amh_evidence_info": [_S, _I32, _I32, _I32, _I64, _P],
     # x, row_stride, means, N, C, K, partials, out, stream
     "amh_autocov_window": [_P, _I64, _P, _I64, _I64, _I32, _P, _P, _P],
+    # x, row_stride, param_stride, N, P, C, moments, means, stream
+    "amh_chain_moments": [_P, _I64, _I64, _I64, _I64, _I64, _P, _P, _P],
+    # moments, means, acov, N, P, C, K, out, stream
+    "amh_summary_finish": [_P, _P, _P, _I64, _I64, _I64, _I32, _P, _P],
 }
 
 # An H100 block may use at most 227 KB of shared memory; the density's

@@ -5,13 +5,19 @@ with an ``lp`` internals column and ``start``/``thin`` iteration labels.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from ..diagnostics import rhat
-from ..diagnostics.ess import ess_and_value
+from ..diagnostics.ess import ess_and_value, ess_fallback, window_sums
+from ..ops.summary import COLUMNS, chain_moments, summary_finish
 from ..utils.trace import host_sync, span, traced
+
+
+# summary()'s statistics, in the order of the JAX package's and MCMCChains'.
+STATISTICS = ("mean", "std", "naive_se", "mcse", "ess", "rhat")
 
 
 def _std(x: torch.Tensor) -> torch.Tensor:
@@ -98,9 +104,44 @@ class Chains:
     @traced("summary")
     def summary(self) -> Dict[str, Dict[str, float]]:
         """Per-parameter mean/std/naive_se/mcse/ess/rhat (≙ MCMCChains
-        summarystats). Each statistic is the span ``summary.<statistic>``,
-        its host read the sync ``summary``. ESS is computed once a parameter:
-        mcse is std / √ESS of the same tensors."""
+        summarystats). Float32 draws on the card with contiguous chains take
+        one pass (:meth:`_summary_one_pass`); others, the CPU's included, one
+        statistic at a time (:meth:`_summary_per_statistic`)."""
+        v = self.values
+        if (v.device.type == "cuda" and v.dtype == torch.float32
+                and (v.stride(2) == 1 or v.shape[2] == 1)):
+            return self._summary_one_pass()
+        return self._summary_per_statistic()
+
+    def _summary_one_pass(self) -> Dict[str, Dict[str, float]]:
+        """Every statistic of every parameter from one pass over the draws
+        (``ops/summary.py``: one moments launch, the span
+        ``summary.moments``; a lag-window launch a parameter and the finish,
+        ``summary.ess``), read once (``summary.read``, the sync ``summary``).
+        Where the window does not decide a parameter's ESS its FFT ESS runs
+        (``diagnostics/ess.py::ess_fallback``, one more read) and mcse is
+        std / √ESS of it. On the CPU the kernels' plain versions run."""
+        with span("summary.moments"):
+            moments, means = chain_moments(self.values)
+        with span("summary.ess"):
+            table = summary_finish(moments, means, window_sums(self.values, means),
+                                   self.n_samples)
+        with span("summary.read"):
+            rows = host_sync("summary", torch.Tensor.tolist, table)
+        out: Dict[str, Dict[str, float]] = {}
+        for i, (name, row) in enumerate(zip(self.names, rows)):
+            stats = dict(zip(COLUMNS, row))
+            if not stats["decided"]:
+                with span("summary.ess"):
+                    _, stats["ess"] = ess_fallback(self.values[:, i, :], "summary")
+                stats["mcse"] = stats["std"] / math.sqrt(stats["ess"])
+            out[name] = {k: stats[k] for k in STATISTICS}
+        return out
+
+    def _summary_per_statistic(self) -> Dict[str, Dict[str, float]]:
+        """Each statistic is the span ``summary.<statistic>``, its host read
+        the sync ``summary``. ESS is computed once a parameter: mcse is
+        std / √ESS of the same tensors."""
         out: Dict[str, Dict[str, float]] = {}
         for i, name in enumerate(self.names):
             x = self.values[:, i, :]

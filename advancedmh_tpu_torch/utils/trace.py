@@ -24,9 +24,12 @@ The program's spans:
   named by its key in ``ops.KERNEL_WRAPPERS``;
 - ``fused.layout``: the kernel's outputs as transitions;
 - ``bundle``: ``SamplingResult.to_chains()``;
-- ``summary`` and, for each statistic of each parameter with its host read,
-  ``summary.mean``, ``summary.std``, ``summary.mcse``, ``summary.ess``,
-  ``summary.rhat``;
+- ``summary`` and, on the card (float32 draws, contiguous chains), its one
+  pass: ``summary.moments`` (the chain-moments launch), ``summary.ess`` (a
+  lag-window launch a parameter and the finish) and ``summary.read`` (the
+  one host read); elsewhere, for each statistic of each parameter with its
+  host read, ``summary.mean``, ``summary.std``, ``summary.mcse``,
+  ``summary.ess``, ``summary.rhat``;
 - ``ess.fft_fallback``: the FFT ESS that runs where the lag window did not
   decide Geyer's sequence (``diagnostics/ess.py``), with its host read
   inside ``summary()``;

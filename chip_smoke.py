@@ -36,7 +36,9 @@ correlated-Gaussian checks of the JAX package's tests. Then it times each
 kernel at its main path's shape against its plain version, and the whole
 call with ESS/s, and the lag-window autocovariance of ``summary()``'s ESS
 (``csrc/autocov.cu``, no TPU counterpart) beside its bound, its plain
-version and the FFT path. The timed kernel outputs are held against the plain
+version and the FFT path, and ``summary()``'s one pass (``csrc/summary.cu``:
+the chain moments and the finish, no TPU counterpart) beside their bounds,
+their plain versions and the per-statistic path. The timed kernel outputs are held against the plain
 versions' (emcee and DE-MC: their decisions over the whole run, their first
 64 draws element-wise, and their means). Every phase that fails exits non-zero. The last
 line of stdout is one JSON object: ``{"ok": true, "device": {...}}``; the
@@ -143,9 +145,14 @@ def read_launches() -> dict:
     return {name: w.launches for name, w in wrappers().items()}
 
 
-def check_launches(path: str, got: dict, want: dict) -> None:
+# The launches of one Chains.summary() on the card: its one pass.
+SUMMARY_LAUNCHES = {"chain_moments": 1, "summary_finish": 1}
+
+
+def check_launches(path: str, got: dict, want: dict, summary: bool = True) -> None:
     """The main path ``path`` launched exactly the kernels ``want`` (name ->
-    count) and no other."""
+    count), and with ``summary`` those of its one summary(), and no other."""
+    want = {**SUMMARY_LAUNCHES, **want} if summary else want
     expect = {name: want.get(name, 0) for name in got}
     print(f"{path} launches: {got}")
     check(got == expect, f"{path} launches {got}, expected {expect}")
@@ -406,7 +413,7 @@ def phase_main_rwmh(model, label, launches):
     groups = (fused_rwmh_sample.group_launches, fused_rwmh.group_launches)
     print(f"rwmh main path group launches: {groups}")
     check(groups == (1, 1), "rwmh main path: a kernel left the flagship's group form")
-    launches.update(rwmh_sample=got["rwmh_sample"], rwmh=got["rwmh"])
+    launches.update({name: got[name] for name in ("rwmh_sample", "rwmh", *SUMMARY_LAUNCHES)})
 
     check(chains.values.shape == (N_DRAWS, 2, N_CHAINS), "Chains shape")
     check(bool(torch.isfinite(chains.values).all()), "non-finite draws")
@@ -1200,7 +1207,7 @@ def phase_main_chees_meads(models, label, launches, ref_summary):
                  initial_params=torch.zeros(10, device=DEVICE), key=KEY + 72)
     sync()
     t_f = time.perf_counter() - t0
-    check_launches("meads funnel path", read_launches(), {"meads": 1})
+    check_launches("meads funnel path", read_launches(), {"meads": 1}, summary=False)
     v = res.transitions.params[:, :, 0]
     print(f"[{label}] meads funnel d=10 {LOGREG_CHAINS} x ({N_WARM} + {N_DRAWS}): {t_f:.4f} s; "
           f"acceptance {float(res.transitions.accepted.float().mean()):.4f}; mean v "
@@ -2984,7 +2991,7 @@ def phase_main_slice8(models, label, launches):
     sync()
     t_first = time.perf_counter() - t0
     got = read_launches()
-    check_launches("evidence main path", got, {"evidence": 1})
+    check_launches("evidence main path", got, {"evidence": 1}, summary=False)
     launches["evidence"] = got["evidence"]
     t_best, _ = best_of(lambda: run(KEY + 120, "fused"), 2)
     t_best = min(t_best, t_first)
@@ -2994,7 +3001,7 @@ def phase_main_slice8(models, label, launches):
     ref = run(KEY + 121, "torch")
     sync()
     t_torch = time.perf_counter() - t0
-    check_launches("evidence engine='torch'", read_launches(), {})
+    check_launches("evidence engine='torch'", read_launches(), {}, summary=False)
     X, y = (c.cpu().numpy() for c in lik.tile_consts[:2])
     laplace = laplace_log_evidence(X, y.ravel(), EV_PRIOR_SCALE)
     B = 16 * EV_CHAINS
@@ -3215,10 +3222,11 @@ def bound_autocov(N: int, C: int, K: int):
 def truncation_lag(x: torch.Tensor):
     """The lag of the first pair that Geyer's running min leaves
     non-positive in the lag window of draws ``x`` (None: not in the window)."""
-    from advancedmh_tpu_torch.diagnostics.ess import _geyer_tau, _window_rho
+    from advancedmh_tpu_torch.diagnostics.ess import _window_rho
 
     rho = _window_rho(x)
-    _, pair_sums = _geyer_tau(rho, rho.shape[0] // 2)
+    k = rho.shape[0] // 2
+    pair_sums = torch.cummin(rho[0 : 2 * k : 2] + rho[1 : 2 * k : 2], dim=0).values
     cut = (pair_sums <= 0).nonzero()
     return None if cut.numel() == 0 else 2 * int(cut[0])
 
@@ -3280,6 +3288,113 @@ def phase_timing_autocov(model, label, errs, times):
     errs["autocov"] = worst
     ms, t_plain = max(per_param)
     times["autocov"] = (ms / 1e3, t_plain, (bound_s, bound_by), n_launches)
+
+
+def bound_chain_moments(N: int, P: int, C: int):
+    """(bound in seconds, "bytes" or "operations") of one chain-moments
+    launch: the draws read once, the moments (6 float64) and mean (a float32)
+    of each parameter and chain written; a subtraction, an add and a fused
+    multiply-add (float64) a draw."""
+    return _bound(P * N * C * 4 + P * C * (6 * 8 + 4), 4.0 * P * N * C)
+
+
+def bound_summary_finish(P: int, C: int, K: int):
+    """One finishing launch: the moments, means and window sums read once,
+    the (P, 7) table written; about 30 float64 operations a chain."""
+    return _bound(P * C * (6 * 8 + 4) + P * K * 8 + P * 7 * 8, 30.0 * P * C)
+
+
+def ptxas_of(report: str, kernel: str) -> str:
+    """nvcc's registers and spills line of the non-template ``kernel``."""
+    lines = report.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and f"{kernel}E" in line:
+            spill = next((ln.strip() for ln in lines[i + 1:i + 4] if "spill" in ln), "")
+            used = next((ln.strip() for ln in lines[i + 1:i + 5] if "Used" in ln), "")
+            return f"{used}; {spill}"
+    return "not in this run's build report (the library was built before it)"
+
+
+def phase_timing_summary(model, label, errs, times, report):
+    """summary()'s one pass on the card (csrc/summary.cu, no TPU counterpart):
+    the chain moments and the finish on the flagship's Chains.values (4000 x
+    2 x 16384, strided in place) against their plain versions, each beside its
+    bound; then the whole summary() on its one-pass and its per-statistic
+    paths, their launches and host reads, and how far apart their statistics
+    are (summary_gap's reading)."""
+    from advancedmh_tpu_torch import MvNormal, RWMH, sample
+    from advancedmh_tpu_torch.diagnostics.ess import window_sums
+    from advancedmh_tpu_torch.ops.summary import (chain_moments, chain_moments_reference,
+                                                  summary_finish, summary_finish_reference)
+    from advancedmh_tpu_torch.utils.trace import host_syncs
+
+    spl = RWMH(MvNormal(torch.zeros(2, device=DEVICE), scale=SCALE))
+    chains = sample(model, spl, N_DRAWS, num_chains=N_CHAINS, engine="fused",
+                    discard_initial=N_WARM, initial_params=[0.0, 1.0], key=KEY + 5,
+                    chain_type="chains", param_names=["μ", "σ"])
+    values = chains.values
+    n, p, c = values.shape
+    check(values.stride(2) == 1, "summary: the chains are not contiguous")
+
+    before = chain_moments.launches
+    moments, means = chain_moments(values)
+    again = chain_moments(values)
+    sync()
+    check(chain_moments.launches == before + 2, "chain_moments: a CUDA view took the plain version")
+    check(torch.equal(moments, again[0]) and torch.equal(means, again[1]),
+          "chain_moments: two launches differ")
+    t_plain_m, (ref, ref_means) = best_of(lambda: chain_moments_reference(values), PLAIN_REPEATS)
+    err_m = float((moments - ref).abs().max() / ref.abs().max())
+    ulps = int((means.view(torch.int32) - ref_means.view(torch.int32)).abs().max())
+    check(err_m <= 1e-12 and ulps <= 1,
+          f"chain_moments: {err_m:.3e} of the largest moment, means {ulps} ulps off the plain")
+    ms_m = cuda_ms(lambda: chain_moments(values))
+    bound_m, by_m = bound_chain_moments(n, p, c)
+
+    acov = window_sums(values, means)
+    before = summary_finish.launches
+    table = summary_finish(moments, means, acov, n)
+    again = summary_finish(moments, means, acov, n)
+    sync()
+    check(summary_finish.launches == before + 2, "summary_finish: the plain version ran")
+    check(torch.equal(table, again), "summary_finish: two launches differ")
+    t_plain_f, ref_t = best_of(lambda: summary_finish_reference(moments, means, acov, n),
+                               PLAIN_REPEATS)
+    err_f = float(((table - ref_t).abs() / ref_t.abs()).max())
+    check(err_f <= 2e-7, f"summary_finish: {err_f:.3e} off the plain version")
+    ms_f = cuda_ms(lambda: summary_finish(moments, means, acov, n))
+    bound_f, by_f = bound_summary_finish(p, c, acov.shape[1])
+    for name, ms, (b, by), t_plain, err in (
+            ("chain_moments", ms_m, (bound_m, by_m), t_plain_m, err_m),
+            ("summary_finish", ms_f, (bound_f, by_f), t_plain_f, err_f)):
+        print(f"[{label}] {name} ({n} x {p} x {c}, row stride {values.stride(0)}): kernel "
+              f"{ms:.4f} ms ({ms / (b * 1e3):.2f}x its bound {b * 1e3:.4f} ms by {by}, "
+              f"{b * 1e3 / ms * 100:.1f}% of it), plain {t_plain * 1e3:.2f} ms, within "
+              f"{err:.3e} of it; ptxas: {ptxas_of(report, name + '_kernel')}")
+
+    launched = (chain_moments.launches, summary_finish.launches)
+    syncs = host_syncs()
+    one_pass = chains.summary()
+    sync()
+    reads = host_syncs() - syncs
+    launched = (chain_moments.launches - launched[0], summary_finish.launches - launched[1])
+    check(launched == (1, 1) and reads == {"summary": 1},
+          f"summary(): launched (moments, finish) {launched}, read {dict(reads)}")
+    per_stat = chains._summary_per_statistic()
+    gap = max(max(abs(one_pass[k]["mean"] - w["mean"]) / w["std"],
+                  abs(one_pass[k]["rhat"] - w["rhat"]),
+                  *(abs(one_pass[k][s] - w[s]) / abs(w[s])
+                    for s in ("std", "naive_se", "mcse", "ess")))
+              for k, w in per_stat.items())
+    check(gap <= 3e-5, f"summary(): the one pass is {gap:.3e} off the per-statistic path")
+    t_one, _ = best_of(chains.summary)
+    t_per, _ = best_of(chains._summary_per_statistic)
+    print(f"[{label}] Chains.summary() one pass {t_one * 1e3:.4f} ms, per statistic "
+          f"{t_per * 1e3:.4f} ms (best of 3, host clock); reads 1 against {5 * p}; "
+          f"statistics within {gap:.3e} (summary_gap's reading)")
+    errs["chain_moments"], errs["summary_finish"] = err_m, err_f
+    times["chain_moments"] = (ms_m / 1e3, t_plain_m, (bound_m, by_m), launched[0])
+    times["summary_finish"] = (ms_f / 1e3, t_plain_f, (bound_f, by_f), launched[1])
 
 
 def time_path(label, name, run, param):
@@ -3770,6 +3885,7 @@ def main() -> None:
     phase_timing_slice7(models, label, errs, times)
     phase_timing_slice8(models, label, errs, times)
     phase_timing_autocov(models["flagship"], label, errs, times)
+    phase_timing_summary(models["flagship"], label, errs, times, report)
     print(f"[{label}] chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -3781,13 +3897,18 @@ def main() -> None:
             "ms": ms * 1e3, "plain_ms": plain_s * 1e3, "bound_ms": bound_s * 1e3,
             "bound_by": bound_by, "library_ms": None,
         })
-    ms, plain_s, (bound_s, bound_by), n_launches = times["autocov"]
-    kernels.append({
-        "name": "autocov", "route": "cuda", "source": "advancedmh_tpu_torch/csrc/autocov.cu",
-        "replaces": None, "launches": n_launches, "max_abs_err": errs["autocov"],
-        "ms": ms * 1e3, "plain_ms": plain_s * 1e3, "bound_ms": bound_s * 1e3,
-        "bound_by": bound_by, "library_ms": None,
-    })
+    # autocov's launches are phase_timing_autocov's; the summary kernels'
+    # are the rwmh main path's, whose summary() ran on the one pass.
+    for name, source in (("autocov", "autocov.cu"), ("chain_moments", "summary.cu"),
+                         ("summary_finish", "summary.cu")):
+        ms, plain_s, (bound_s, bound_by), n_launches = times[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"advancedmh_tpu_torch/csrc/{source}",
+            "replaces": None, "launches": launches.get(name, n_launches),
+            "max_abs_err": errs[name],
+            "ms": ms * 1e3, "plain_ms": plain_s * 1e3, "bound_ms": bound_s * 1e3,
+            "bound_by": bound_by, "library_ms": None,
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

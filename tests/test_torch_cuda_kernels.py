@@ -10,6 +10,8 @@ order. So a decision can land within lp's last bits and part a chain from
 the plain version (2.6e-7 times per chain-step on the flagship on an H100):
 the cases run about 4000 chains, where one such chain stays inside 99.9%.
 """
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -1575,3 +1577,170 @@ def test_ess_window_on_the_card_keeps_the_nan_rule_and_falls_back():
     assert not bool(_ess_window(slow)[1])
     before = ess.fft_fallbacks
     assert torch.equal(ess(slow), _ess_fft(slow)) and ess.fft_fallbacks == before + 1
+
+
+# ---- summary()'s one pass: the chain moments and the finish (csrc/summary.cu) --------------
+
+SUMMARY_SHAPES = [(4000, 2, 16384), (4001, 2, 4096), (7, 1, 3), (300, 3, 33), (1001, 1, 1),
+                  (257, 2, 95), (129, 2, 64), (2, 2, 5), (1, 1, 1)]
+
+
+def _summary_draws(n, p, c, phi, seed):
+    """(n, p, c) AR(1) draws about 3.0 as a view of a wider tensor: chains
+    contiguous, parameters and rows strided."""
+    return (_ar1_draws(n, p + 1, c + 8, phi, seed) + 3.0)[:, :p, :c]
+
+
+def _ulps(a, b):
+    return int((a.view(torch.int32) - b.view(torch.int32)).abs().max())
+
+
+@pytest.mark.parametrize("n, p, c", SUMMARY_SHAPES)
+def test_chain_moments_matches_plain(n, p, c):
+    """Sums and second moments within float64 rounding of the plain
+    version's (each sums in its own order), the float32 means within an
+    ulp; two launches give the same bits; the view is read in place."""
+    from advancedmh_tpu_torch.ops.summary import chain_moments, chain_moments_reference
+
+    values = _summary_draws(n, p, c, 0.9, seed=n + c)
+    before = chain_moments.launches
+    got, means = chain_moments(values)
+    again, means_again = chain_moments(values)
+    torch.cuda.synchronize()
+    assert chain_moments.launches == before + 2
+    assert torch.equal(got, again) and torch.equal(means, means_again)
+    ref, ref_means = chain_moments_reference(values)
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-12 * max(scale, 1.0)
+    assert _ulps(means, ref_means) <= 1
+
+
+def test_chain_moments_past_the_grids_parameter_limit():
+    """More parameters than a grid's y holds (65535): a block takes every
+    65535-th parameter, and each matches the plain version. summary() on
+    such draws reads once, and its means and stds are the draws'."""
+    from advancedmh_tpu_torch.ops.summary import chain_moments, chain_moments_reference
+    from advancedmh_tpu_torch.output.chains import Chains
+    from advancedmh_tpu_torch.utils.trace import host_syncs
+
+    values = _summary_draws(5, 70000, 3, 0.5, seed=17)
+    got, means = chain_moments(values)
+    ref, ref_means = chain_moments_reference(values)
+    assert float((got - ref).abs().max()) <= 1e-12 * max(float(ref.abs().max()), 1.0)
+    assert _ulps(means, ref_means) <= 1
+
+    chains = Chains(values, torch.zeros(5, 3, device="cuda"), [f"p{i}" for i in range(70000)])
+    syncs = host_syncs()
+    table = chains.summary()
+    assert host_syncs() - syncs == collections.Counter(summary=1)
+    x = values.double()
+    for key, want in (("mean", torch.mean(x, dim=(0, 2))),
+                      ("std", torch.std(x, dim=(0, 2), correction=0))):
+        got = torch.tensor([table[name][key] for name in chains.names], dtype=torch.float64)
+        assert torch.allclose(got, want.cpu(), rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("n, p, c", SUMMARY_SHAPES)
+def test_summary_finish_matches_plain(n, p, c):
+    """The table within float64 rounding of the plain version's on the same
+    moments, means and window sums (the ESS within a float32 ulp), the same
+    decisions; two launches give the same bits."""
+    from advancedmh_tpu_torch.diagnostics.ess import window_sums
+    from advancedmh_tpu_torch.ops.summary import (chain_moments, summary_finish,
+                                                  summary_finish_reference)
+
+    values = _summary_draws(n, p, c, 0.9, seed=2 * n + c)
+    moments, means = chain_moments(values)
+    acov = window_sums(values, means)
+    before = summary_finish.launches
+    got = summary_finish(moments, means, acov, n)
+    again = summary_finish(moments, means, acov, n)
+    torch.cuda.synchronize()
+    assert summary_finish.launches == before + 2
+    assert torch.equal(got.isnan(), again.isnan())
+    assert torch.equal(got.nan_to_num(), again.nan_to_num())
+    ref = summary_finish_reference(moments, means, acov, n)
+    assert torch.equal(got.isnan(), ref.isnan())
+    assert torch.allclose(got.nan_to_num(), ref.nan_to_num(), rtol=2e-7, atol=0.0)
+    assert torch.equal(got[:, 6], ref[:, 6])
+
+
+def _summary_gap(got, want):
+    """summary_gap's reading: the mean's gap over the std, R̂'s absolute, the
+    other statistics' relative."""
+    gap = 0.0
+    for name, w in want.items():
+        g = got[name]
+        gap = max(gap, abs(g["mean"] - w["mean"]) / w["std"], abs(g["rhat"] - w["rhat"]),
+                  *(abs(g[s] - w[s]) / abs(w[s]) for s in ("std", "naive_se", "mcse", "ess")))
+    return gap
+
+
+def test_summary_on_the_card_is_one_pass_on_the_flagships_draws(model):
+    """The flagship's 16384 x (500 + 4000) RWMH draws: summary() reads once,
+    launches the moments, a window a parameter and the finish, and agrees
+    with the per-statistic path within 3e-5 (summary_gap's reading)."""
+    from advancedmh_tpu_torch import MvNormal, RWMH, sample
+    from advancedmh_tpu_torch.ops.autocov import autocov_window
+    from advancedmh_tpu_torch.ops.summary import chain_moments, summary_finish
+    from advancedmh_tpu_torch.utils.trace import host_syncs
+
+    spl = RWMH(MvNormal(torch.zeros(2, device="cuda"), scale=0.35))
+    chains = sample(model, spl, 4000, num_chains=16384, engine="fused", discard_initial=500,
+                    initial_params=[0.0, 1.0], key=2024, chain_type="chains",
+                    param_names=["mu", "sigma"])
+    launches = (chain_moments.launches, autocov_window.launches, summary_finish.launches)
+    syncs = host_syncs()
+    got = chains.summary()
+    assert host_syncs() - syncs == collections.Counter(summary=1)
+    assert (chain_moments.launches, autocov_window.launches,
+            summary_finish.launches) == (launches[0] + 1, launches[1] + 2, launches[2] + 1)
+    assert _summary_gap(got, chains._summary_per_statistic()) <= 3e-5
+
+
+@pytest.mark.parametrize("n, p, c", [(1001, 2, 1), (257, 3, 95), (4001, 2, 64), (7, 1, 3)])
+def test_summary_on_the_card_agrees_with_the_per_statistic_path(n, p, c):
+    """Odd N, one chain, ragged chains and N below the window, on the card."""
+    from advancedmh_tpu_torch.output.chains import Chains
+    from advancedmh_tpu_torch.utils.trace import host_syncs
+
+    values = _summary_draws(n, p, c, 0.5, seed=n * c)
+    chains = Chains(values, torch.zeros(n, c, device="cuda"), [f"p{i}" for i in range(p)])
+    syncs = host_syncs()
+    got = chains.summary()
+    assert host_syncs() - syncs == collections.Counter(summary=1)
+    assert _summary_gap(got, chains._summary_per_statistic()) <= 3e-5
+
+
+def test_summary_on_the_card_falls_back_with_one_more_read():
+    from advancedmh_tpu_torch.diagnostics.ess import _ess_fft, ess
+    from advancedmh_tpu_torch.output.chains import Chains
+    from advancedmh_tpu_torch.utils.trace import host_syncs
+
+    slow = _ar1_draws(4000, 1, 4, 0.995, seed=3)
+    fast = _ar1_draws(4000, 1, 4, 0.2, seed=4)
+    values = torch.cat([slow, fast], dim=1)
+    chains = Chains(values, torch.zeros(4000, 4, device="cuda"), ["slow", "fast"])
+    before, syncs = ess.fft_fallbacks, host_syncs()
+    got = chains.summary()
+    assert host_syncs() - syncs == collections.Counter(summary=2)
+    assert ess.fft_fallbacks == before + 1
+    assert got["slow"]["ess"] == float(_ess_fft(values[:, 0, :]))
+
+
+@pytest.mark.parametrize("layout", ["strided chains", "float64"])
+def test_summary_on_the_card_keeps_the_per_statistic_path(layout):
+    """Draws whose chains are not contiguous, or not float32, take the
+    per-statistic path: five reads a parameter."""
+    from advancedmh_tpu_torch.ops.summary import chain_moments
+    from advancedmh_tpu_torch.output.chains import Chains
+    from advancedmh_tpu_torch.utils.trace import host_syncs
+
+    values = _summary_draws(300, 2, 16, 0.5, seed=9)
+    values = (values.permute(2, 0, 1).contiguous().permute(1, 2, 0) if layout == "strided chains"
+              else values.double())
+    chains = Chains(values, torch.zeros(300, 16, device="cuda"), ["a", "b"])
+    before, syncs = chain_moments.launches, host_syncs()
+    chains.summary()
+    assert host_syncs() - syncs == collections.Counter(summary=10)
+    assert chain_moments.launches == before

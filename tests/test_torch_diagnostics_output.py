@@ -127,3 +127,40 @@ def test_chains_bundle_matches_jax(num_chains):
         assert list(cs[name]) == list(rs[name])
         for k in cs[name]:
             np.testing.assert_allclose(cs[name][k], rs[name][k], rtol=RTOL)
+
+
+def _params(*draws):
+    """(N, P, C) float32 draws, Chains.values' layout, from (N, C) arrays."""
+    return np.stack(draws, axis=1).astype(np.float32)
+
+
+ONE_PASS = {
+    "chains": _params(_ar1(256, 3, 0.7, 5), _ar1(256, 3, 0.3, 6, shift=2.0)),
+    "odd rows": _params(_ar1(257, 4, 0.5, 7), _ar1(257, 4, 0.9, 8, shift=-1.0)),
+    "one chain": _params(_ar1(301, 1, 0.6, 9)),
+    "below the window": _params(_ar1(7, 3, 0.4, 10)),
+    "past the window": _params(_ar1(4000, 4, 0.995, 11), _ar1(4000, 4, 0.2, 12)),
+    "constant": _params(np.full((100, 4), 1.25, np.float32)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ONE_PASS))
+def test_one_pass_summary_matches_jax(case):
+    """``Chains.summary()``'s one pass, the card's path for float32 draws
+    (here its kernels' plain versions), against the JAX package's summary
+    of the same draws: every statistic, in the same order. The slow chains
+    of "past the window" take the FFT fallback; constant draws keep ESS's
+    floor and R̂'s NaN."""
+    from advancedmh_tpu.output.chains import Chains as RefChains
+    from advancedmh_tpu_torch.output.chains import Chains
+
+    values = ONE_PASS[case]
+    n, p, c = values.shape
+    names = [f"p{i}" for i in range(p)]
+    got = Chains(torch.as_tensor(values), torch.zeros(n, c), names)._summary_one_pass()
+    want = RefChains(jnp.asarray(values), jnp.zeros((n, c)), names).summary()
+    assert list(got) == list(want)
+    for name in want:
+        assert list(got[name]) == list(want[name])
+        for k in want[name]:
+            np.testing.assert_allclose(got[name][k], want[name][k], rtol=RTOL)

@@ -155,7 +155,7 @@ def test_spans_nest_only_within_their_thread():
 
 
 def test_each_kernel_wrapper_is_its_own_span():
-    assert len(KERNEL_WRAPPERS) == 23
+    assert len(KERNEL_WRAPPERS) == 25
     for name, wrapper in KERNEL_WRAPPERS.items():
         assert wrapper.span_name == f"kernel.{name}"
         assert isinstance(wrapper.launches, int)
@@ -261,7 +261,8 @@ def test_on_the_card_every_sync_of_a_flagship_call_is_counted(card):
               f"{counted} counted", *syncs, sep="\n  ")
         assert len(syncs) == counted, syncs
         runs[on] = (counted, result.transitions, summary)
-    assert runs[False][0] == runs[True][0] == 5 * D + 2
+    # summary()'s one read on the card (its one-pass path), the proposal's and the scale's
+    assert runs[False][0] == runs[True][0] == 1 + 2
     for name in ("params", "lp", "accepted"):
         assert torch.equal(getattr(runs[False][1], name), getattr(runs[True][1], name))
     assert runs[False][2] == runs[True][2]
