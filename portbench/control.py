@@ -46,9 +46,8 @@ def control_draws(driver, key: int) -> judge.Draws:
     chain = torch.arange(C, device=dev)
     x = driver.initial.to(BF16).reshape(1, d).expand(C, d).contiguous()
     plan = ref.plan(driver.traffic)
-    noise = philox.NoiseStream(philox.kernel_seed(key), chain,
-                               torch.ones(C, dtype=torch.long, device=dev), d,
-                               torch.float32, 64)
+    noise = ref.noise(plan, philox.kernel_seed(key), chain,
+                      torch.ones(C, dtype=torch.long, device=dev), d, torch.float32, 64)
     x, l, a = ref.replay(dens, plan, noise, x, ref.steps_before(plan, 0))
     params[:, 0], lp[:, 0], acc[:, 0] = x.float(), l.float(), a
     for k in range(1, N):

@@ -4,10 +4,16 @@
 smallest ESS of ``summary()`` over the configuration's parameters.
 
 The traffic file names the sampler as the program's public constructor and
-its arguments (``builder.build``), the chain count, the schedule
+its arguments (``builder.build``; an argument ``{"config": key}`` is made by
+the configuration's ``program_objects``), the chain count, the schedule
 (``n_samples``, ``num_warmup``, ``discard_initial``, ``thinning``), the
-initial point and the reference (``reference/<name>.py``) that judges the
-draws.
+initial point, the reference (``reference/<name>.py``) that judges the
+draws and, optionally, the module of the kernels' counts
+(``"bounds"``: ``bounds/<name>.py``, the reference's name by default) and
+``"warm_ess_fallback": true`` where some of the cell's calls take
+``summary()``'s FFT fallback (Geyer's sequence past the lag window): set-up
+then runs that fallback once at the calls' shape, so that cuFFT's load and
+plans fall in set-up and not in the call that first needs them.
 """
 from __future__ import annotations
 
@@ -16,7 +22,7 @@ import importlib
 import torch
 
 from portbench import judge
-from portbench.builder import build
+from portbench.builder import build, config_objects
 
 
 def _sync(device) -> None:
@@ -33,8 +39,9 @@ class SampleDriver:
         t = cell.traffic
         self.traffic = t
         self.model = cfgmod.program_model(cell.config, data, device)
-        self.sampler = build(t["sampler"], amh, device)
-        self.initial = torch.as_tensor(build(t["initial_params"], amh, device),
+        objects = config_objects(cell, cfgmod, data, device)
+        self.sampler = build(t["sampler"], amh, device, objects)
+        self.initial = torch.as_tensor(build(t["initial_params"], amh, device, objects),
                                        dtype=torch.float32, device=device)
         self.names = list(cell.config["param_names"])
         self.n_samples = int(t["n_samples"])
@@ -43,7 +50,21 @@ class SampleDriver:
                            discard_initial=int(t["discard_initial"]),
                            thinning=int(t["thinning"]), initial_params=self.initial)
         self.reference = importlib.import_module(f"portbench.reference.{t['reference']}")
-        self.bounds = importlib.import_module(f"portbench.bounds.{t['reference']}")
+        self.bounds = importlib.import_module(
+            f"portbench.bounds.{t.get('bounds', t['reference'])}")
+        if t.get("warm_ess_fallback"):
+            self.warm_ess_fallback()
+
+    def warm_ess_fallback(self) -> None:
+        """The program's FFT ESS once on an (n_samples, chains) float32 block,
+        the shape of one parameter's draws in ``summary()``; no host read."""
+        from advancedmh_tpu_torch.diagnostics.ess import ess_fallback
+
+        gen = torch.Generator(self.device).manual_seed(0)
+        x = torch.randn((self.n_samples, self.kwargs["num_chains"]), generator=gen,
+                        dtype=torch.float32, device=self.device)
+        ess_fallback(x, "summary", read=False)
+        _sync(self.device)
 
     def run(self, key: int, span):
         with span("sample"):

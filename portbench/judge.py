@@ -70,9 +70,10 @@ def mismatched(x_ref, x_got, acc_ref, acc_got) -> torch.Tensor:
 def judge_draws(draws: Draws, ref, traffic: dict, logp64: Callable,
                 initial: torch.Tensor, key: int, seed: int,
                 names: List[str], limits: Dict[str, float]) -> List[Check]:
-    """The numbers of a sampling call (see the module's doc). ``logp64`` is
-    the float64 log density ``ref.replay`` steps with; ``initial`` the
-    initial point."""
+    """The numbers of a sampling call (see the module's doc). ``ref`` is the
+    cell's reference module, whose ``noise`` makes the stream its ``replay``
+    consumes; ``logp64`` is the float64 target ``ref.replay`` steps with;
+    ``initial`` the initial point."""
     plan = ref.plan(traffic)
     C, N, d = draws.params.shape
     dev = draws.params.device
@@ -82,7 +83,7 @@ def judge_draws(draws: Draws, ref, traffic: dict, logp64: Callable,
     kseed = philox.kernel_seed(key)
     thin = plan["thin"]
     first = plan["burn"] + k * thin + 1
-    noise = philox.NoiseStream(kseed, c, first, d, chunk=thin)
+    noise = ref.noise(plan, kseed, c, first, d, torch.float64, thin)
     x_ref, _, acc_ref = ref.replay(logp64, plan, noise, draws.params[c, k - 1].double(), thin)
     bad = mismatched(x_ref, draws.params[c, k].double(), acc_ref, draws.accepted[c, k])
     n_bad, n_all = int(bad.sum()), bad.numel()
@@ -90,7 +91,7 @@ def judge_draws(draws: Draws, ref, traffic: dict, logp64: Callable,
     x0 = initial.double().to(dev).reshape(1, d).expand(N_STARTS, d)
     first0 = torch.ones(N_STARTS, dtype=torch.long, device=dev)
     n0 = ref.steps_before(plan, 0)
-    noise0 = philox.NoiseStream(kseed, c0, first0, d, chunk=64)
+    noise0 = ref.noise(plan, kseed, c0, first0, d, torch.float64, 64)
     x_ref0, _, acc0 = ref.replay(logp64, plan, noise0, x0, n0)
     bad0 = mismatched(x_ref0, draws.params[c0, 0].double(), acc0, draws.accepted[c0, 0])
     n_bad, n_all = n_bad + int(bad0.sum()), n_all + bad0.numel()

@@ -7,7 +7,9 @@ and accepts iff ``log u < log p(x') − log p(x)`` (a NaN difference, as
 between two points outside the support, rejects). Draw k of a call is the
 state after ``burn + (k + 1)·thin`` steps, ``burn = max(discard_initial −
 thin, 0)``; step t of the call draws the noise of absolute step t.
-Plain PyTorch; imports nothing of the program.
+The noise of a step is ``philox.step_noise``'s: the d normals and log u,
+2P + 1 Philox words (:func:`noise`). Plain PyTorch; imports nothing of the
+program.
 """
 from __future__ import annotations
 
@@ -28,6 +30,14 @@ def plan(traffic: dict) -> dict:
 def steps_before(plan_: dict, k: int) -> int:
     """Steps of the call before draw k."""
     return plan_["burn"] + (k + 1) * plan_["thin"]
+
+
+def noise(plan_: dict, seed: int, chain: torch.Tensor, first: torch.Tensor, d: int,
+          dtype=torch.float64, chunk: int = 1) -> philox.NoiseStream:
+    """The noise :func:`replay` consumes: consecutive steps of chains
+    ``chain`` from absolute steps ``first`` on, under the kernels' Philox
+    ``seed``, computed ``chunk`` steps at a time in ``dtype``."""
+    return philox.NoiseStream(seed, chain, first, d, dtype, chunk)
 
 
 def replay(logp: Callable, plan_: dict, noise: philox.NoiseStream, x: torch.Tensor,

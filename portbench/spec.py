@@ -5,13 +5,19 @@ and metrics. Everything else is found by name under ``portbench/``:
 
 - a configuration ``<c>``: its file of sizes (``configs/<c>.json``, the
   ``file`` of its entry) and its module ``configs/<c>.py`` (the data it is
-  run on, made from the seed, and the program's model of it);
+  run on, made from the seed, the program's model of it, the objects its
+  traffic names as ``{"config": key}`` (``program_objects``) and its plain
+  reference's density);
 - a traffic mix ``<t>`` of configuration ``<c>``: the data file
   ``traffic/<c>.<t>.json``, read by the driver it names
-  (``drivers/<call>.py``) and judged by the reference it names
-  (``reference/<name>.py``);
+  (``drivers/<call>.py``), judged by the reference it names
+  (``reference/<name>.py``: ``plan``, ``steps_before``, ``noise`` and
+  ``replay``), counted by its bounds module (``bounds/<name>.py``, the
+  reference's name unless it names ``"bounds"``), and run by the CPU tests
+  at the sizes of its ``"cpu_test"``, which the timed path never reads;
 - a metric ``<m>``: its reader ``metrics/<m>.py``, or, for a name
-  ``<q>.<suffix>`` whose reader is shared, ``metrics/<q>.py``.
+  ``<q>.<suffix>`` whose reader is shared, ``metrics/<q>.py``. An
+  end-to-end metric with no ``workloads`` list is reported by every cell.
 
 A later cell, configuration or metric is new files and new entries.
 """

@@ -11,35 +11,28 @@ from __future__ import annotations
 import ast
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import pytest
 import torch
 
-from portbench import control, harness, spec
+from portbench import harness, spec
+from portbench.builder import build, config_objects
+from portbench.reference import philox
+from portbench.reference import rwmh as ref_rwmh
+from portbench.tests import cpu_runs
 from portbench.window import CallRecord, Window, percentile, run_window
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 WORKLOADS = [w["name"] for w in BENCH["workloads"]]
-
-# a size a test run can hold, per traffic mix
-TINY = {
-    "flagship.rwmh": {"num_chains": 64, "n_samples": 60, "discard_initial": 20},
-    "flagship.rwmh-thin": {"num_chains": 64, "n_samples": 30, "discard_initial": 20},
-}
-
-
-def run_cpu(workload, capsys, seed=4_294_967_311, trace=0, seconds=0.3):
-    rc = harness.main(["--workload", workload, "--seed", str(seed), "--seconds", str(seconds),
-                       "--trace", str(trace)], device="cpu",
-                      traffic_overrides=TINY[workload])
-    out = capsys.readouterr().out.strip().splitlines()
-    assert rc == 0
-    return json.loads(out[-1])
+FIXTURE = Path(__file__).resolve().parent / "fixtures" / "fixture_gp"
 
 
 # ---- discovery by name -----------------------------------------------------------------
@@ -50,8 +43,10 @@ def test_cell_parts_are_found_by_name(workload):
     cell = spec.cell(workload)
     assert cell.config_module().make_data and cell.driver().prepare
     assert set(cell.traffic["limits"]) and cell.chips == 1
+    assert set(cell.traffic["cpu_test"]) <= set(cell.traffic) - {"cpu_test"}
     names = [m.name for m in cell.end_to_end]
     assert "setup_s" in names and len(names) >= 2 and cell.per_layer
+    assert names == [m["name"] for m in BENCH["end_to_end"]]  # every cell reports each
     for m in cell.end_to_end + cell.per_layer:
         assert callable(m.reader().read), m.name
 
@@ -162,20 +157,27 @@ def test_no_source_of_the_benchmark_names_jax_or_the_jax_package():
         assert tops <= allowed, (path, tops - allowed)
 
 
-def test_the_reference_imports_nothing_of_the_program():
-    for path in (ROOT / "portbench" / "reference").glob("*.py"):
+def assert_references_import_nothing_of_the_program(root: Path) -> None:
+    """Every ``portbench/reference/*.py`` under ``root``, imported in a fresh
+    process from ``root``, loads neither the program nor JAX."""
+    paths = sorted((root / "portbench" / "reference").glob("*.py"))
+    for path in paths:
         assert "advancedmh_tpu_torch" not in set(_top_imports(path)), path
-    code = ("import sys; import portbench.reference.philox, portbench.reference.rwmh, "
-            "portbench.reference.summary, portbench.reference.flagship; "
+    mods = [f"portbench.reference.{p.stem}" for p in paths if p.stem != "__init__"]
+    code = (f"import sys; import {', '.join(mods)}; "
             "print(sorted({m.split('.')[0] for m in sys.modules}))")
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
                          text=True, check=True).stdout
     loaded = set(json.loads(out.replace("'", '"')))
     assert not loaded & {"advancedmh_tpu_torch", *harness.FORBIDDEN}
 
 
-def test_a_run_loads_no_jax(capsys):
-    run_cpu("flagship.rwmh", capsys)
+def test_the_reference_imports_nothing_of_the_program():
+    assert_references_import_nothing_of_the_program(ROOT)
+
+
+def test_a_run_loads_no_jax():
+    cpu_runs.run("flagship.rwmh")
     assert harness.forbidden_modules() == [] or "jax" in sys.modules  # the test process
     code = ("import sys; sys.argv = ['x']; from portbench import harness; "
             "harness.main(['--workload', 'flagship.rwmh', '--seed', '5', '--seconds', '0.2',"
@@ -207,8 +209,8 @@ def test_without_a_card_a_run_prints_no_result(capsys):
 
 
 @pytest.mark.parametrize("workload", WORKLOADS)
-def test_a_sound_run_is_correct(workload, capsys):
-    res = run_cpu(workload, capsys)
+def test_a_sound_run_is_correct(workload):
+    res = cpu_runs.run(workload)
     assert res["correct"] is True and res["failed"] == 0
     assert list(res)[-1] == "checks"
     assert set(res["checks"]) == set(spec.cell(workload).traffic["limits"])
@@ -217,8 +219,8 @@ def test_a_sound_run_is_correct(workload, capsys):
 
 
 @pytest.mark.parametrize("workload", WORKLOADS)
-def test_a_traced_run_reads_its_trace(workload, capsys):
-    res = run_cpu(workload, capsys, trace=1)
+def test_a_traced_run_reads_its_trace(workload):
+    res = cpu_runs.run(workload, trace=1)
     assert res["correct"] is True
     assert res["device"]["window_s"] > 0.0 and "breakdown" in res
     assert set(res["metrics"]) <= {m.name for m in spec.cell(workload).per_layer}
@@ -226,7 +228,7 @@ def test_a_traced_run_reads_its_trace(workload, capsys):
 
 @pytest.mark.parametrize("workload", WORKLOADS)
 def test_the_bfloat16_control_is_not_correct(workload):
-    checks = control.run(workload, 2_147_483_659, torch.device("cpu"), TINY[workload])
+    checks = cpu_runs.control_checks(workload)
     assert not all(c.ok for c in checks)
     assert min(c.value / c.limit for c in checks if not c.ok) > 1.0
 
@@ -234,65 +236,203 @@ def test_the_bfloat16_control_is_not_correct(workload):
 # ---- faults planted under the timed path -----------------------------------------------
 
 
-def _unchanged(fn):
-    """A step that returns its state unchanged: every draw is the start."""
-    def broken(tile_fn, density, params_t, lp, *args, **kw):
-        out = fn(tile_fn, density, params_t, lp, *args, **kw)
-        n = out[0].shape[0]
-        return (params_t[None].expand(n, *params_t.shape).clone(),
-                lp[None].expand(n, *lp.shape).clone(), torch.zeros_like(out[2]), *out[3:])
-    return broken
+@pytest.mark.parametrize("fault", cpu_runs.FAULTS)
+@pytest.mark.parametrize("workload", WORKLOADS)
+def test_a_fault_under_a_sampling_call_is_not_correct(workload, fault):
+    res = cpu_runs.run(workload, fault=fault)
+    assert res["correct"] is False, res["checks"]
 
 
-def _half(fn):
-    """Half of the batch left out: the second half of the chains is never run."""
-    def broken(tile_fn, density, params_t, *args, **kw):
-        out = fn(tile_fn, density, params_t, *args, **kw)
-        half = params_t.shape[1] // 2
-        return tuple(_zero_tail(o, half) for o in out)
-    return broken
-
-
-def _zero_tail(t, half):
-    t = t.clone()
-    t[..., half:] = 0.0
-    return t
-
-
-def _altered(fn):
-    """An answer altered where it is produced."""
-    def broken(*args, **kw):
-        out = fn(*args, **kw)
-        return (out[0] * (1.0 + 1e-3) + 1e-3, *out[1:])
-    return broken
-
-
-def _half_summary(orig):
-    """The statistics taken over half of the chains."""
-    def broken(self):
-        half = type(self)(self.values[:, :, : self.n_chains // 2],
-                          self.lp[:, : self.n_chains // 2], self.names)
-        return orig(half)
-    return broken
-
-
-SAMPLE_KERNELS = {"flagship.rwmh": "fused_rwmh_sample", "flagship.rwmh-thin": "fused_rwmh_sample"}
-
-
-@pytest.mark.parametrize("fault", ["unchanged", "half", "altered", "half_summary"])
-@pytest.mark.parametrize("workload", sorted(SAMPLE_KERNELS))
-def test_a_fault_under_a_sampling_call_is_not_correct(workload, fault, capsys, monkeypatch):
+def test_a_planted_fault_is_taken_out_again():
     import advancedmh_tpu_torch.runtime.fused as fused
     from advancedmh_tpu_torch.output.chains import Chains
 
-    name = SAMPLE_KERNELS[workload]
-    if fault == "half_summary":
-        monkeypatch.setattr(Chains, "summary", _half_summary(Chains.summary))
-    else:
-        wrap = {"unchanged": _unchanged, "half": _half, "altered": _altered}[fault]
-        monkeypatch.setattr(fused, name, wrap(getattr(fused, name)))
-    res = run_cpu(workload, capsys)
-    assert res["correct"] is False, res["checks"]
+    before = (fused.run, Chains.summary)
+    for fault in cpu_runs.FAULTS:
+        with pytest.raises(RuntimeError), cpu_runs.planted(fault):
+            assert (fused.run, Chains.summary) != before
+            raise RuntimeError
+    assert (fused.run, Chains.summary) == before
+
+
+@pytest.mark.parametrize("workload", WORKLOADS)
+def test_set_up_warms_the_ess_fallback_where_the_traffic_asks(workload):
+    from advancedmh_tpu_torch.diagnostics.ess import ess
+
+    cell = spec.cell(workload)
+    cell.traffic.update(cell.traffic["cpu_test"])
+    cfgmod = cell.config_module()
+    data = cfgmod.make_data(cell.config, 7, "cpu")
+    before = ess.fft_fallbacks
+    cell.driver().prepare(cell, cfgmod, data, "cpu")
+    assert ess.fft_fallbacks - before == int(bool(cell.traffic.get("warm_ess_fallback")))
+
+
+# ---- a new configuration and sampler join as new files and entries ---------------------
+
+
+def test_the_rwmh_reference_replays_the_kernels_step_noise():
+    chain = torch.tensor([0, 5, 16383])
+    first = torch.tensor([1, 4501, (1 << 32) - 1])
+    plan = ref_rwmh.plan(spec.cell("flagship.rwmh").traffic)
+    got = ref_rwmh.noise(plan, 0x1234_5678_9ABC_DEF0, chain, first, 2, torch.float64, 4)
+    want = philox.NoiseStream(0x1234_5678_9ABC_DEF0, chain, first, 2, torch.float64, 4)
+    for _ in range(6):
+        for a, b in zip(got.next(), want.next()):
+            assert torch.equal(a, b)
+
+
+AMH = types.SimpleNamespace(Normal=lambda *args: args)  # stands in for the program
+
+
+class _Config:
+    """A configuration module with ``program_objects`` (or without)."""
+
+    def __init__(self, objects=None):
+        if objects is not None:
+            self.program_objects = lambda cfg, data, device: objects
+
+
+@pytest.mark.parametrize("module, key", [(_Config(), "prior"), (_Config({"a": 1}), "prior"),
+                                         (_Config({"prior": 1}), "scale")])
+def test_a_missing_config_object_names_the_cell_and_the_key(module, key):
+    cell = spec.cell("flagship.rwmh")
+    objects = config_objects(cell, module, {}, "cpu")
+    with pytest.raises(LookupError, match=rf"flagship\.rwmh.*'{key}'.*flagship\.py"):
+        build({"type": "Normal", "args": [{"config": key}]}, AMH, "cpu", objects)
+
+
+def test_config_objects_are_made_once_and_only_when_asked():
+    made = []
+    module = _Config()
+    module.program_objects = lambda cfg, data, device: made.append(1) or {"s": 2.0, "t": 3.0}
+    objects = config_objects(spec.cell("flagship.rwmh"), module, {}, "cpu")
+    assert build([1.0, 2.0], None, "cpu", objects) == [1.0, 2.0] and made == []
+    assert build([{"config": "s"}, {"config": "t"}], None, "cpu", objects) == [2.0, 3.0]
+    assert made == [1]
+
+
+@pytest.mark.parametrize("bounds, module", [(None, "rwmh"), ("rwmh", "rwmh")])
+def test_the_traffic_may_name_its_bounds_module(bounds, module):
+    cell = spec.cell("flagship.rwmh")
+    if bounds is not None:
+        cell.traffic["bounds"] = bounds
+    cfgmod = cell.config_module()
+    driver = cell.driver().prepare(cell, cfgmod, cfgmod.make_data(cell.config, 7, "cpu"), "cpu")
+    assert driver.bounds.__name__ == f"portbench.bounds.{module}"
+
+
+def test_a_bounds_module_the_traffic_names_must_exist():
+    cell = spec.cell("flagship.rwmh")
+    cell.traffic["bounds"] = "no_such_bounds"
+    cfgmod = cell.config_module()
+    with pytest.raises(ModuleNotFoundError, match="no_such_bounds"):
+        cell.driver().prepare(cell, cfgmod, cfgmod.make_data(cell.config, 7, "cpu"), "cpu")
+
+
+def _files(root: Path) -> dict:
+    return {str(p.relative_to(root)): p.read_bytes() for p in sorted(root.rglob("*"))
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
+def _benchmark_with_fixture(tmp_path: Path) -> Path:
+    """A copy of ``BENCHMARK.json`` and ``portbench/`` with the fixture cell
+    added as new files and appended entries only; checks that every file
+    that was there is unchanged and the JSON differs by the entries alone."""
+    copy = tmp_path / "bench"
+    copy.mkdir()
+    shutil.copy(ROOT / "BENCHMARK.json", copy / "BENCHMARK.json")
+    shutil.copytree(ROOT / "portbench", copy / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    before = _files(copy)
+    added = []
+    for src in sorted(FIXTURE.rglob("*")):
+        if src.is_file() and src.name != "entries.json" and "__pycache__" not in src.parts:
+            dst = copy / "portbench" / src.relative_to(FIXTURE)
+            assert not dst.exists(), f"the fixture would replace {dst}"
+            shutil.copy(src, dst)
+            added.append(str(dst.relative_to(copy)))
+    old = json.loads((copy / "BENCHMARK.json").read_text())
+    entries = json.loads((FIXTURE / "entries.json").read_text())
+    new = dict(old)
+    for k, v in entries.items():
+        new[k] = old[k] + v
+    (copy / "BENCHMARK.json").write_text(json.dumps(new, indent=1))
+
+    after = _files(copy)
+    assert sorted(set(after) - set(before)) == sorted(added)
+    assert {"portbench/configs/fixture_gp.json", "portbench/configs/fixture_gp.py",
+            "portbench/traffic/fixture_gp.ess.json", "portbench/reference/ess.py",
+            "portbench/bounds/ess.py"} <= set(added)
+    assert all(after[f] == before[f] for f in before if f != "BENCHMARK.json")
+    reread = json.loads(after["BENCHMARK.json"])
+    assert set(reread) == set(old)
+    for k, v in old.items():
+        assert reread[k] == (v + entries[k] if k in entries else v), k
+    return copy
+
+
+def _run_in_copy(copy: Path, workload: str) -> dict:
+    """``cpu_runs.verdicts(workload)`` by the copy's harness, in a process
+    that finds the copy's ``portbench`` first and the program in the repo."""
+    out = subprocess.run([sys.executable, "-m", "portbench.tests.cpu_runs", "--workload",
+                          workload], cwd=copy, capture_output=True, text=True, timeout=600,
+                         env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["harness"] == str(copy / "portbench")
+    return res
+
+
+def test_a_cell_of_another_sampler_joins_as_new_files_only(tmp_path):
+    copy = _benchmark_with_fixture(tmp_path)
+    traffic = json.loads((copy / "portbench/traffic/fixture_gp.ess.json").read_text())
+    # its sampler takes an argument made from its configuration's data, and a
+    # step draws more Philox words than the RWMH stream gives (2P + 1)
+    assert traffic["sampler"]["args"] == [{"config": "prior"}]
+    d, trips = 8, traffic["sampler"]["kwargs"]["max_shrink"]
+    assert 2 * ((d + 1) // 2) + 2 + trips > 2 * ((d + 1) // 2) + 1
+    assert_references_import_nothing_of_the_program(copy)
+
+    res = _run_in_copy(copy, "fixture_gp.ess")
+    assert res["sound"] is True, res["sound_checks"]
+    assert res["traced"] is True
+    # its per-layer metrics are new names read by shared readers
+    assert res["traced_metrics"]["host_syncs.fixture_gp"]["value"] > 5 * d
+    assert "idle.fixture_gp" in res["traced_metrics"]
+    assert res["control"] is False, res["control_checks"]
+    for fault in cpu_runs.FAULTS:
+        assert res[fault] is False, (fault, res[f"{fault}_checks"])
+
+
+RWMH_WORDS = '''
+
+class _RwmhWords:
+    """The RWMH stream's 2P + 1 words a step in place of this module's: the
+    words past them (U_theta, the trips) read as its last, word 2P."""
+
+    def __init__(self, stream, n_trips):
+        self.stream, self.n_trips = stream, n_trips
+
+    def next(self):
+        z, logu, _ = self.stream.next()
+        u = torch.exp(logu)
+        return z, logu, u, u[:, None].expand(-1, self.n_trips)
+
+
+def noise(plan_, seed, chain, first, d, dtype=torch.float64, chunk=1):
+    return _RwmhWords(philox.NoiseStream(seed, chain, first, d, dtype, chunk),
+                      plan_["max_shrink"])
+'''
+
+
+def test_the_fixture_is_judged_by_its_own_noise(tmp_path):
+    copy = _benchmark_with_fixture(tmp_path)
+    with open(copy / "portbench/reference/ess.py", "a") as f:
+        f.write(RWMH_WORDS)
+    res = _run_in_copy(copy, "fixture_gp.ess")
+    mismatch = res["sound_checks"]["transition_mismatch"]
+    assert mismatch["value"] > mismatch["limit"] and res["sound"] is False
 
 
 # ---- on the card -----------------------------------------------------------------------

@@ -10,13 +10,26 @@ import sys
 import pytest
 
 from portbench import harness, spec
-from portbench.tests.test_portbench_harness import WORKLOADS, run_cpu
+from portbench.tests import cpu_runs
+from portbench.tests.test_portbench_harness import WORKLOADS
 from portbench.window import CallRecord
 
 NEW = ("host_syncs.ess", "front_end_ms.ess", "ess_stat_share.ess")
-D = 2  # the flagship's parameters
-# summary()'s five reads a parameter, the proposal's loc and the scale's copy
-SYNCS_A_CALL = 5 * D + 1 + 1
+READERS = tuple(n.split(".")[0] for n in NEW)
+
+
+def syncs_a_call(workload: str) -> int:
+    """The program's own count of host syncs (``utils/trace.py::host_syncs``)
+    in one untraced call of ``workload`` at its ``cpu_test`` sizes."""
+    from advancedmh_tpu_torch.utils.trace import host_syncs
+
+    cell = spec.cell(workload)
+    cell.traffic.update(cell.traffic["cpu_test"])
+    cfgmod = cell.config_module()
+    driver = cell.driver().prepare(cell, cfgmod, cfgmod.make_data(cell.config, 5, "cpu"), "cpu")
+    before = host_syncs()
+    driver.run(harness.call_key(5, 0), harness.Spans(tracing=False).span)
+    return sum((host_syncs() - before).values())
 
 
 def _reader(name):
@@ -24,15 +37,26 @@ def _reader(name):
 
 
 @pytest.mark.parametrize("workload", WORKLOADS)
-def test_a_traced_run_reports_the_program_span_metrics(workload, capsys):
-    res = run_cpu(workload, capsys, trace=1)
+def test_a_traced_run_reports_the_program_span_metrics(workload):
+    cell = spec.cell(workload)
+    res = cpu_runs.run(workload, trace=1)
     assert res["correct"] is True
-    for name in NEW:
-        assert name in {m.name for m in spec.cell(workload).per_layer}
+    # the cell's names of the three readers (``<reader>.<suffix>``)
+    mine = {m.name.split(".")[0]: m.name for m in cell.per_layer
+            if m.name.split(".")[0] in READERS}
+    assert set(mine) == set(READERS)
+    for name in mine.values():
         assert res["metrics"][name]["value"] > 0.0, name
-    assert res["metrics"]["host_syncs.ess"]["value"] == SYNCS_A_CALL
-    assert res["metrics"]["host_syncs.ess"]["unit"] == "syncs/call"
-    assert 0.0 < res["metrics"]["ess_stat_share.ess"]["value"] < 100.0
+    assert res["metrics"][mine["host_syncs"]]["value"] == syncs_a_call(workload)
+    assert res["metrics"][mine["host_syncs"]]["unit"] == "syncs/call"
+    assert 0.0 < res["metrics"][mine["ess_stat_share"]]["value"] < 100.0
+
+
+@pytest.mark.parametrize("workload", ["flagship.rwmh", "flagship.rwmh-thin"])
+def test_a_flagship_call_syncs_five_times_a_parameter_and_twice_in_front(workload):
+    # on the CPU summary() reads five times a parameter (D = 2); the front end
+    # reads the proposal's loc and copies its scale
+    assert syncs_a_call(workload) == 5 * 2 + 1 + 1
 
 
 def _ctx(start, end):
